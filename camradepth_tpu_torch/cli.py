@@ -1,0 +1,219 @@
+"""Command-line interface of the PyTorch/CUDA port: ``test`` and ``serve``.
+
+  python -m camradepth_tpu_torch.cli test  --preset base --split S.npy \\
+      --checkpoint W.pth [--report-json R.json] [--device cuda|cpu]
+  python -m camradepth_tpu_torch.cli serve --preset base --split S.npy \\
+      --checkpoint W.pth --out served/ [--limit N] [--device cuda|cpu]
+
+The counterparts of ``camradepth_tpu.cli``'s ``cmd_test``
+(``camradepth_tpu/cli.py:402-462``) and of the dense, single-device
+split-streaming part of ``cmd_serve`` (``:655-852``), with the same flags
+where they apply. ``test`` prints the reference metric report and writes
+the same report JSON keys as ``camradepth_tpu.cli test --report-json``;
+``serve`` streams the split through :class:`serving.DepthEngine`, writes
+``NNNNN_depth.npy`` per frame and prints the same stats line.
+
+``--checkpoint`` is a reference-format ``.pth``, loaded strictly. One flag
+is new: ``--device`` (default ``cuda``, which raises without a card). The
+options of slices still to come are refused with the ROADMAP item that
+brings them: wire loaders (queue 1 item 5), mesh and HTTP serving (item 8),
+StableHLO artifacts (item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+
+class UserError(ValueError):
+    """A CLI user error (bad flag, value or combination): printed as one
+    line and exit code 2."""
+
+
+# Options of the JAX CLI that the port does not take yet, with the ROADMAP
+# queue-1 item that brings each.
+_LATER_FLAGS = {
+    "wire": "item 5 (wire decode on device)",
+    "http_port": "item 8 (the rest of serving: HTTP)",
+    "data_parallel": "item 8 (the rest of serving: mesh) and item 10",
+    "spatial_parallel": "item 8 (the rest of serving: mesh) and item 10",
+}
+
+
+def _add_common_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--preset", default="base",
+                   choices=["base", "base_rgb", "supervised_seg",
+                            "unsupervised_seg", "sup_unsup_seg",
+                            "sup_unsup_seg_rgb"],
+                   help="published experiment preset (args.py:72-122)")
+    p.add_argument("--split", default=None, help="(N,7) split .npy path")
+    p.add_argument("--checkpoint", default=None,
+                   help="reference-format .pth (loaded strictly)")
+    p.add_argument("--max-distances", default=None,
+                   help="comma list of metric caps in metres (default "
+                        "100,50)")
+    p.add_argument("--set", action="append", dest="set_overrides",
+                   default=None, metavar="SECTION.FIELD=VALUE",
+                   help="override a config field by dotted path (sections "
+                        "model, data), e.g. --set data.mini_dataset=1 (every "
+                        "split row is a test row) or --set "
+                        "model.compute_dtype=float32; repeatable, applied "
+                        "last")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu runs "
+                        "the kernels' plain versions)")
+    p.add_argument("--wire", default=None, choices=["auto", "on", "off"],
+                   help=argparse.SUPPRESS)
+
+
+def _build_config(args):
+    from camradepth_tpu_torch import config as C
+
+    try:
+        cfg = C.preset(args.preset)
+        data_kw = {}
+        if args.split:
+            data_kw["split_path"] = args.split
+        if args.max_distances:
+            data_kw["max_distances"] = tuple(
+                float(v) for v in args.max_distances.split(","))
+        if data_kw:
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
+        if args.set_overrides:
+            cfg = C.apply_overrides(cfg, args.set_overrides)
+    except ValueError as e:  # bad --set path or value, preset invariants
+        raise UserError(str(e)) from e
+    return cfg
+
+
+def _check_args(args) -> None:
+    for flag, item in _LATER_FLAGS.items():
+        if getattr(args, flag, None) is not None:
+            raise UserError(
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
+                f"queue 1 {item})"
+            )
+    if not args.checkpoint:
+        raise UserError(f"--checkpoint required for {args.command}")
+    if Path(args.checkpoint).suffix != ".pth":
+        raise UserError(
+            f"{args.checkpoint}: the port loads reference .pth checkpoints "
+            "only; StableHLO artifacts come with ROADMAP queue 1 item 9 and "
+            "Orbax checkpoints with item 8"
+        )
+
+
+def cmd_test(args) -> int:
+    from camradepth_tpu_torch import resolve_device
+    from camradepth_tpu_torch.data.pipeline import make_loaders
+    from camradepth_tpu_torch.evaluation.harness import (
+        evaluate,
+        format_report,
+    )
+    from camradepth_tpu_torch.interop.flax_convert import (
+        load_reference_checkpoint,
+    )
+    from camradepth_tpu_torch.models.camradepth import create_model
+
+    _check_args(args)
+    cfg = _build_config(args)
+    dev = resolve_device(args.device)
+    loader = make_loaders(cfg.data, batch_size=args.test_batch)["test"]
+    if loader is None:
+        raise UserError("the split has no test frames")
+    model = create_model(cfg.model, device=dev,
+                         state_dict=load_reference_checkpoint(args.checkpoint))
+    report = evaluate(cfg, model, loader, device=dev)
+    print(format_report(cfg, report))
+    if args.report_json:
+        Path(args.report_json).write_text(
+            json.dumps({k: float(v) for k, v in report.items()}, indent=1)
+        )
+        print(f"wrote {args.report_json}")
+    return 0
+
+
+def cmd_serve(args) -> int:
+    from camradepth_tpu_torch.data.pipeline import make_loaders
+    from camradepth_tpu_torch.serving import load_engine
+
+    _check_args(args)
+    cfg = _build_config(args)
+    loaders = make_loaders(cfg.data, batch_size=args.serve_batch)
+    loader = loaders["test"] or loaders["val"]
+    if loader is None:
+        raise UserError("the split has no test/val frames")
+    engine = load_engine(cfg, args.checkpoint, batch_size=args.serve_batch,
+                         device=args.device)
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def frames():
+        # whole batches pass through infer_stream without a restack; the
+        # loader pads and masks the tail, so only valid rows go on
+        for batch in loader:
+            feats = batch["features"][..., : cfg.model.input_channels]
+            valid = batch["valid"].astype(bool)
+            yield feats if valid.all() else feats[valid]
+
+    n = 0
+    for i, res in enumerate(engine.infer_stream(frames(),
+                                                inflight=args.inflight)):
+        np.save(out_dir / f"{i:05d}_depth.npy", res["depth"])
+        n += 1
+        if args.limit and n >= args.limit:
+            break
+    stats = engine.stats()
+    # "frames" = frames written (--limit can stop mid-batch); the engine's
+    # own count stays available as frames_processed
+    stats["frames_processed"] = stats.pop("frames", 0.0)
+    print(json.dumps({**stats, "frames": n}))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="camradepth_tpu_torch",
+        description="CamRaDepth on PyTorch/CUDA: test and serve",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("test", help="test-split metric report")
+    p.add_argument("--report-json", default=None, metavar="PATH",
+                   help="also write the metric dict as JSON")
+    _add_common_flags(p)
+    p.add_argument("--test-batch", type=int, default=8)
+    p.set_defaults(fn=cmd_test)
+
+    p = sub.add_parser("serve", help="streaming batched inference over a "
+                                     "split")
+    _add_common_flags(p)
+    p.add_argument("--out", default="served")
+    p.add_argument("--serve-batch", type=int, default=8)
+    p.add_argument("--limit", type=int, default=0,
+                   help="stop after N frames (0 = all)")
+    p.add_argument("--inflight", type=int, default=2,
+                   help="batches kept queued on the device so the copy "
+                        "back overlaps the next batch's compute")
+    for flag in ("--http-port", "--data-parallel", "--spatial-parallel"):
+        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    p.set_defaults(fn=cmd_serve)
+
+    args = parser.parse_args(argv)
+    try:
+        return args.fn(args)
+    except (UserError, NotImplementedError) as e:
+        # NotImplementedError: an option of a slice still to come, raised
+        # by the library with its ROADMAP item
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,12 +1,13 @@
 """Configuration for the PyTorch/CUDA port of CamRaDepth.
 
 The package's own copy of the parts of ``camradepth_tpu/config.py`` that
-the serving path reads: :class:`ModelConfig`, :class:`DataConfig` (depth
-decoding and the evaluation caps), :class:`ExperimentConfig` and
-:func:`preset`. Field names and defaults are those of the JAX package, so
-one set of keyword arguments builds both configs and a JAX config maps
-onto this one field for field. Training and mesh settings arrive with the
-slices that use them.
+serving, the data pipeline and ``cli test``/``cli serve`` read:
+:class:`ModelConfig`, :class:`DataConfig`, :class:`ExperimentConfig`,
+:func:`preset`, :func:`apply_overrides` (``--set``) and
+:func:`tiny_test_config`. Field names and defaults are those of the JAX
+package, so one set of keyword arguments builds both configs and a JAX
+config maps onto this one field for field. Training and mesh settings
+arrive with the slices that use them.
 """
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Mapping, Tuple
+
+# ImageNet normalization constants. The reference normalizes cv2's BGR
+# image with these RGB-ordered statistics; the quirk is kept for weight
+# compatibility (data/channels.py).
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 MODEL_VARIANTS = (
     "base (rgb)",
@@ -86,12 +93,39 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The input-pipeline options that serving reads (reference
-    args.py:14-22)."""
+    """Input-pipeline options (reference args.py:14-22, 190-198)."""
 
+    split_path: str = "original_split.npy"
+    image_dimension: Tuple[int, int] = (416, 800)
     max_depth: float = 100.0
     # Evaluation caps in inverse space (args.py:15, runner.py:451-492).
     max_distances: Tuple[float, ...] = (100.0, 50.0)
+    train_val_split: Tuple[int, int] = (17902, 2237)
+    mini_dataset: bool = False
+    num_workers: int = 8
+    prefetch: int = 2
+    # Channel-assembly flags (args.py:190-198 defaults).
+    sparse_lidar: bool = False
+    filtered_radar: bool = False
+    lidar_ratio: Tuple[float, float] = (0.75, 0.25)
+    sparse_depth_uv: bool = True
+    im_uv: bool = False
+    rad_vel: bool = True
+    # Kept for field-for-field compatibility with the JAX config. The port
+    # always assembles frames with numpy (data/channels.py): the C++
+    # assembler is not ported yet (ROADMAP queue 1 item 12).
+    native_assemble: bool = True
+    # The compact wire format is not ported yet (ROADMAP queue 1 item 5):
+    # the port's loaders raise unless this is "off", the JAX default.
+    wire_format: str = "off"
+
+    @property
+    def effective_train_val_split(self) -> Tuple[int, int]:
+        return (0, 0) if self.mini_dataset else self.train_val_split
+
+    @property
+    def num_samples(self) -> int:
+        return sum(self.effective_train_val_split)
 
 
 @dataclass(frozen=True)
@@ -140,6 +174,112 @@ def preset(name: str, **overrides) -> ExperimentConfig:
         input_channels=in_ch,
     )
     cfg = ExperimentConfig(model=model, name=name)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg
+
+
+def _coerce_override(raw: str, current):
+    """Parse an override string against the current field value's type,
+    as ``camradepth_tpu/config.py:353-399`` does for the types the port's
+    config holds: bools take 1/0/true/false/yes/no/on/off; numeric tuples
+    take comma lists (ints stay ints unless the value needs a float)."""
+    s = raw.strip()
+    if isinstance(current, bool):
+        low = s.lower()
+        if low in ("1", "true", "yes", "on"):
+            return True
+        if low in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"expected a boolean, got {raw!r}")
+    if isinstance(current, int):
+        return int(s)
+    if isinstance(current, float):
+        return float(s)
+    if isinstance(current, tuple):
+        parts = [p.strip() for p in s.strip("()").split(",") if p.strip()]
+        ref = list(current) + [current[-1]] * (len(parts) - len(current))
+        out = []
+        for p, r in zip(parts, ref):
+            f = float(p)
+            out.append(int(f) if isinstance(r, int) and f == int(f) else f)
+        return tuple(out)
+    return s
+
+
+# Config sections of the JAX package that the port does not have yet, and
+# the ROADMAP queue-1 item that brings each.
+_LATER_SECTIONS = {"train": "item 3 (training)", "mesh": "item 10 "
+                   "(multi-device)"}
+
+
+def apply_overrides(cfg: ExperimentConfig, pairs) -> ExperimentConfig:
+    """Dotted ``section.field=value`` overrides, as the JAX package's
+    ``apply_overrides`` (``camradepth_tpu/config.py:402-445``): sections
+    ``model`` and ``data``, plus the top-level ``name``. Values are coerced
+    against the current field's type and ``__post_init__`` checks re-run.
+    A ``train.*`` or ``mesh.*`` path raises, naming the ROADMAP item that
+    brings that section."""
+    sections = ("model", "data")
+    for pair in pairs:
+        if "=" not in pair:
+            raise ValueError(
+                f"--set expects section.field=value, got {pair!r}"
+            )
+        path, _, raw = pair.partition("=")
+        path = path.strip()
+        if "." not in path:
+            if path != "name":
+                raise ValueError(
+                    f"--set path {path!r} must be section.field with "
+                    f"section in {sections} (or 'name')"
+                )
+            cfg = cfg.replace(name=raw.strip())
+            continue
+        section, _, fname = path.partition(".")
+        if section in _LATER_SECTIONS:
+            raise ValueError(
+                f"config section {section!r} is not ported yet (ROADMAP "
+                f"queue 1 {_LATER_SECTIONS[section]})"
+            )
+        if section not in sections:
+            raise ValueError(
+                f"unknown config section {section!r}; choose from "
+                f"{sections}"
+            )
+        sub = getattr(cfg, section)
+        valid = {f.name for f in dataclasses.fields(sub)}
+        if fname not in valid:
+            raise ValueError(
+                f"unknown field {section}.{fname}; available: "
+                f"{sorted(valid)}"
+            )
+        value = _coerce_override(raw, getattr(sub, fname))
+        cfg = cfg.replace(
+            **{section: dataclasses.replace(sub, **{fname: value})}
+        )
+    return cfg
+
+
+def tiny_test_config(**overrides) -> ExperimentConfig:
+    """A miniature config for unit tests (``camradepth_tpu/config.py:
+    459-481``, model and data sections)."""
+    model = ModelConfig(
+        img_size=(64, 128),
+        dims=(16, 32, 32, 64),
+        heads=(1, 2, 4, 8),
+        ff_expansion=(2, 2, 2, 2),
+        sr_ratios=(8, 4, 2, 1),
+        depths=(1, 1, 1, 1),
+        mid_channels=32,
+        input_channels=7,
+        groupnorm_divisor=16,
+        drop_path_rate=0.0,
+        compute_dtype="float32",
+        use_pallas_attention=False,
+    )
+    data = DataConfig(image_dimension=(64, 128), train_val_split=(4, 2))
+    cfg = ExperimentConfig(model=model, data=data, name="tiny")
     if overrides:
         cfg = cfg.replace(**overrides)
     return cfg

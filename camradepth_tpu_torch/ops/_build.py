@@ -44,6 +44,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         f"upsample_bicubic_x2_{t}": [_P, _P, _I, _I, _I, _I, _P]
         for t in ("f32", "bf16")
     },
+    "conv3x3_fused": {
+        # (ptrs, meta, n_src, w, out, partial, stats, B, H, W, K, N, stream)
+        f"conv3x3_fused_{t}": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _P]
+        for t in ("f32", "bf16")
+    },
 }
 
 _lock = threading.Lock()
@@ -127,6 +133,25 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``lib<name>.so``; the first call builds all."""
     return build_all()[name]
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when a kernel would cut the autograd graph: the kernels have
+    no backward yet (it comes with training, ROADMAP queue 1 item 3), so a
+    CUDA call that gradients would have to flow through is an error, not
+    a silently detached result. Run under ``torch.inference_mode()`` or
+    ``torch.no_grad()``, as serving and evaluation do."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward yet and would return "
+            "a result detached from the autograd graph; call it under "
+            "torch.inference_mode() or torch.no_grad() (training comes "
+            "with ROADMAP queue 1 item 3)"
+        )
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

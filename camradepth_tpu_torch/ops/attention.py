@@ -9,7 +9,9 @@ max-pooled score s[b, n] times the channel mean vbar[b, c].
 it launches the Hopper kernel ``csrc/maxpool_attention_scores.cu``; on a
 CPU tensor it runs :func:`maxpool_attention_scores_reference`, the plain
 PyTorch version. Only the forward is ported; the backward (argmax gather
-and scatter-add) comes with training.
+and scatter-add) comes with training. Until then a CUDA input that
+requires a gradient, with gradients enabled, raises instead of returning
+a result detached from the graph; the CPU path stays differentiable.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ def maxpool_attention_scores(
             f"the kernel takes head dims <= 64 and M > 0; got C={c}, "
             f"heads={num_heads}, M={m}"
         )
+    _build.refuse_autograd("maxpool_attention_scores", q, k)
     q = q.contiguous()
     k = k.contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)

@@ -14,7 +14,10 @@ the input dtype between the axes.
 :func:`upsample_bicubic_x2` is the kernel's wrapper. On a CUDA tensor it
 launches the Hopper kernel ``csrc/upsample_bicubic_x2.cu``; on a CPU tensor
 it runs :func:`upsample_bicubic_x2_reference`, the plain PyTorch version.
-Only the forward is ported; the backward comes with training.
+Only the forward is ported; the backward comes with training. Until then a
+CUDA input that requires a gradient, with gradients enabled, raises instead
+of returning a result detached from the graph; the CPU path stays
+differentiable.
 """
 
 from __future__ import annotations
@@ -77,6 +80,7 @@ def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"dtype must be one of {list(_SUFFIX)}, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"need NHWC [B,H,W,C], got {tuple(x.shape)}")
+    _build.refuse_autograd("upsample_bicubic_x2", x)
     b, h, w, c = x.shape
     x = x.contiguous()
     y = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)

@@ -1,0 +1,257 @@
+"""The port's data pipeline, metrics, evaluation harness and CLI
+(camradepth_tpu_torch.{data,evaluation,cli}) against the JAX package's, on
+the CPU.
+
+- Metrics: the same random pred/gt through both, NaN in the same places
+  (empty bands), rtol 1e-5 (fp32 sums in other orders).
+- Data: frames and loader batches of a ``synthetic.generate`` corpus at
+  64x128 agree bit for bit (same numpy arithmetic; the JAX package's C++
+  assembler is bit-exact with its numpy path).
+- The slice as a whole: ``camradepth_tpu.cli test`` and the port's ``cli
+  test --device cpu`` on one 6-frame corpus and one reference .pth at the
+  ``tiny_test_config`` widths in fp32; every non-timing report key agrees
+  to rtol 1e-3, atol 1e-4 (the two forwards agree to ~1e-5 in fp32,
+  tests/test_torch_model.py; metrics are means over a few thousand pixels).
+"""
+
+import json
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from camradepth_tpu import cli as jax_cli
+from camradepth_tpu.config import DataConfig as JaxDataConfig
+from camradepth_tpu.data import channels as jax_channels
+from camradepth_tpu.data import pipeline as jax_pipeline
+from camradepth_tpu.evaluation import metrics as JM
+from camradepth_tpu.evaluation.harness import TIMING_KEYS as JAX_TIMING_KEYS
+from camradepth_tpu_torch import cli
+from camradepth_tpu_torch.config import DataConfig, tiny_test_config
+from camradepth_tpu_torch.data import channels, pipeline, synthetic
+from camradepth_tpu_torch.evaluation import metrics as M
+from camradepth_tpu_torch.evaluation.harness import TIMING_KEYS
+from camradepth_tpu_torch.interop.golden import synth_state_values
+from camradepth_tpu_torch.models.camradepth import create_model
+
+HW = (64, 128)
+# tiny_test_config's model widths, as CLI overrides both CLIs take
+TINY_FLAGS = [
+    "--set", "model.img_size=64,128", "--set", "model.dims=16,32,32,64",
+    "--set", "model.ff_expansion=2,2,2,2", "--set", "model.depths=1,1,1,1",
+    "--set", "model.mid_channels=32", "--set", "model.drop_path_rate=0",
+    "--set", "data.image_dimension=64,128",
+    "--set", "model.compute_dtype=float32", "--set", "data.mini_dataset=1",
+]
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    """A 6-frame corpus (frame 3 is a rain frame) and a reference .pth of
+    synthesized weights whose depth head is biased to the middle of [0, 1],
+    so the predictions spread over the metric range."""
+    tmp = tmp_path_factory.mktemp("corpus")
+    split = synthetic.generate(tmp / "data", num_frames=6, hw=HW, seed=0)
+    model = create_model(tiny_test_config().model, device="cpu")
+    sd = synth_state_values({k: tuple(v.shape)
+                             for k, v in model.state_dict().items()})
+    sd["depth_activation_5.conv_2.bias"] = sd[
+        "depth_activation_5.conv_2.bias"] + np.float32(0.5)
+    pth = tmp / "weights.pth"
+    torch.save({"state_dict": {k: torch.from_numpy(v)
+                               for k, v in sd.items()}}, pth)
+    return tmp, split, pth
+
+
+def _metric_inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    pred = rng.uniform(-0.1, 1.1, (4, 12, 16)).astype(np.float32)
+    gt = rng.uniform(0.0, 1.0, (4, 12, 16)).astype(np.float32)
+    gt[rng.uniform(size=gt.shape) < 0.5] = 0.0  # invalid pixels
+    gt[1] = 0.0                                   # a frame with no GT
+    gt[2] = np.minimum(gt[2], 0.45)               # empty 50 m band
+    return pred, gt
+
+
+def test_depth_metrics_match_jax():
+    pred, gt = _metric_inputs()
+    want = JM.depth_metrics_inverse(jnp.asarray(pred), jnp.asarray(gt))
+    want.update(JM.depth_metrics_true(jnp.asarray(pred), jnp.asarray(gt)))
+    got = M.depth_metrics_inverse(torch.from_numpy(pred),
+                                  torch.from_numpy(gt))
+    got.update(M.depth_metrics_true(torch.from_numpy(pred),
+                                    torch.from_numpy(gt)))
+    assert got.keys() == want.keys()
+    for k in want:
+        g, w = got[k].numpy(), np.asarray(want[k])
+        assert g.shape == (4,) and g.dtype == np.float32, k
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=k)
+        np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=k)
+    assert np.isnan(got["mae_100"][1].item())
+    assert np.isnan(got["rmse_50"][2].item())
+
+
+def test_jaccard_index_matches_jax():
+    rng = np.random.default_rng(1)
+    logits = rng.standard_normal((3, 8, 8, 5)).astype(np.float32)
+    target = rng.integers(0, 5, (3, 8, 8)).astype(np.int32)
+    target[1] = 255  # all ignored: NaN
+    target[2, :4] = 255
+    want = np.asarray(JM.jaccard_index(jnp.asarray(logits),
+                                       jnp.asarray(target), 5))
+    got = M.jaccard_index(torch.from_numpy(logits),
+                          torch.from_numpy(target), 5).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert np.isnan(got[1])
+
+
+def test_synthetic_corpus_matches_jax(tmp_path):
+    from camradepth_tpu.data import synthetic as jax_synthetic
+
+    ours = np.load(synthetic.generate(tmp_path / "t", 3, HW, seed=5))
+    theirs = np.load(jax_synthetic.generate(tmp_path / "j", 3, HW, seed=5))
+    for a, b in zip(ours.ravel(), theirs.ravel()):
+        assert Path(a).name == Path(b).name
+        assert Path(a).read_bytes() == Path(b).read_bytes(), a
+
+
+def test_inverse_depth_codec_matches_jax():
+    depth = np.random.default_rng(3).uniform(-5, 130, (6, 9)).astype(
+        np.float32)
+    depth[0] = 0.0
+    enc = channels.encode_inverse_depth(depth)
+    np.testing.assert_array_equal(enc,
+                                  jax_channels.encode_inverse_depth(depth))
+    np.testing.assert_array_equal(channels.decode_inverse_depth(enc),
+                                  jax_channels.decode_inverse_depth(enc))
+    assert (enc[0] == 0).all() and enc.dtype == np.float32
+
+
+def test_assemble_frame_matches_jax(corpus):
+    _, split, _ = corpus
+    rows = np.load(split)
+    cfg = DataConfig(image_dimension=HW)
+    jcfg = JaxDataConfig(image_dimension=HW)
+    for row in rows:
+        got = channels.assemble_frame(pipeline.load_frame_arrays(row, cfg),
+                                      cfg)
+        want = jax_channels.assemble_frame(
+            jax_pipeline.load_frame_arrays(row, jcfg), jcfg)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["features"].shape == HW + (7,)
+
+
+def test_loader_batches_match_jax(corpus):
+    _, split, _ = corpus
+    cfg = DataConfig(image_dimension=HW, mini_dataset=True, num_workers=2)
+    jcfg = JaxDataConfig(image_dimension=HW, mini_dataset=True,
+                         num_workers=2)
+    ours = pipeline.make_loaders(cfg, batch_size=4, split_path=split)
+    theirs = jax_pipeline.make_loaders(jcfg, batch_size=4, split_path=split)
+    assert ours["train"] is ours["val"] is None
+    got, want = list(ours["test"]), list(theirs["test"])
+    assert len(got) == len(want) == 2  # 4 frames, then 2 padded to 4
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    np.testing.assert_array_equal(got[1]["valid"], [1, 1, 0, 0])
+    assert [ours["test"].frames.name(i) for i in range(6)] == [
+        theirs["test"].frames.name(i) for i in range(6)]
+
+
+def test_loader_refuses_the_wire_format(corpus):
+    _, split, _ = corpus
+    cfg = DataConfig(image_dimension=HW, wire_format="auto")
+    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        pipeline.make_loaders(cfg, batch_size=2, split_path=split)
+
+
+@pytest.fixture(scope="module")
+def reports(corpus):
+    tmp, split, pth = corpus
+    common = ["--split", str(split), "--checkpoint", str(pth),
+              "--test-batch", "4"] + TINY_FLAGS
+    assert jax_cli.main(["test", "--report-json", str(tmp / "jax.json")]
+                        + common) == 0
+    assert cli.main(["test", "--report-json", str(tmp / "port.json"),
+                     "--device", "cpu"] + common) == 0
+    return (json.loads((tmp / "jax.json").read_text()),
+            json.loads((tmp / "port.json").read_text()))
+
+
+def test_cli_test_report_matches_jax(reports):
+    want, got = reports
+    assert got.keys() == want.keys()
+    assert TIMING_KEYS == JAX_TIMING_KEYS
+    compared = [k for k in want if k not in TIMING_KEYS]
+    assert len(compared) == 18 and got["frames"] == 6.0
+    for k in compared:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4,
+                                   err_msg=k)
+    # the predictions spread: the metrics are not those of a constant map
+    assert 5.0 < got["mae_100"] < 45.0
+
+
+def test_cli_test_rain_split_matches_jax(reports):
+    want, got = reports
+    # frame 3 of 6 is the one rain frame: its RMSE is the edge split
+    for k in ("rmse_edge", "rmse_sunny"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4)
+    assert got["rmse_edge"] != got["rmse_sunny"]
+    assert min(got["rmse_edge"], got["rmse_sunny"]) <= got["rmse_100"] <= (
+        max(got["rmse_edge"], got["rmse_sunny"]))
+
+
+def test_cli_serve_writes_one_depth_map_per_frame(corpus, tmp_path,
+                                                  capsys):
+    _, split, pth = corpus
+    out = tmp_path / "served"
+    assert cli.main(["serve", "--split", str(split),
+                     "--checkpoint", str(pth), "--serve-batch", "4",
+                     "--out", str(out), "--device", "cpu"] + TINY_FLAGS) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["frames"] == 6 and stats["frames_processed"] == 6.0
+    maps = sorted(out.glob("*_depth.npy"))
+    assert [p.name for p in maps] == [f"{i:05d}_depth.npy" for i in range(6)]
+    for p in maps:
+        d = np.load(p)
+        assert d.shape == HW and np.isfinite(d).all()
+        assert 0.0 <= d.min() and d.max() <= 100.0
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--wire", "auto"], "item 5"),
+    (["--http-port", "0"], "item 8"),
+    (["--data-parallel", "2"], "item 10"),
+    (["--set", "data.wire_format=on"], "item 5"),
+    (["--set", "train.batch_size=4"], "item 3"),
+])
+def test_cli_refuses_options_of_later_slices(corpus, capsys, extra, item):
+    _, split, pth = corpus
+    rc = cli.main(["serve", "--split", str(split),
+                   "--checkpoint", str(pth), "--device", "cpu"]
+                  + TINY_FLAGS + extra)
+    assert rc == 2
+    assert item in capsys.readouterr().err
+
+
+def test_cli_refuses_artifact_checkpoints(capsys):
+    assert cli.main(["test", "--checkpoint", "model.hlo",
+                     "--device", "cpu"]) == 2
+    assert "item 9" in capsys.readouterr().err
+
+
+def test_cli_defaults_to_the_card(corpus):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    _, split, pth = corpus
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["test", "--split", str(split),
+                  "--checkpoint", str(pth)] + TINY_FLAGS)

@@ -9,7 +9,12 @@ JAX; there, skip the JAX-based tests/conftest.py:
 Tolerances: the attention kernel sums the d products in another order than
 the plain einsum (1e-5 relative, fp32 accumulation in both dtypes); the
 bicubic kernel rounds every product and sum as the plain version does, so
-it must agree bit for bit.
+it must agree bit for bit. The fused conv sums its fp32 products in another
+order than cuDNN's fp32 conv before the one rounding of its raw output: at
+most 1 bf16 ulp in bf16 (for outputs above 2**-7 of their RMS; see
+_bf16_ulps), and rtol 1e-4, atol 2e-5 in fp32 (the JAX
+package's own limits, tests/test_conv_fused.py:38-40); its fp32 channel
+sums run over H*W terms, so rtol 1e-4 and atol 1e-3 * sqrt(H*W).
 """
 
 import numpy as np
@@ -19,6 +24,12 @@ import torch
 from camradepth_tpu_torch.ops.attention import (
     maxpool_attention_scores,
     maxpool_attention_scores_reference,
+)
+from camradepth_tpu_torch.ops.conv_fused import (
+    Source,
+    conv3x3_fused,
+    conv3x3_reference,
+    gn_affine_from_stats,
 )
 from camradepth_tpu_torch.ops.resize import (
     upsample_bicubic_x2,
@@ -77,3 +88,121 @@ def test_upsample_kernel_matches_plain_bitwise(cuda, dtype, shape):
     assert upsample_bicubic_x2.launches == before + 1
     torch.testing.assert_close(got, upsample_bicubic_x2_reference(x),
                                rtol=0, atol=0)
+
+
+def _bf16_ulps(got, want):
+    """Largest |got - want| in bf16 ulps of the larger magnitude, taken at
+    no less than 2**-7 of the output's RMS: below that the fp32 sums'
+    order differences (up to ~1.5e-5 of the RMS, seen on the H100) exceed
+    a bf16 ulp of the output."""
+    g, w = got.float(), want.float()
+    floor = max(2.0**-7 * w.square().mean().sqrt().item(),
+                torch.finfo(torch.bfloat16).tiny)
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(floor)
+    ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(
+        torch.log2(mag)))
+    return ((g - w).abs() / ulp).max().item()
+
+
+def _conv_chain(b, h, w, k0, widths, dtype, device, seed):
+    """The three chained convs of a ShortResBlock: layer i reads the input
+    and the raw outputs of the layers before it, each through its GroupNorm
+    affine (from the previous launch's statistics) and GELU."""
+    rng = np.random.default_rng(seed)
+    x = _randn((b, h, w, k0), seed, dtype, device)
+    sources = [Source(x)]
+    steps = []
+    for n in widths:
+        k = sum(s.x.shape[-1] for s in sources)
+        wt = torch.from_numpy(rng.standard_normal((3, 3, k, n)).astype(
+            np.float32) / np.float32(np.sqrt(9 * k))).to(device)
+        steps.append((list(sources), wt))
+        raw, s, q = conv3x3_reference(sources, wt)
+        gamma = torch.from_numpy(1 + 0.1 * rng.standard_normal(n).astype(
+            np.float32)).to(device)
+        beta = torch.from_numpy(0.1 * rng.standard_normal(n).astype(
+            np.float32)).to(device)
+        groups = n // 16 if n % 16 == 0 else 1
+        sc, sh = gn_affine_from_stats(s, q, h * w, gamma, beta, groups)
+        sources.append(Source(raw, sc, sh, True))
+    return steps
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,k0,widths", [
+    (2, 26, 50, 416, (96, 64, 128)),     # base stage 1
+    (1, 104, 200, 129, (96, 64, 128)),   # base stage 4, K0 = 129
+    (2, 17, 23, 37, (13, 5, 70)),        # ragged: odd H, W; K, N off tiles
+    (1, 1, 1, 3, (1,)),
+])
+def test_conv3x3_fused_kernel_matches_plain(cuda, dtype, b, h, w, k0,
+                                            widths):
+    torch.backends.cudnn.allow_tf32 = False
+    for sources, wt in _conv_chain(b, h, w, k0, widths, dtype, cuda, 3):
+        before = conv3x3_fused.launches
+        got = conv3x3_fused(sources, wt)
+        torch.cuda.synchronize()
+        assert conv3x3_fused.launches == before + 1
+        want = conv3x3_reference(sources, wt)
+        assert got[0].shape == want[0].shape and got[0].dtype == dtype
+        if dtype == torch.bfloat16:
+            assert _bf16_ulps(got[0], want[0]) <= 1.0
+        else:
+            torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=2e-5)
+        atol = 1e-3 * (h * w) ** 0.5
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=atol)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=atol)
+
+
+def test_conv3x3_fused_statistics_are_deterministic(cuda):
+    (sources, wt), = _conv_chain(2, 52, 100, 192, (96,), torch.bfloat16,
+                                 cuda, 4)
+    first = conv3x3_fused(sources, wt)
+    again = conv3x3_fused(sources, wt)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_conv3x3_fused_reads_padded_sources(cuda):
+    x = _randn((1, 9, 11, 8), 5, torch.float32, cuda)
+    padded = torch.cat([x, _randn((1, 9, 11, 4), 6, torch.float32, cuda)],
+                       dim=-1)
+    wt = _randn((3, 3, 8, 6), 7, torch.float32, cuda)
+    got = conv3x3_fused([Source(padded, valid=8)], wt)
+    want = conv3x3_reference([Source(x)], wt)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv3x3_fused_reads_unaligned_views(cuda, dtype):
+    """Contiguous views that start one element into their storage cannot
+    be read as 16-byte vectors: the kernel takes its scalar loads there."""
+    b, h, w, c, n = 2, 9, 13, 16, 24
+    flat = _randn((b * h * w * c + 1,), 9, dtype, cuda)
+    x = flat[1:].view(b, h, w, c)
+    sc = _randn((b * c + 1,), 10, torch.float32, cuda)[1:].view(b, c)
+    sh = _randn((b * c + 1,), 11, torch.float32, cuda)[1:].view(b, c)
+    wt = _randn((3 * 3 * c * n + 1,), 12, dtype, cuda)[1:].view(3, 3, c, n)
+    srcs = [Source(x, sc.to(dtype), sh.to(dtype), True)]
+    got = conv3x3_fused(srcs, wt)
+    want = conv3x3_reference(srcs, wt)
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(got[0], want[0]) <= 1.0
+    else:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("call", ["attention", "upsample", "conv"])
+def test_kernels_refuse_inputs_that_need_gradients(cuda, call):
+    x = _randn((1, 4, 6, 8), 8, torch.float32, cuda).requires_grad_()
+    fns = {
+        "attention": lambda: maxpool_attention_scores(
+            x.reshape(1, 24, 8), x.reshape(1, 24, 8), 2, 0.5),
+        "upsample": lambda: upsample_bicubic_x2(x),
+        "conv": lambda: conv3x3_fused(
+            [Source(x)], torch.zeros(3, 3, 8, 4, device=cuda)),
+    }
+    with pytest.raises(RuntimeError, match="no backward"):
+        fns[call]()
+    with torch.no_grad():
+        fns[call]()

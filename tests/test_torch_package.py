@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax():
 
 def test_sources_import_no_jax():
     bad = []
-    for path in PKG.rglob("*.py"):
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
