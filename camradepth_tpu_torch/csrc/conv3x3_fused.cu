@@ -11,12 +11,12 @@
 // NHWC sources, accumulated in fp32. A source with a GroupNorm affine gets
 // v * scale + shift on load, multiply and add each rounded to the
 // activation type (an FMA would round once and differ by one ulp from the
-// JAX package), then GELU when asked (the tanh form in bf16, the exact erf
-// form in fp32, evaluated in fp32 as PyTorch's CUDA GELU). SAME padding is
-// zero *after* that transform (conv_fused.py:184-194). The raw output is
-// written in the activation type, and the per-(batch, channel) fp32 sums
-// and sums of squares are taken from the fp32 accumulator before rounding
-// (conv_fused.py:219-223).
+// JAX package), then GELU when asked: in bf16 the JAX package's tanh form,
+// eight bf16 operations each rounded (gelu_bf16.cuh), in fp32 the exact erf
+// form. SAME padding is zero *after* that transform (conv_fused.py:184-194).
+// The raw output is written in the activation type, and the per-(batch,
+// channel) fp32 sums and sums of squares are taken from the fp32
+// accumulator before rounding (conv_fused.py:219-223).
 //
 // Bound on the H100. The 15 ShortResBlock convolutions of `base` at
 // 416x800, batch 8, are 2.1e12 multiply-adds: ~4.3 ms at the 989 TFLOP/s of
@@ -24,31 +24,44 @@
 // 3.35 TB/s, so they are bound by operations; in fp32 (67 TFLOP/s outside
 // the tensor cores) by operations too.
 //
-// Design (simple and right first; wgmma and TMA are later work). One block
-// of 256 threads computes a 16x16-pixel tile of one image for 64 output
-// channels. The K axis (9 taps x concat channels) is walked in chunks of 16
-// (bf16) or 8 (fp32) concat channels: for each chunk the block stages the
-// 18x18 halo of the tile, transformed as above, and the 9 x chunk x 64
-// weight slice in shared memory, then accumulates the nine taps from it.
-// Staging moves 16-byte vectors (8 bf16 or 4 fp32 channels) wherever the
-// source layout is aligned, and falls back to scalar loads where it is not
-// (channel counts such as 129, sources that meet inside a vector).
-// bf16 runs on the tensor cores through nvcuda::wmma 16x16x16 fragments with
-// fp32 accumulators: each warp holds two 16-pixel output rows by up to four
-// 16-channel fragments. fp32 runs on the CUDA cores: each thread holds 8
-// pixels by 8 channels in registers. The TPU kernel's flat zero-pad-column
-// staging buffer and 128-lane output padding are not carried over: any H,
-// W, K and N are taken and the output is [B, H, W, N] unpadded.
+// bf16 design (conv_bf16_mma_kernel): implicit GEMM on the tensor cores,
+// mma.sync m16n8k16 with fp32 accumulators. One block of 16 warps computes
+// a 16x16-pixel tile of one image for all output channels up to 128 (N
+// rounded up to 32; wider N takes further blocks of 128), so each input
+// element is loaded and transformed once per tile, apart from the halo.
+// The K axis is walked in chunks of 32 concat channels through a
+// two-stage ring in shared memory: per stage the 18x18 halo [324 pixels]
+// [32 channels] and the weight slice [9 taps][32][N], both filled by
+// cp.async (zero filled outside the image and in padding). While chunk k
+// multiplies, chunk k+1 is in flight, and each warp, between two of chunk
+// k's taps, transforms its share of chunk k+1 in place (affine, GELU; a
+// source read as it is needs nothing), so the transform overlaps other
+// warps' products; one barrier per chunk frees a stage for chunk k+2. A
+// warp holds two output rows (two m16 tiles) by N/2 channels; for each of
+// the nine taps its A fragments are read by ldmatrix straight from the
+// halo at the tap's shifted pixel offset (no copy per tap), and its B
+// fragments by ldmatrix.trans from the weight slice. Row pitches are odd
+// multiples of 16 bytes, so ldmatrix reads without bank conflicts. wgmma
+// and TMA are later work.
+//
+// fp32 design (conv_f32_kernel): the CUDA cores, since TF32 would break the
+// JAX package's fp32 limits. A block of 256 threads computes a 16x16 tile
+// for 64 output channels; it stages the 18x18 halo, transformed, and the
+// 9 x 8 x 64 weight slice per chunk of 8 concat channels, 16-byte vectors
+// where the layout is aligned and scalar loads where not; each thread holds
+// 8 pixels by 8 channels in registers.
+//
+// The TPU kernel's flat zero-pad-column staging buffer and 128-lane output
+// padding are not carried over: any H, W, K and N are taken and the output
+// is [B, H, W, N] unpadded.
 //
 // Statistics are deterministic: each block sums its pixels in a fixed
 // order into a per-tile partial, and a second small kernel adds the
 // partials of all tiles in tile order. No float atomics.
 
-// common.cuh first: it includes cuda_bf16.h, which <mma.h> needs for its
-// bf16 fragments
 #include "common.cuh"
-
-#include <mma.h>
+#include "gelu_bf16.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -56,9 +69,8 @@ constexpr int kMaxSources = 4;
 constexpr int kTile = 16;                    // output tile: 16 x 16 pixels
 constexpr int kHalo = kTile + 2;             // staged rows and columns
 constexpr int kHaloPix = kHalo * kHalo;      // 324
-constexpr int kTileN = 64;                   // output channels per block
-constexpr int kThreads = 256;                // 8 warps
-constexpr int kWarps = kThreads / 32;
+constexpr int kTileN = 64;                   // fp32: channels per block
+constexpr int kThreads = 256;                // fp32: 8 warps
 
 struct Source {
   const void* x;      // [B, H, W, c] in the activation type
@@ -67,25 +79,20 @@ struct Source {
   int c;              // channels stored per pixel
   int valid;          // channels read: the first `valid`
   int gelu;           // GELU after the affine
-  int vec;            // x (and the affine) load as aligned 16-byte vectors
+  int vec;            // x (fp32: and the affine) loads as 16-byte vectors
+  int avec;           // bf16: the affine loads as 16-byte vectors
 };
 
 struct Sources {
   Source s[kMaxSources];
-  int k_begin[kMaxSources + 1];  // offset of each source in the concat
+  int k_begin[kMaxSources + 1];   // offset of each source in the concat
+  int kp_begin[kMaxSources + 1];  // the same, each source padded to 8 (bf16)
   int n;
 };
 
-// PyTorch's CUDA GELU (ATen GeluKernel): fp32 arithmetic, tanh form for
-// bf16 activations and the exact erf form for fp32 ones.
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float kKappa = 0.044715f;
-  const float x_cube = x * x * x;
-  const float inner = kBeta * (x + kKappa * x_cube);
-  return 0.5f * x * (1.0f + tanhf(inner));
-}
-
+// GELU after the affine: in fp32 the exact erf form of torch's nn.GELU (in
+// bf16 the JAX package's op-by-op tanh form, gelu_bf16.cuh, in the bf16
+// kernel's transform).
 __device__ __forceinline__ float gelu_erf(float x) {
   const float kAlpha = 0.7071067811865476f;  // 1 / sqrt(2)
   return 0.5f * x * (1.0f + erff(x * kAlpha));
@@ -96,10 +103,6 @@ __device__ __forceinline__ float gelu_of(float x);
 template <>
 __device__ __forceinline__ float gelu_of<float>(float x) {
   return gelu_erf(x);
-}
-template <>
-__device__ __forceinline__ float gelu_of<__nv_bfloat16>(float x) {
-  return gelu_tanh(x);
 }
 
 // Staging moves 16-byte vectors: V = 16 / sizeof(T) values of type T.
@@ -292,105 +295,330 @@ __device__ __forceinline__ void write_partials(const float (*s_sum)[kTileN],
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    conv_bf16_kernel(const __grid_constant__ Sources S,
-                     const __nv_bfloat16* __restrict__ w, int w_vec,
-                     __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ partial, int H, int W, int K, int N,
-                     int tiles_x, int n_tiles) {
-  using namespace nvcuda;
-  constexpr int KC = 16;           // one wmma k-step per chunk
-  constexpr int LDW = kTileN + 8;  // weight row pitch (bank spread)
-  __shared__ __align__(128) __nv_bfloat16 s_in[kHaloPix * KC];
-  __shared__ __align__(128) __nv_bfloat16 s_w[9 * KC * LDW];
-  __shared__ __align__(128) float s_scr[kWarps][16 * 16];
-  __shared__ float s_sum[kWarps][kTileN];
-  __shared__ float s_sq[kWarps][kTileN];
+// ---- bf16 on the tensor cores -------------------------------------------
+//
+// The K axis inside the kernel is the concat of the sources with each one
+// padded to a multiple of 8 channels (Sources::kp_begin), so every 16-byte
+// vector of 8 staged channels lies in one source and starts at one of its
+// channels 8j: a source that starts inside a vector of the concat (K0 =
+// 129) still loads by cp.async. The padding channels are zero in the halo
+// and in the weights; a bf16 product is exact in fp32, so the padding adds
+// exact zeros and only the order of the sum differs from the plain conv.
+
+constexpr int kKC = 32;                  // concat channels per K chunk
+constexpr int kApitch = kKC + 8;         // halo row pitch: 5 x 16 bytes, odd
+constexpr int kMmaThreads = 512;         // 16 warps: 8 along M x 2 along N
+constexpr int kWarpsM = 8;
+constexpr int kNTmax = 128;              // output channels per block
+constexpr int kVecsPerPix = kKC / 8;     // 16-byte vectors per halo pixel
+
+template <int NT>
+struct Bf16Smem {
+  static constexpr int kWpitch = NT + 8;  // odd number of 16-byte units
+  static constexpr int kWstage = 9 * kKC * kWpitch;  // elements
+  static constexpr int kAstage = kHaloPix * kApitch;  // elements
+  // two stages of weights and halo, then the bf16 GELU table
+  static constexpr int kBytes = (2 * kWstage + 2 * kAstage + kGeluTable) * 2;
+};
+
+// The source of internal channel kin (< Kp) and its channel there.
+__device__ __forceinline__ int source_of_padded(const Sources& S, int kin,
+                                                int* c) {
+  int s = 0;
+  while (s + 1 < S.n && kin >= S.kp_begin[s + 1]) ++s;
+  *c = kin - S.kp_begin[s];
+  return s;
+}
+
+// Start the copies of chunk k0: the raw halo (vector-aligned sources) into
+// s_a[pixel][kApitch], where transform_chunk later rewrites it in place,
+// and the weight slice W[t, k0 .. k0+31, n0 .. n0+NT-1] into
+// s_w[t][kKC][kWpitch]. Out-of-image pixels, padding channels and channels
+// beyond N are zero filled or left to the transform. A thread issues the
+// halo vectors that it transforms later (the same loop over i), so its own
+// cp.async.wait_group is all the transform waits for.
+template <int NT>
+__device__ __forceinline__ void issue_chunk(
+    __nv_bfloat16* s_a, __nv_bfloat16* s_w, const Sources& S,
+    const __nv_bfloat16* __restrict__ w, int w_vec, int b, int y0, int x0,
+    int k0, int n0, int H, int W, int Kp, int K, int N) {
+  constexpr int WP = Bf16Smem<NT>::kWpitch;
+  for (int i = threadIdx.x; i < kHaloPix * kVecsPerPix; i += kMmaThreads) {
+    const int p = i / kVecsPerPix;
+    const int v = i - p * kVecsPerPix;
+    const int kin = k0 + 8 * v;
+    const int gy = y0 - 1 + p / kHalo;
+    const int gx = x0 - 1 + p % kHalo;
+    int c = 0;
+    const Source* src = nullptr;
+    if (kin < Kp && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      src = &S.s[source_of_padded(S, kin, &c)];
+      if (c >= src->valid) src = nullptr;  // a padding vector
+    }
+    // zero outside the image and in padding; the raw vector where the
+    // source is vector aligned; left to the transform where it is not
+    if (src == nullptr) {
+      cp_async16(smem_addr(s_a + p * kApitch + 8 * v), S.s[0].x, false);
+    } else if (src->vec) {
+      const long long pix = (static_cast<long long>(b) * H + gy) * W + gx;
+      cp_async16(smem_addr(s_a + p * kApitch + 8 * v),
+                 static_cast<const __nv_bfloat16*>(src->x) + pix * src->c + c,
+                 true);
+    }
+  }
+  constexpr int NV = NT / 8;  // weight vectors per staged row
+  for (int i = threadIdx.x; i < 9 * kKC * NV; i += kMmaThreads) {
+    const int row = i / NV;  // t * kKC + kk
+    const int nv = i - row * NV;
+    const int t = row / kKC;
+    const int kin = k0 + (row - t * kKC);
+    const int n = n0 + 8 * nv;
+    __nv_bfloat16* dst = s_w + row * WP + 8 * nv;
+    int k = -1;  // the weights' row of this channel; -1 for padding
+    if (kin < Kp) {
+      int c;
+      const int s = source_of_padded(S, kin, &c);
+      if (c < S.s[s].valid) k = S.k_begin[s] + c;
+    }
+    const __nv_bfloat16* src =
+        w + (static_cast<long long>(t) * K + (k < 0 ? 0 : k)) * N +
+        (n < N ? n : 0);
+    if (w_vec) {
+      cp_async16(smem_addr(dst), src, k >= 0 && n < N);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dst[j] = (k >= 0 && n + j < N) ? src[j] : __float2bfloat16_rn(0.0f);
+    }
+  }
+  cp_async_commit();
+}
+
+// The halo of chunk k0 as the conv reads it, in place in s_a[pixel]
+// [kApitch]: the raw vectors that issue_chunk copied there (or, for sources
+// that are not vector aligned, device memory) through each source's affine
+// and GELU. Vectors that need nothing (zeros, whole vectors of a source
+// read as it is) are left as issue_chunk wrote them.
+__device__ __forceinline__ void transform_chunk(
+    __nv_bfloat16* s_a, const unsigned short* gelu_table, const Sources& S,
+    int b, int y0, int x0, int k0, int H, int W, int Kp) {
+  for (int i = threadIdx.x; i < kHaloPix * kVecsPerPix; i += kMmaThreads) {
+    const int p = i / kVecsPerPix;
+    const int v = i - p * kVecsPerPix;
+    const int kin = k0 + 8 * v;
+    const int gy = y0 - 1 + p / kHalo;
+    const int gx = x0 - 1 + p % kHalo;
+    if (kin >= Kp || gy < 0 || gy >= H || gx < 0 || gx >= W) continue;
+    int c;
+    const Source& src = S.s[source_of_padded(S, kin, &c)];
+    if (c >= src.valid) continue;  // a padding vector
+    const bool whole = c + 8 <= src.valid;
+    const bool affine = src.scale != nullptr;
+    if (src.vec && whole && !affine && !src.gelu) continue;
+    __nv_bfloat16* dst = s_a + p * kApitch + 8 * v;
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(src.x);
+    const long long pix = (static_cast<long long>(b) * H + gy) * W + gx;
+    const uint4 raw = src.vec ? *reinterpret_cast<const uint4*>(dst)
+                              : make_uint4(0, 0, 0, 0);
+    const __nv_bfloat16* sc = static_cast<const __nv_bfloat16*>(src.scale);
+    const __nv_bfloat16* sh = static_cast<const __nv_bfloat16*>(src.shift);
+    const long long a = static_cast<long long>(b) * src.valid + c;
+    uint4 sv = make_uint4(0, 0, 0, 0), hv = sv;
+    if (affine && src.avec && whole) {
+      sv = *reinterpret_cast<const uint4*>(sc + a);
+      hv = *reinterpret_cast<const uint4*>(sh + a);
+    }
+    float f[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      f[j] = 0.0f;
+      if (c + j < src.valid) {
+        const float xv = src.vec ? vec_get<__nv_bfloat16>(raw, j)
+                                 : to_f32(x[pix * src.c + c + j]);
+        float v = xv;
+        if (affine) {  // multiply, then add, each rounded to bf16
+          const float s = src.avec && whole ? vec_get<__nv_bfloat16>(sv, j)
+                                            : to_f32(sc[a + j]);
+          const float h = src.avec && whole ? vec_get<__nv_bfloat16>(hv, j)
+                                            : to_f32(sh[a + j]);
+          v = bf16_round(__fadd_rn(bf16_round(__fmul_rn(v, s)), h));
+        }
+        f[j] = src.gelu ? gelu_bf16_table(v, gelu_table) : v;
+      }
+    }
+    *reinterpret_cast<uint4*>(dst) = vec_pack<__nv_bfloat16>(f);
+  }
+}
+
+// One block: a 16x16-pixel tile of one image and NT (<= 128) output
+// channels n0 .. n0+NT-1, all of them when N <= 128. Warp (wm, wn) holds
+// output rows 2wm, 2wm+1 (two m16 tiles of 16 pixels) by NT/2 channels
+// (NT/16 n8 tiles): 2 * NT/16 * 4 fp32 accumulators a thread.
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    conv_bf16_mma_kernel(const __grid_constant__ Sources S,
+                         const __nv_bfloat16* __restrict__ w, int w_vec,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ partial, int H, int W, int K,
+                         int Kp, int N, int tiles_x, int n_tiles) {
+  using L = Bf16Smem<NT>;
+  constexpr int WP = L::kWpitch;
+  constexpr int NW = NT / 2;   // channels per warp
+  constexpr int NJ = NW / 8;   // n8 tiles per warp
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);  // 2 stages
+  __nv_bfloat16* s_a = s_w + 2 * L::kWstage;  // 2 stages
+  unsigned short* gelu_table =
+      reinterpret_cast<unsigned short*>(s_a + 2 * L::kAstage);
 
   const int tile = blockIdx.x;
   const int y0 = (tile / tiles_x) * kTile;
   const int x0 = (tile % tiles_x) * kTile;
-  const int n0 = blockIdx.y * kTileN;
+  const int n0 = blockIdx.y * kNTmax;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // 16-channel fragments of this block that hold a channel below N
-  const int nf = min(kTileN / 16, (N - n0 + 15) / 16);
+  const int wm = warp % kWarpsM;
+  const int wn = warp / kWarpsM;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  float acc[2][NJ][4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[mi][f], 0.0f);
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    stage_input<__nv_bfloat16, KC>(s_in, S, b, y0, x0, k0, H, W, K);
-    stage_weights<__nv_bfloat16, KC, LDW>(s_w, w, w_vec, k0, n0, K, N);
-    __syncthreads();
+  // ldmatrix lanes: A rows are pixels (16 per m16 tile), B rows channels k
+  const int a_pix = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int a_col = 8 * (lane >> 4);
+  const int b_k = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int b_n = wn * NW + 8 * (lane >> 4);
+
+  // A two-stage ring of halo and weight buffers. Chunk ck+1 is copied
+  // while chunk ck multiplies; each warp transforms its share of chunk ck+1
+  // in place between two of chunk ck's taps (a tap that differs between
+  // warps, so the tensor cores never wait on all of them at once); one
+  // barrier per chunk then frees chunk ck's buffers for chunk ck+2.
+  const int nc = (Kp + kKC - 1) / kKC;
+  const int t_transform = 4 + (warp & 3);
+  issue_chunk<NT>(s_a, s_w, S, w, w_vec, b, y0, x0, 0, n0, H, W, Kp, K, N);
+  fill_gelu_table(gelu_table);
+  __syncthreads();
+  if (nc > 1)
+    issue_chunk<NT>(s_a + L::kAstage, s_w + L::kWstage, S, w, w_vec, b, y0,
+                    x0, kKC, n0, H, W, Kp, K, N);
+  if (nc > 1) cp_async_wait<1>(); else cp_async_wait<0>();
+  transform_chunk(s_a, gelu_table, S, b, y0, x0, 0, H, W, Kp);
+  __syncthreads();
+  for (int ck = 0; ck < nc; ++ck) {
+    const int cur = ck & 1;
+    const __nv_bfloat16* sa = s_a + cur * L::kAstage;
+    const __nv_bfloat16* sw = s_w + cur * L::kWstage;
 #pragma unroll 1
     for (int t = 0; t < 9; ++t) {
+      if (t == t_transform && ck + 1 < nc) {
+        cp_async_wait<0>();  // this thread's copies of chunk ck+1
+        transform_chunk(s_a + (cur ^ 1) * L::kAstage, gelu_table, S, b, y0,
+                        x0, (ck + 1) * kKC, H, W, Kp);
+      }
       const int di = t / 3;
       const int dj = t - di * 3;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bf[4];
 #pragma unroll
-      for (int f = 0; f < 4; ++f)
-        if (f < nf) wmma::load_matrix_sync(bf[f], s_w + t * KC * LDW + f * 16,
-                                           LDW);
+      for (int ks = 0; ks < kKC / 16; ++ks) {
+        unsigned a[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        // output row 2*warp+mi, its 16 pixels shifted by the tap
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af;
-        const int row = warp * 2 + mi;
-        wmma::load_matrix_sync(af, s_in + ((row + di) * kHalo + dj) * KC, KC);
+        for (int mi = 0; mi < 2; ++mi) {
+          const int hp = (2 * wm + mi + di) * kHalo + dj + a_pix;
+          ldmatrix_x4(a[mi], smem_addr(sa + hp * kApitch + ks * 16 + a_col));
+        }
+        const __nv_bfloat16* wrow = sw + (t * kKC + ks * 16 + b_k) * WP + b_n;
 #pragma unroll
-        for (int f = 0; f < 4; ++f)
-          if (f < nf) wmma::mma_sync(acc[mi][f], af, bf[f], acc[mi][f]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: each fragment goes through the warp's 16x16 scratch; lane
-  // (half, c) writes channel c of pixels 8*half .. 8*half+7 and sums them.
-  float* scr = s_scr[warp];
-  const int c = lane & 15;
-  const int half = lane >> 4;
+        for (int nb = 0; nb < NJ / 2; ++nb) {
+          unsigned bf[4];  // n8 tiles 2nb (bf[0], bf[1]) and 2nb+1
+          ldmatrix_x4_trans(bf, smem_addr(wrow + nb * 16));
 #pragma unroll
-  for (int f = 0; f < 4; ++f) {
-    float s = 0.0f, q = 0.0f;
-    const int n = n0 + f * 16 + c;
-    if (f < nf) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int gy = y0 + warp * 2 + mi;
-        wmma::store_matrix_sync(scr, acc[mi][f], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int j = 0; j < 8; ++j) {
-          const int px = half * 8 + j;
-          const int gx = x0 + px;
-          const float v = scr[px * 16 + c];
-          if (gy < H && gx < W && n < N) {
-            out[((static_cast<long long>(b) * H + gy) * W + gx) * N + n] =
-                __float2bfloat16_rn(v);
-            s += v;
-            q += v * v;
+          for (int mi = 0; mi < 2; ++mi) {
+            mma_bf16(acc[mi][2 * nb], a[mi], bf[0], bf[1]);
+            mma_bf16(acc[mi][2 * nb + 1], a[mi], bf[2], bf[3]);
           }
         }
-        __syncwarp();
       }
     }
-    s += __shfl_down_sync(0xffffffffu, s, 16);
-    q += __shfl_down_sync(0xffffffffu, q, 16);
-    if (half == 0) {
-      s_sum[warp][f * 16 + c] = s;
-      s_sq[warp][f * 16 + c] = q;
+    // every warp is done with chunk ck's buffers, has transformed its share
+    // of chunk ck+1 and has waited for its copies of chunk ck+1's weights
+    __syncthreads();
+    if (ck + 2 < nc)
+      issue_chunk<NT>(s_a + cur * L::kAstage, s_w + cur * L::kWstage, S, w,
+                      w_vec, b, y0, x0, (ck + 2) * kKC, n0, H, W, Kp, K, N);
+  }
+
+  // Epilogue: raw output in bf16 and per-channel sums of the fp32
+  // accumulators over this thread's pixels (columns g and g+8 of rows
+  // 2wm, 2wm+1), then over the 8 lanes g of a column pair by shuffles, in
+  // a fixed order. The warp sums meet in shared memory (the halo ring's
+  // space, free after the loop's last barrier).
+  float (*s_sum)[kNTmax] = reinterpret_cast<float (*)[kNTmax]>(s_a);
+  float (*s_sq)[kNTmax] = s_sum + kWarpsM;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int nl = wn * NW + j * 8 + 2 * t4;  // channel in the block tile
+    const int n = n0 + nl;
+    float s0 = 0.f, s1 = 0.f, q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int gy = y0 + 2 * wm + mi;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int gx = x0 + g + 8 * hf;
+        if (gy < H && gx < W) {
+          const float v0 = acc[mi][j][2 * hf];
+          const float v1 = acc[mi][j][2 * hf + 1];
+          __nv_bfloat16* o =
+              out + ((static_cast<long long>(b) * H + gy) * W + gx) * N + n;
+          if (n + 1 < N && (N & 1) == 0) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (n < N) o[0] = __float2bfloat16_rn(v0);
+            if (n + 1 < N) o[1] = __float2bfloat16_rn(v1);
+          }
+          s0 += v0;
+          q0 += v0 * v0;
+          s1 += v1;
+          q1 += v1 * v1;
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      q0 += __shfl_xor_sync(0xffffffffu, q0, o);
+      q1 += __shfl_xor_sync(0xffffffffu, q1, o);
+    }
+    if (g == 0) {
+      s_sum[wm][nl] = s0;
+      s_sum[wm][nl + 1] = s1;
+      s_sq[wm][nl] = q0;
+      s_sq[wm][nl + 1] = q1;
     }
   }
   __syncthreads();
-  write_partials<kWarps>(s_sum, s_sq, partial, b, tile, n_tiles, n0, N,
-                         static_cast<long long>(gridDim.z) * n_tiles * N);
+  const int nn = threadIdx.x;
+  if (nn < NT && n0 + nn < N) {
+    float s = 0.0f, q = 0.0f;
+    for (int r = 0; r < kWarpsM; ++r) {
+      s += s_sum[r][nn];
+      q += s_sq[r][nn];
+    }
+    const long long o =
+        (static_cast<long long>(b) * n_tiles + tile) * N + n0 + nn;
+    partial[o] = s;
+    partial[static_cast<long long>(gridDim.z) * n_tiles * N + o] = q;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -510,6 +738,25 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
+template <int NT>
+cudaError_t launch_bf16(dim3 grid, cudaStream_t st, const Sources& S,
+                        const __nv_bfloat16* w, int w_vec, __nv_bfloat16* out,
+                        float* partial, int H, int W, int K, int Kp, int N,
+                        int tiles_x, int n_tiles) {
+  constexpr int kBytes = Bf16Smem<NT>::kBytes;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_bf16_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBytes);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  conv_bf16_mma_kernel<NT><<<grid, kMmaThreads, kBytes, st>>>(
+      S, w, w_vec, out, partial, H, W, K, Kp, N, tiles_x, n_tiles);
+  return cudaGetLastError();
+}
+
 // ptrs: per source (x, scale, shift); meta: per source (c, valid, gelu).
 // partial: fp32 [2, B, n_tiles, N] scratch; stats: fp32 [2, B, N].
 template <typename T>
@@ -530,34 +777,56 @@ int launch(const void* const* ptrs, const int* meta, int n_src, const void* w,
     d.c = meta[3 * s];
     d.valid = meta[3 * s + 1];
     d.gelu = meta[3 * s + 2];
-    d.vec = aligned16(d.x) && aligned16(d.scale) && aligned16(d.shift) &&
-            d.c % kVec<T> == 0 &&
-            (d.scale == nullptr || d.valid % kVec<T> == 0);
+    if constexpr (sizeof(T) == 2) {
+      d.vec = aligned16(d.x) && d.c % 8 == 0;
+      d.avec = d.scale != nullptr && aligned16(d.scale) &&
+               aligned16(d.shift) && d.valid % 8 == 0;
+    } else {
+      d.vec = aligned16(d.x) && aligned16(d.scale) && aligned16(d.shift) &&
+              d.c % kVec<T> == 0 &&
+              (d.scale == nullptr || d.valid % kVec<T> == 0);
+    }
     if (d.x == nullptr || d.valid <= 0 || d.valid > d.c ||
         (d.scale == nullptr) != (d.shift == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     S.k_begin[s + 1] = S.k_begin[s] + d.valid;
+    S.kp_begin[s + 1] = S.kp_begin[s] + (d.valid + 7) / 8 * 8;
   }
-  for (int s = n_src; s < kMaxSources; ++s) S.k_begin[s + 1] = S.k_begin[s];
+  for (int s = n_src; s < kMaxSources; ++s) {
+    S.k_begin[s + 1] = S.k_begin[s];
+    S.kp_begin[s + 1] = S.kp_begin[s];
+  }
   if (S.k_begin[n_src] != K) return static_cast<int>(cudaErrorInvalidValue);
 
   const int tiles_x = (W + kTile - 1) / kTile;
   const int n_tiles = tiles_x * ((H + kTile - 1) / kTile);
-  const dim3 grid(n_tiles, (N + kTileN - 1) / kTileN, B);
   const int w_vec = aligned16(w) && N % kVec<T> == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if constexpr (sizeof(T) == 2) {
-    conv_bf16_kernel<<<grid, kThreads, 0, st>>>(
-        S, static_cast<const __nv_bfloat16*>(w), w_vec,
-        static_cast<__nv_bfloat16*>(out), partial, H, W, K, N, tiles_x,
-        n_tiles);
+    // NT: the block's channel tile, N rounded up to 32 (128 at most)
+    const int nt = N > kNTmax ? kNTmax : (N + 31) / 32 * 32;
+    const dim3 grid(n_tiles, (N + kNTmax - 1) / kNTmax, B);
+    const auto* wt = static_cast<const __nv_bfloat16*>(w);
+    auto* o = static_cast<__nv_bfloat16*>(out);
+    const int Kp = S.kp_begin[n_src];
+    switch (nt) {
+      case 32: err = launch_bf16<32>(grid, st, S, wt, w_vec, o, partial, H, W,
+                                     K, Kp, N, tiles_x, n_tiles); break;
+      case 64: err = launch_bf16<64>(grid, st, S, wt, w_vec, o, partial, H, W,
+                                     K, Kp, N, tiles_x, n_tiles); break;
+      case 96: err = launch_bf16<96>(grid, st, S, wt, w_vec, o, partial, H, W,
+                                     K, Kp, N, tiles_x, n_tiles); break;
+      default: err = launch_bf16<128>(grid, st, S, wt, w_vec, o, partial, H,
+                                      W, K, Kp, N, tiles_x, n_tiles); break;
+    }
   } else {
+    const dim3 grid(n_tiles, (N + kTileN - 1) / kTileN, B);
     conv_f32_kernel<<<grid, kThreads, 0, st>>>(
         S, static_cast<const float*>(w), w_vec, static_cast<float*>(out),
-        partial, H,
-        W, K, N, tiles_x, n_tiles);
+        partial, H, W, K, N, tiles_x, n_tiles);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long want = (static_cast<long long>(B) * N + kThreads - 1) /
                          kThreads;

@@ -19,16 +19,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from camradepth_tpu_torch.ops.gelu import gelu_for_dtype
 from camradepth_tpu_torch.ops.groupnorm import group_norm
 from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
-
-
-def gelu_for_dtype(x: torch.Tensor) -> torch.Tensor:
-    """GELU as torch's nn.GELU (exact erf) in fp32, the tanh form in bf16
-    (``camradepth_tpu/models/layers.py:33-41``): the two differ by ~3e-4,
-    far below bf16 resolution."""
-    approximate = "tanh" if x.dtype == torch.bfloat16 else "none"
-    return F.gelu(x, approximate=approximate)
 
 
 class Conv2d(nn.Conv2d):

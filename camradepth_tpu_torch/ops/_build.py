@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signature of every entry point, by library (source stem).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "maxpool_attention_scores": {
@@ -50,6 +51,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                _I, _P]
         for t in ("f32", "bf16")
     },
+    # (x, y, n, stream)
+    "gelu_bf16": {"gelu_bf16": [_P, _P, _L, _P]},
 }
 
 _lock = threading.Lock()
@@ -132,7 +135,25 @@ def build_all() -> Dict[str, ctypes.CDLL]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library ``lib<name>.so``; the first call builds all."""
-    return build_all()[name]
+    lib = _libs.get(name)
+    return lib if lib is not None else build_all()[name]
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call C entry point ``fn`` of library ``name`` with ``args`` and the
+    current stream of CUDA ``device``, and raise on the error it returns.
+    The device is made current only when it is not already: the context
+    switch costs more host time than a small kernel takes on the card."""
+    import torch
+
+    lib = library(name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, fn)(*args,
+                                   torch.cuda.current_stream().cuda_stream)
+    check(lib, err, name)
 
 
 def refuse_autograd(what: str, *tensors) -> None:

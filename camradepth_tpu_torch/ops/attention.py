@@ -78,13 +78,10 @@ def maxpool_attention_scores(
     q = q.contiguous()
     k = k.contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    lib = _build.library("maxpool_attention_scores")
-    fn = getattr(lib, f"maxpool_attention_scores_{_SUFFIX[q.dtype]}")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), out.data_ptr(), b, n, m, c,
-                 num_heads, float(scale), stream)
-    _build.check(lib, err, "maxpool_attention_scores")
+    _build.launch("maxpool_attention_scores",
+                  f"maxpool_attention_scores_{_SUFFIX[q.dtype]}", q.device,
+                  q.data_ptr(), k.data_ptr(), out.data_ptr(), b, n, m, c,
+                  num_heads, float(scale))
     maxpool_attention_scores.launches += 1
     return out
 

@@ -30,8 +30,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from camradepth_tpu_torch.models.layers import gelu_for_dtype
 from camradepth_tpu_torch.ops import _build
+from camradepth_tpu_torch.ops.gelu import gelu_reference
 
 MAX_SOURCES = 4  # kMaxSources in csrc/conv3x3_fused.cu
 TILE = 16  # output tile side of the kernel (kTile), for its stats scratch
@@ -67,7 +67,7 @@ def _transformed(src: Source) -> torch.Tensor:
         v = (v * src.scale.to(v.dtype)[:, None, None, :]
              + src.shift.to(v.dtype)[:, None, None, :])
     if src.gelu:
-        v = gelu_for_dtype(v)
+        v = gelu_reference(v)
     return v
 
 
@@ -136,15 +136,11 @@ def conv3x3_fused(
     n_tiles = -(-h // TILE) * -(-w // TILE)
     partial = torch.empty((2, b, n_tiles, n), dtype=torch.float32, device=dev)
     stats = torch.empty((2, b, n), dtype=torch.float32, device=dev)
-    lib = _build.library("conv3x3_fused")
-    fn = getattr(lib, f"conv3x3_fused_{_SUFFIX[dtype]}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn((ctypes.c_void_p * len(ptrs))(*ptrs),
-                 (ctypes.c_int * len(meta))(*meta), len(sources),
-                 wt.data_ptr(), out.data_ptr(), partial.data_ptr(),
-                 stats.data_ptr(), b, h, w, k, n, stream)
-    _build.check(lib, err, "conv3x3_fused")
+    _build.launch("conv3x3_fused", f"conv3x3_fused_{_SUFFIX[dtype]}", dev,
+                  (ctypes.c_void_p * len(ptrs))(*ptrs),
+                  (ctypes.c_int * len(meta))(*meta), len(sources),
+                  wt.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                  stats.data_ptr(), b, h, w, k, n)
     conv3x3_fused.launches += 1
     return out, stats[0], stats[1]
 

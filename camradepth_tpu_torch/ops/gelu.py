@@ -1,0 +1,79 @@
+"""GELU rounded as the JAX package rounds it.
+
+Counterpart of ``camradepth_tpu/models/layers.py:33-41`` ``gelu_for_dtype``:
+the exact erf form in fp32 and ``nn.gelu(x, approximate=True)`` in bf16.
+On bf16 JAX evaluates the tanh form as eight bf16 operations, each rounded
+to bf16, with its constants rounded to bf16 first:
+
+    x**3, * 0.044677734375, + x, * 0.796875, tanh, + 1, * 0.5, * x
+
+torch's ``F.gelu(approximate="tanh")`` evaluates in fp32 and rounds once,
+which differs on about 4 % of bf16 inputs. :func:`gelu_bf16_reference`
+repeats JAX's eight operations on bf16 tensors (a Python scalar times a
+bf16 tensor multiplies in fp32 and rounds once, so the constants are the
+bf16-exact values above); it equals JAX's result bit for bit on every
+input above XLA's subnormal flush.
+
+:func:`gelu_bf16` is the kernel's wrapper: on a CUDA tensor it launches the
+elementwise kernel ``csrc/gelu_bf16.cu`` (one launch, where the plain
+version would be eight), on a CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from camradepth_tpu_torch.ops import _build
+
+# sqrt(2/pi) and 0.044715 rounded to bf16, as jax.nn.gelu's bf16 jaxpr has
+# them; 0.5 and 1.0 are exact
+BF16_SQRT_2_OVER_PI = 0.796875
+BF16_KAPPA = 0.044677734375
+
+
+def gelu_bf16_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version: the eight bf16 operations of jax.nn.gelu's tanh form,
+    each rounded to bf16."""
+    cube = x * x * x
+    inner = (x + cube * BF16_KAPPA) * BF16_SQRT_2_OVER_PI
+    return x * ((torch.tanh(inner) + 1.0) * 0.5)
+
+
+def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """JAX's bf16 tanh-form GELU of a bf16 tensor of any shape."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"gelu_bf16 takes bf16, got {x.dtype}")
+    if x.device.type == "cpu":
+        return gelu_bf16_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"x must lie on the CPU or a CUDA device, got "
+                         f"{x.device}")
+    _build.refuse_autograd("gelu_bf16", x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _build.launch("gelu_bf16", "gelu_bf16", x.device, x.data_ptr(),
+                  out.data_ptr(), x.numel())
+    gelu_bf16.launches += 1
+    return out
+
+
+gelu_bf16.launches = 0
+
+
+def gelu_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain GELU for the dtype: exact erf in fp32, JAX's bf16 tanh form in
+    bf16."""
+    if x.dtype == torch.bfloat16:
+        return gelu_bf16_reference(x)
+    return F.gelu(x)
+
+
+def gelu_for_dtype(x: torch.Tensor) -> torch.Tensor:
+    """GELU for the dtype, as the JAX package: exact erf in fp32 (torch's
+    nn.GELU), the bf16 tanh form in bf16 through :func:`gelu_bf16`."""
+    if x.dtype == torch.bfloat16:
+        return gelu_bf16(x)
+    return F.gelu(x)

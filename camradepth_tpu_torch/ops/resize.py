@@ -84,12 +84,9 @@ def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x.contiguous()
     y = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
-    lib = _build.library("upsample_bicubic_x2")
-    fn = getattr(lib, f"upsample_bicubic_x2_{_SUFFIX[x.dtype]}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr(), b, h, w, c, stream)
-    _build.check(lib, err, "upsample_bicubic_x2")
+    _build.launch("upsample_bicubic_x2",
+                  f"upsample_bicubic_x2_{_SUFFIX[x.dtype]}", x.device,
+                  x.data_ptr(), y.data_ptr(), b, h, w, c)
     upsample_bicubic_x2.launches += 1
     return y
 

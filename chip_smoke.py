@@ -6,15 +6,19 @@
 Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
   (a) the card, its power limit, the versions and the kernels' build;
   (b) each kernel against its plain PyTorch version at every shape of the
-      416x800 `base` forward at batch 8, in bf16 and fp32, plus one ragged
-      shape, with kernel, plain, library and bound times;
+      416x800 `base` forward at batch 8, in bf16 and fp32 (the GELU kernel:
+      bf16, bit for bit), plus ragged shapes, with kernel, plain, library
+      and bound times (kernel and library: device time, replayed from a
+      CUDA graph; plain: CUDA events around eager calls);
   (c) the 416x800 `base` forward in fp32 (TF32 off) on the committed
       golden's synthesized weights, held against tests/goldens/
-      flagship_416x800.npz, with 34 + 5 kernel launches per forward;
+      flagship_416x800.npz, with 34 + 5 kernel launches per forward (and
+      no GELU kernel: fp32 GELU is exact erf);
   (d) the main path: load_engine on a reference-format .pth at `base` in
       bf16, batch 8, answering 27 frames through infer_stream, held
       against the fp32 forward;
-  (e) a torch.profiler breakdown of one bf16 batch-8 forward by kernel;
+  (e) a torch.profiler breakdown of one bf16 batch-8 forward by kernel,
+      with each Hopper kernel's launches and the device's idle share;
   (f) the fused 3x3 conv + GroupNorm-stats kernel: its own main path, the
       15 ShortResBlock convs of `base` at 416x800, batch 8, chained as the
       block chains them (each later layer reads the earlier raw outputs
@@ -53,7 +57,8 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 BATCH = 8
 ATTN_TOL = dict(rtol=1e-5, atol=1e-5)  # dot summed in another order
-# The bicubic kernel rounds as the plain version does: bit for bit.
+# The bicubic and GELU kernels round as their plain versions do: bit for
+# bit.
 UPSAMPLE_TOL = dict(rtol=0.0, atol=0.0)
 # bf16 serving vs the fp32 forward, mean depth error in metres (0..100 m):
 # bf16 keeps 8 significant bits through 34 blocks and 5 decoder stages;
@@ -101,6 +106,34 @@ def cuda_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn`` call: ``iters`` calls captured in a CUDA
+    graph and replayed, so that the host's dispatch of a Python wrapper,
+    which exceeds a small kernel's device time, is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
 
 
 def bound(bytes_moved: float, ops: float, ops_per_s: float):
@@ -161,6 +194,7 @@ def phase_b(cfg):
         maxpool_attention_scores,
         maxpool_attention_scores_reference,
     )
+    from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_reference
     from camradepth_tpu_torch.ops.resize import (
         upsample_bicubic_x2,
         upsample_bicubic_x2_reference,
@@ -175,7 +209,9 @@ def phase_b(cfg):
         sr = m.sr_ratios[i]
         attn_shapes.append(((fh * fw), (fh // sr) * (fw // sr), m.dims[i],
                             m.heads[i], m.depths[i]))
-    ragged_attn = (1001, 77, 120, 3, 0)  # d = 40, N and M off the tiles
+    # off the tiles: d = 40 with N and M ragged; d = 8 with N below one
+    # 16-token tile; M = 1
+    ragged_attn = [(1001, 77, 120, 3, 0), (9, 33, 8, 1, 0), (37, 1, 40, 1, 0)]
     # (H, W, C, launches per forward) of the five decoder-stage inputs
     mid = m.mid_channels
     up_shapes = [(*m.feature_shape(3), m.dims[3], 1),
@@ -184,6 +220,7 @@ def phase_b(cfg):
                  (*m.feature_shape(0), mid + 1, 1),
                  (h // 2, w // 2, mid + 1, 1)]
     ragged_up = (7, 9, 129, 0)
+    gelu_shapes = gelu_forward_shapes(cfg) + [((3, 5, 7, 13), 0)]
 
     rec = {
         "maxpool_attention_scores": dict(
@@ -198,13 +235,18 @@ def phase_b(cfg):
             replaces="camradepth_tpu/ops/resize_pallas.py:209",
             max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
             library_ms=0.0, bound_by=None),
+        "gelu_bf16": dict(
+            route="cuda", source="camradepth_tpu_torch/csrc/gelu_bf16.cu",
+            replaces="camradepth_tpu/models/layers.py:41",
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+            library_ms=0.0, bound_by=None),
     }
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.finfo(dtype).bits // 8
         tag = str(dtype).removeprefix("torch.")
         r = rec["maxpool_attention_scores"]
         for seed, (n, mm, c, heads, per_fwd) in enumerate(
-                attn_shapes + [ragged_attn]):
+                attn_shapes + ragged_attn):
             q = randn((BATCH, n, c), seed, dtype)
             k = randn((BATCH, mm, c), 100 + seed, dtype)
             scale = (c // heads) ** -0.5
@@ -214,8 +256,8 @@ def phase_b(cfg):
             err = (got - want).abs().max().item()
             rel = ((got - want).abs() / want.abs().clamp_min(1e-6)).max()
             torch.testing.assert_close(got, want, **ATTN_TOL)
-            t_k = cuda_ms(lambda: maxpool_attention_scores(q, k, heads,
-                                                           scale))
+            t_k = device_ms(lambda: maxpool_attention_scores(q, k, heads,
+                                                             scale))
             t_p = cuda_ms(lambda: maxpool_attention_scores_reference(
                 q, k, heads, scale), iters=5)
             t_b, t_o = bound((BATCH * (n + mm) * c) * es + BATCH * n * 4,
@@ -238,10 +280,10 @@ def phase_b(cfg):
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             torch.testing.assert_close(got, want, **UPSAMPLE_TOL)
-            t_k = cuda_ms(lambda: upsample_bicubic_x2(x))
+            t_k = device_ms(lambda: upsample_bicubic_x2(x))
             t_p = cuda_ms(lambda: upsample_bicubic_x2_reference(x), iters=5)
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
-            t_l = cuda_ms(lambda: F.interpolate(
+            t_l = device_ms(lambda: F.interpolate(
                 x_nchw, scale_factor=2, mode="bicubic", align_corners=False))
             n_in = BATCH * hh * ww * c
             t_b, t_o = bound(5 * n_in * es, 42.0 * n_in, FP32_OPS_PER_S)
@@ -256,11 +298,54 @@ def phase_b(cfg):
                 r["plain_ms"] += per_fwd * t_p
                 r["library_ms"] += per_fwd * t_l
                 add_bound(r, per_fwd, t_b, t_o)
+    r = rec["gelu_bf16"]
+    for seed, (shape, per_fwd) in enumerate(gelu_shapes):
+        x = randn(shape, 400 + seed, torch.bfloat16)
+        got = gelu_bf16(x)
+        want = gelu_bf16_reference(x)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                ("gelu_bf16 not bit for bit", shape, err))
+        t_k = device_ms(lambda: gelu_bf16(x))
+        t_p = cuda_ms(lambda: gelu_bf16_reference(x), iters=5)
+        # yardstick: torch's one-call tanh GELU, which rounds once instead
+        # of after each operation (not bit for bit with JAX)
+        t_l = device_ms(lambda: F.gelu(x, approximate="tanh"))
+        t_b, t_o = bound(4 * x.numel(), 20.0 * x.numel(), FP32_OPS_PER_S)
+        print(f"(b) gelu bf16 {tuple(shape)} x{per_fwd}: bit for bit, "
+              f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms="
+              f"{t_l:.4f} bound_ms={max(t_b, t_o):.4f}")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += per_fwd * t_k
+        r["plain_ms"] += per_fwd * t_p
+        r["library_ms"] += per_fwd * t_l
+        add_bound(r, per_fwd, t_b, t_o)
+        del x, got, want
     for name, r in rec.items():
         print(f"(b) {name}: per bf16 batch-{BATCH} forward kernel_ms="
               f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
               f"{r['library_ms']} bound_ms={r['bound_ms']:.4f}")
     return rec
+
+
+def gelu_forward_shapes(cfg):
+    """([B, ...] shape, launches per forward) of every bf16 GELU of the
+    `base` forward: the MixFFN of each encoder block, the four 1x1
+    from-encoder ConvLayers and the ShortResBlock ConvLayers of the five
+    decoder stages."""
+    m = cfg.model
+    shapes = {}
+    for i in range(4):
+        fh, fw = m.feature_shape(i)
+        ffn = (BATCH, fh * fw, int(m.dims[i] * m.ff_expansion[i]))
+        shapes[ffn] = shapes.get(ffn, 0) + m.depths[i]
+        enc = (BATCH, fh, fw, m.dims[i])
+        shapes[enc] = shapes.get(enc, 0) + 1
+    for hh, ww, _, convs in conv_stages(cfg):
+        for n, _ in convs:
+            shapes[(BATCH, hh, ww, n)] = shapes.get((BATCH, hh, ww, n), 0) + 1
+    return sorted(shapes.items())
 
 
 def golden_weights():
@@ -287,10 +372,10 @@ def phase_c(cfg, golden, weights, counters):
         out = model(x)
     torch.cuda.synchronize()
     after = counters()
-    launches = (after[0] - before[0], after[1] - before[1])
-    want = (sum(model_cfg.depths), 5)
-    print(f"(c) 416x800 fp32 forward: kernel launches {launches} "
-          f"(expected {want})")
+    launches = tuple(a - b for a, b in zip(after, before))
+    want = (sum(model_cfg.depths), 5, 0, 0)
+    print(f"(c) 416x800 fp32 forward: launches (attention, upsample, conv, "
+          f"gelu) {launches} (expected {want})")
     require(launches == want, (launches, want))
     final = out["depth"]["final_depth"].cpu().numpy()
     inter2 = out["depth"]["intermediate_depths"][2].cpu().numpy()
@@ -311,6 +396,12 @@ def phase_c(cfg, golden, weights, counters):
         np.testing.assert_allclose(got, ref, rtol=rtol, atol=atol,
                                    err_msg=name)
     return model
+
+
+def per_forward(cfg, n_fwd):
+    """Launches (attention, upsample, conv, gelu) of n_fwd bf16 forwards."""
+    n_gelu = sum(n for _, n in gelu_forward_shapes(cfg))
+    return (n_fwd * sum(cfg.model.depths), n_fwd * 5, 0, n_fwd * n_gelu)
 
 
 def phase_d(cfg, weights, ref_model, counters, reset_counters):
@@ -337,7 +428,7 @@ def phase_d(cfg, weights, ref_model, counters, reset_counters):
     launches = counters()
     stats = engine.stats()
     n_batches = -(-n_frames // BATCH)
-    want = (n_batches * sum(cfg.model.depths), n_batches * 5, 0)
+    want = per_forward(cfg, n_batches)
     print(f"(d) served {len(results)} frames in {n_batches} batches: "
           f"kernel launches {launches} (expected {want}); "
           f"frames_per_sec={stats['frames_per_sec']:.2f} "
@@ -379,7 +470,8 @@ def phase_d(cfg, weights, ref_model, counters, reset_counters):
     return launches, engine, frames, stats
 
 
-def phase_e(engine, frames, stream_stats, top: int = 12):
+def phase_e(engine, frames, stream_stats, counters, reset_counters,
+            top: int = 12):
     """Where a bf16 batch-8 forward spends its device time: torch.profiler
     over one forward, CUDA kernels summed by name. The device's idle share
     is that device time against the steady stream's time per batch (host
@@ -390,12 +482,14 @@ def phase_e(engine, frames, stream_stats, top: int = 12):
     with torch.inference_mode():
         engine.model(x)
         torch.cuda.synchronize()
+        reset_counters()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             engine.model(x)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = counters()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
@@ -403,14 +497,15 @@ def phase_e(engine, frames, stream_stats, top: int = 12):
     batch_ms = 1e3 * stream_stats["elapsed_s"] / stream_stats["batches"]
     print(f"(e) profiled bf16 batch-{BATCH} forward: device busy "
           f"{busy_ms:.2f} ms, {sum(e.count for e in kernels)} kernel "
-          f"launches; wall {wall_ms:.2f} ms with the profiler on")
+          f"launches; wall {wall_ms:.2f} ms with the profiler on; Hopper "
+          f"kernel launches (attention, upsample, conv, gelu) {launches}")
     print(f"(e) steady stream: {batch_ms:.2f} ms per batch (no profiler); "
           f"device idle share {100 * (1 - busy_ms / batch_ms):.1f} %")
     for e in kernels[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"(e)   {ms:8.3f} ms {100 * ms / busy_ms:5.1f} % x{e.count:<4d} "
               f"{e.key[:100]}")
-    for name in ("scores_kernel", "upsample_kernel"):
+    for name in ("scores_", "upsample_kernel", "gelu_bf16_kernel"):
         sel = [e for e in kernels if name in e.key]
         ms = sum(e.self_device_time_total for e in sel) / 1e3
         print(f"(e) {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of device"
@@ -498,14 +593,18 @@ def phase_f(cfg, counters, reset_counters):
     torch.cuda.synchronize()
     launches = counters()
     print(f"(f) main path: {n_convs} chained bf16 convs, launches "
-          f"(attention, upsample, conv) = {launches}")
-    require(launches == (0, 0, n_convs), launches)
+          f"(attention, upsample, conv, gelu) = {launches}")
+    require(launches == (0, 0, n_convs, 0), launches)
 
     r = dict(route="cuda", source="camradepth_tpu_torch/csrc/conv3x3_fused.cu",
              replaces="camradepth_tpu/ops/conv_fused.py:316", max_abs_err=0.0,
              ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
              bound_by=None, launches=launches[2])
-    ragged = [(37, 53, 45, [(13, 1), (70, 1)])]  # odd H, W; K, N off tiles
+    # odd H, W, K and N off the tiles; a 1-row image with N = 8 and 72; a
+    # 13-channel source, so the next starts inside a 16-byte vector, N = 128
+    ragged = [(37, 53, 45, [(13, 1), (70, 1)]),
+              (1, 29, 40, [(8, 1), (72, 1)]),
+              (12, 21, 13, [(128, 8), (8, 1)])]
     for dtype in (torch.bfloat16, torch.float32):
         es = torch.finfo(dtype).bits // 8
         tag = str(dtype).removeprefix("torch.")
@@ -535,7 +634,8 @@ def phase_f(cfg, counters, reset_counters):
                         f"({how}) sums max_abs_err={serr:.3g} (rtol "
                         f"{CONV_SUM_RTOL}, atol {atol:.3g})")
                 if set_i == 0 and dtype == torch.bfloat16:
-                    t_k = cuda_ms(lambda: conv3x3_fused(sources, wt), iters=5)
+                    t_k = device_ms(lambda: conv3x3_fused(sources, wt),
+                                    iters=5)
                     t_p = cuda_ms(lambda: conv3x3_reference(sources, wt),
                                   iters=3)
                     # library yardstick: cuDNN's bf16 conv over the already
@@ -544,8 +644,8 @@ def phase_f(cfg, counters, reset_counters):
                                       dim=-1).permute(0, 3, 1, 2)
                     w_l = wt.permute(3, 2, 0, 1).contiguous(
                         memory_format=torch.channels_last)
-                    t_l = cuda_ms(lambda: F.conv2d(x_cat, w_l, padding=1),
-                                  iters=5)
+                    t_l = device_ms(lambda: F.conv2d(x_cat, w_l, padding=1),
+                                    iters=5)
                     del x_cat, w_l
                     bytes_moved = (sum(src.x.numel() for src in sources)
                                    + wt.numel() + got[0].numel()) * es + (
@@ -589,7 +689,6 @@ def phase_g(cfg, weights, counters, reset_counters):
 
     h, w = cfg.model.img_size
     n_frames, n_cpu = 32, 4
-    per_fwd = (sum(cfg.model.depths), 5)
     fps = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -633,8 +732,7 @@ def phase_g(cfg, weights, counters, reset_counters):
             return report, launches
 
         bf16, launches = test("bf16", [])
-        n_fwd = n_frames // BATCH
-        want = (n_fwd * per_fwd[0], n_fwd * per_fwd[1], 0)
+        want = per_forward(cfg, n_frames // BATCH)
         require(bf16["frames"] == n_frames, bf16["frames"])
         require(launches == want, (launches, want))
         fps["test_bf16"] = bf16["frames_per_sec_steady"]
@@ -673,8 +771,8 @@ def phase_g(cfg, weights, counters, reset_counters):
         for p in maps:
             d = np.load(p)
             require(d.shape == (h, w) and np.isfinite(d).all(), p)
-        n_fwd = n_frames // BATCH + 1  # the engine's warm-up forward
-        want = (n_fwd * per_fwd[0], n_fwd * per_fwd[1], 0)
+        # and the engine's warm-up forward
+        want = per_forward(cfg, n_frames // BATCH + 1)
         require(launches == want, (launches, want))
         fps["serve_bf16"] = stats["frames_per_sec"]
         print(f"(g) cli serve: {len(maps)} depth maps; frames_per_sec="
@@ -692,9 +790,11 @@ def main() -> None:
     from camradepth_tpu_torch.config import preset
     from camradepth_tpu_torch.ops.attention import maxpool_attention_scores
     from camradepth_tpu_torch.ops.conv_fused import conv3x3_fused
+    from camradepth_tpu_torch.ops.gelu import gelu_bf16
     from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
 
-    wrappers = (maxpool_attention_scores, upsample_bicubic_x2, conv3x3_fused)
+    wrappers = (maxpool_attention_scores, upsample_bicubic_x2, conv3x3_fused,
+                gelu_bf16)
 
     def counters():
         return tuple(fn.launches for fn in wrappers)
@@ -716,7 +816,7 @@ def main() -> None:
     launches, engine, frames, stream_stats = phase_d(
         cfg, weights, ref_model, counters, reset_counters)
     t3 = time.perf_counter()
-    phase_e(engine, frames, stream_stats)
+    phase_e(engine, frames, stream_stats, counters, reset_counters)
     t4 = time.perf_counter()
     rec["conv3x3_fused"] = phase_f(cfg, counters, reset_counters)
     t5 = time.perf_counter()
@@ -725,11 +825,15 @@ def main() -> None:
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}")
-    # launches: kernels 1 and 2 from the serving run of (d), the fused conv
-    # from its own main path in (f)
-    launches = (*launches[:2], rec["conv3x3_fused"].pop("launches"))
+    # launches: kernels 1 and 2 and GELU from the serving run of (d), the
+    # fused conv from its own main path in (f)
+    n_launch = {"maxpool_attention_scores": launches[0],
+                "upsample_bicubic_x2": launches[1],
+                "conv3x3_fused": rec["conv3x3_fused"].pop("launches"),
+                "gelu_bf16": launches[3]}
     kernels = []
-    for (name, r), n in zip(rec.items(), launches):
+    for name, r in rec.items():
+        n = n_launch[name]
         kernels.append({"name": name, "route": r["route"],
                         "source": r["source"], "replaces": r["replaces"],
                         "launches": n, "max_abs_err": r["max_abs_err"],

@@ -35,6 +35,7 @@ from camradepth_tpu_torch.evaluation import metrics as M
 from camradepth_tpu_torch.evaluation.harness import TIMING_KEYS
 from camradepth_tpu_torch.interop.golden import synth_state_values
 from camradepth_tpu_torch.models.camradepth import create_model
+from tests.torch_port import one_torch_thread  # noqa: F401
 
 HW = (64, 128)
 # tiny_test_config's model widths, as CLI overrides both CLIs take

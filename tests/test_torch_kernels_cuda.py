@@ -7,9 +7,10 @@ JAX; there, skip the JAX-based tests/conftest.py:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: the attention kernel sums the d products in another order than
-the plain einsum (1e-5 relative, fp32 accumulation in both dtypes); the
-bicubic kernel rounds every product and sum as the plain version does, so
-it must agree bit for bit. The fused conv sums its fp32 products in another
+the plain einsum (1e-5 relative, fp32 accumulation in both dtypes; in bf16
+on the tensor cores, whose products are exact in fp32); the bicubic and
+the bf16 GELU kernels round every operation as their plain versions do, so
+they must agree bit for bit. The fused conv sums its fp32 products in another
 order than cuDNN's fp32 conv before the one rounding of its raw output: at
 most 1 bf16 ulp in bf16 (for outputs above 2**-7 of their RMS; see
 _bf16_ulps), and rtol 1e-4, atol 2e-5 in fp32 (the JAX
@@ -31,6 +32,7 @@ from camradepth_tpu_torch.ops.conv_fused import (
     conv3x3_reference,
     gn_affine_from_stats,
 )
+from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_reference
 from camradepth_tpu_torch.ops.resize import (
     upsample_bicubic_x2,
     upsample_bicubic_x2_reference,
@@ -56,6 +58,9 @@ def _randn(shape, seed, dtype, device):
 @pytest.mark.parametrize("b,n,m,c,heads", [
     (2, 20800, 325, 64, 1), (2, 5200, 325, 128, 2), (2, 1300, 325, 160, 4),
     (2, 325, 325, 256, 8), (3, 1001, 77, 120, 3), (1, 5, 1, 16, 4),
+    # the tensor-core tiles' edges: d = 8 and 40, M off the 16-key tile
+    # and M = 1, N below one 16-token tile
+    (2, 9, 33, 8, 1), (1, 37, 1, 40, 1), (2, 300, 17, 80, 2),
 ])
 def test_attention_kernel_matches_plain(cuda, dtype, b, n, m, c, heads):
     q = _randn((b, n, c), 0, dtype, cuda)
@@ -134,6 +139,11 @@ def _conv_chain(b, h, w, k0, widths, dtype, device, seed):
     (1, 104, 200, 129, (96, 64, 128)),   # base stage 4, K0 = 129
     (2, 17, 23, 37, (13, 5, 70)),        # ragged: odd H, W; K, N off tiles
     (1, 1, 1, 3, (1,)),
+    # a 1-row image, K off the 32-channel chunk, N = 8 and 72
+    (1, 1, 29, 40, (8, 72)),
+    # H, W off 8 and 16; a 13-channel source, so the next one starts
+    # inside a 16-byte vector of the concat; N = 128 in one block
+    (2, 12, 21, 13, (128, 8)),
 ])
 def test_conv3x3_fused_kernel_matches_plain(cuda, dtype, b, h, w, k0,
                                             widths):
@@ -192,7 +202,7 @@ def test_conv3x3_fused_reads_unaligned_views(cuda, dtype):
         torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("call", ["attention", "upsample", "conv"])
+@pytest.mark.parametrize("call", ["attention", "upsample", "conv", "gelu"])
 def test_kernels_refuse_inputs_that_need_gradients(cuda, call):
     x = _randn((1, 4, 6, 8), 8, torch.float32, cuda).requires_grad_()
     fns = {
@@ -201,8 +211,25 @@ def test_kernels_refuse_inputs_that_need_gradients(cuda, call):
         "upsample": lambda: upsample_bicubic_x2(x),
         "conv": lambda: conv3x3_fused(
             [Source(x)], torch.zeros(3, 3, 8, 4, device=cuda)),
+        "gelu": lambda: gelu_bf16(x.to(torch.bfloat16)),
     }
     with pytest.raises(RuntimeError, match="no backward"):
         fns[call]()
     with torch.no_grad():
         fns[call]()
+
+
+def test_gelu_bf16_kernel_matches_plain_bitwise(cuda):
+    """Every bf16 bit pattern, plus an odd-length view that starts one
+    element into its storage (no 16-byte vectors there)."""
+    bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32)
+    x = bits.to(torch.int16).view(torch.bfloat16).to(cuda)
+    for v in (x, x[1:-2]):
+        before = gelu_bf16.launches
+        got = gelu_bf16(v)
+        torch.cuda.synchronize()
+        assert gelu_bf16.launches == before + 1
+        want = gelu_bf16_reference(v)
+        same = (got.view(torch.int16) == want.view(torch.int16)) | (
+            got.isnan() & want.isnan())
+        assert bool(same.all())

@@ -10,8 +10,11 @@ Tolerances:
 - the whole model in bf16: both sides round every op to bf16, but not at
   the same places (XLA:CPU evaluates some elementwise chains in fp32), so
   the two are independent bf16 roundings of one fp32 function. The port
-  may differ from the JAX bf16 output by at most twice the JAX model's own
-  bf16-vs-fp32 error, in mean and in max;
+  may differ from the JAX bf16 output by at most 1.5 times the JAX model's
+  own bf16-vs-fp32 error, in mean and in max (measured: 1.03 to 1.16 in
+  mean, 1.13 to 1.18 in max over the three maps; the GELU, which now
+  rounds as JAX's, was not what set the ratio: with torch's fp32 GELU it
+  was 1.05 to 1.15 and 0.95 to 1.22);
 - the goldens: the tolerances of tests/test_flagship_golden.py:104-116 and
   tests/test_flagship_golden_fullres.py:42-45.
 """
@@ -40,6 +43,7 @@ from camradepth_tpu_torch.interop.golden import (
 from camradepth_tpu_torch.models import encoder as tenc
 from camradepth_tpu_torch.models import layers as tlay
 from camradepth_tpu_torch.models.camradepth import create_model
+from tests.torch_port import one_torch_thread  # noqa: F401
 
 GOLDENS = Path(__file__).parent / "goldens"
 SMALL = dict(
@@ -205,9 +209,9 @@ def test_whole_model_matches_jax(small_jax_model, dtype):
                                        err_msg=key)
         else:
             err, own = np.abs(g - w), np.abs(w - ref32[key])
-            assert err.mean() <= 2 * own.mean(), (key, err.mean(),
-                                                  own.mean())
-            assert err.max() <= 2 * own.max(), (key, err.max(), own.max())
+            assert err.mean() <= 1.5 * own.mean(), (key, err.mean(),
+                                                    own.mean())
+            assert err.max() <= 1.5 * own.max(), (key, err.max(), own.max())
 
 
 def _golden(name):

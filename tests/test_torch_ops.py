@@ -35,6 +35,7 @@ from camradepth_tpu_torch.ops.resize import (
     upsample_bicubic_x2,
     upsample_bicubic_x2_reference,
 )
+from tests.torch_port import one_torch_thread  # noqa: F401
 
 BF16_ULP = 2.0 ** -7
 DTYPES = {"float32": (torch.float32, jnp.float32),

@@ -15,6 +15,7 @@ import camradepth_tpu_torch
 from camradepth_tpu_torch.config import ExperimentConfig, ModelConfig
 from camradepth_tpu_torch.ops.attention import maxpool_attention_scores
 from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
+from tests.torch_port import one_torch_thread  # noqa: F401
 
 PKG = Path(camradepth_tpu_torch.__file__).parent
 ROOT = PKG.parent

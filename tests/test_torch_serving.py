@@ -20,6 +20,7 @@ from camradepth_tpu_torch.config import ExperimentConfig, ModelConfig
 from camradepth_tpu_torch.interop.flax_convert import state_dict_from_flax
 from camradepth_tpu_torch.models.camradepth import create_model
 from camradepth_tpu_torch.serving import DepthEngine, load_engine
+from tests.torch_port import one_torch_thread  # noqa: F401
 
 SMALL = dict(
     img_size=(64, 128), dims=(16, 32, 32, 64), heads=(1, 2, 4, 8),
