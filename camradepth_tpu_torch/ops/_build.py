@@ -41,8 +41,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         for t in ("f32", "bf16")
     },
     "upsample_bicubic_x2": {
-        # (x, y, B, H, W, C, stream)
-        f"upsample_bicubic_x2_{t}": [_P, _P, _I, _I, _I, _I, _P]
+        # (x, y, B, H, W, C, tw, rows, stream)
+        f"upsample_bicubic_x2_{t}": [_P, _P, _I, _I, _I, _I, _I, _I, _P]
         for t in ("f32", "bf16")
     },
     "conv3x3_fused": {

@@ -17,10 +17,13 @@ it runs :func:`upsample_bicubic_x2_reference`, the plain PyTorch version.
 Only the forward is ported; the backward comes with training. Until then a
 CUDA input that requires a gradient, with gradients enabled, raises instead
 of returning a result detached from the graph; the CPU path stays
-differentiable.
+differentiable. :func:`upsample_plan` sizes the kernel's blocks.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -68,6 +71,60 @@ def upsample_bicubic_x2_reference(x: torch.Tensor) -> torch.Tensor:
     return _upsample_axis_x2(_upsample_axis_x2(x, 1), 2)
 
 
+# csrc/upsample_bicubic_x2.cu: threads per block, 16-byte vectors per
+# thread in its register window, shared memory a block may use (H100)
+_THREADS = 256
+_WINDOW = 2
+SMEM_MAX = 232448
+
+
+class UpsamplePlan(NamedTuple):
+    tw: int  # input columns per block
+    rows: int  # input rows per block
+    grid: Tuple[int, int, int]  # (W spans, row strips, B)
+    smem: int  # dynamic shared memory per block, bytes
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def upsample_plan(b: int, h: int, w: int, c: int, itemsize: int,
+                  sms: int) -> UpsamplePlan:
+    """Blocks of the kernel for [b, h, w, c] of ``itemsize``-byte elements
+    on a card with ``sms`` SMs. A block's W span is the widest whose H rows
+    (its columns, 2 more on each side, and the 16-byte alignment slack)
+    fit in its threads' register windows, then evened out over the row;
+    its strip of rows is the tallest of 16, 8, 4, 2, 1 that still gives 8
+    blocks per SM (3 fit at once). The shared memory holds the two H-filtered rows (as
+    float pairs) and the two staged output rows, as the kernel lays them out; a C so wide that
+    one column with its halo does not fit (over 4,148 channels in fp32,
+    4,838 in bf16) raises."""
+    if min(h, w, c) <= 0:
+        raise ValueError(f"upsample_bicubic_x2: empty image {(b, h, w, c)}")
+    n = 16 // itemsize  # elements per 16-byte vector
+    reach = _WINDOW * _THREADS * n
+    tw = min(w, max(1, (reach - 2 * n) // c - 4))
+    tw = -(-w // -(-w // tw))
+    spans = -(-w // tw)
+    rows = 16
+    while rows > 1 and b * spans * -(-h // rows) < 8 * sms:
+        rows //= 2
+    cap = _round_up(min(tw + 4, w) * c + 2 * n, n)
+    scap = _round_up(2 * tw * c + 2 * n, n)
+    smem = 8 * cap + 2 * scap * itemsize  # float pairs; staged rows in T
+    if smem > SMEM_MAX:
+        raise ValueError(f"upsample_bicubic_x2: C={c} needs {smem} bytes of "
+                         f"shared memory per block, over {SMEM_MAX}")
+    return UpsamplePlan(tw, rows, (spans, -(-h // rows), b), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
     """Bicubic x2 over the spatial axes of NHWC ``x`` [B, H, W, C] (bf16 or
     fp32, any C); returns [B, 2H, 2W, C] in ``x.dtype``."""
@@ -84,9 +141,12 @@ def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x.contiguous()
     y = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
+    index = x.device.index
+    plan = upsample_plan(b, h, w, c, x.element_size(), _sm_count(
+        torch.cuda.current_device() if index is None else index))
     _build.launch("upsample_bicubic_x2",
                   f"upsample_bicubic_x2_{_SUFFIX[x.dtype]}", x.device,
-                  x.data_ptr(), y.data_ptr(), b, h, w, c)
+                  x.data_ptr(), y.data_ptr(), b, h, w, c, plan.tw, plan.rows)
     upsample_bicubic_x2.launches += 1
     return y
 

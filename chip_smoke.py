@@ -9,7 +9,8 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       416x800 `base` forward at batch 8, in bf16 and fp32 (the GELU kernel:
       bf16, bit for bit), plus ragged shapes, with kernel, plain, library
       and bound times (kernel and library: device time, replayed from a
-      CUDA graph; plain: CUDA events around eager calls);
+      CUDA graph; plain: CUDA events around eager calls), and each bicubic
+      launch's share of its bound;
   (c) the 416x800 `base` forward in fp32 (TF32 off) on the committed
       golden's synthesized weights, held against tests/goldens/
       flagship_416x800.npz, with 34 + 5 kernel launches per forward (and
@@ -60,6 +61,10 @@ ATTN_TOL = dict(rtol=1e-5, atol=1e-5)  # dot summed in another order
 # The bicubic and GELU kernels round as their plain versions do: bit for
 # bit.
 UPSAMPLE_TOL = dict(rtol=0.0, atol=0.0)
+# the bicubic kernel's time per bf16 batch-8 forward in its earlier design
+# (one thread per input element and channel, 25 scalar loads), measured as
+# phase (b) measures it on an NVIDIA H100 80GB HBM3 at 700 W
+UPSAMPLE_EARLIER_MS = 2.141
 # bf16 serving vs the fp32 forward, mean depth error in metres (0..100 m):
 # bf16 keeps 8 significant bits through 34 blocks and 5 decoder stages;
 # a frame with another frame's depth is off by ~14 m.
@@ -291,13 +296,19 @@ def phase_b(cfg):
             print(f"(b) upsample {tag} B={BATCH} H={hh} W={ww} C={c}: "
                   f"max_abs_err={err:.3g} (tol {UPSAMPLE_TOL}) "
                   f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
-                  f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by})")
+                  f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+                  f"{100 * b_ms / t_k:.1f} % of it)")
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if dtype == torch.bfloat16:
                 r["ms"] += per_fwd * t_k
                 r["plain_ms"] += per_fwd * t_p
                 r["library_ms"] += per_fwd * t_l
                 add_bound(r, per_fwd, t_b, t_o)
+    r = rec["upsample_bicubic_x2"]
+    print(f"(b) upsample bf16 per batch-{BATCH} forward (5 launches): "
+          f"kernel_ms={r['ms']:.4f} (earlier design: {UPSAMPLE_EARLIER_MS}) "
+          f"bound_ms={r['bound_ms']:.4f}, {100 * r['bound_ms'] / r['ms']:.1f}"
+          f" % of the bound")
     r = rec["gelu_bf16"]
     for seed, (shape, per_fwd) in enumerate(gelu_shapes):
         x = randn(shape, 400 + seed, torch.bfloat16)

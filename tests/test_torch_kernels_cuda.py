@@ -81,12 +81,25 @@ def test_attention_kernel_rejects_wide_heads(cuda):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", [
-    (2, 13, 25, 256), (2, 26, 50, 128), (2, 52, 100, 128),
-    (2, 104, 200, 129), (1, 208, 400, 129), (3, 7, 9, 3), (1, 1, 1, 5),
+@pytest.mark.parametrize("shape,offset", [
+    # the five decoder inputs of base at 416x800
+    ((2, 13, 25, 256), 0), ((2, 26, 50, 128), 0), ((2, 52, 100, 128), 0),
+    ((2, 104, 200, 129), 0), ((1, 208, 400, 129), 0),
+    # C = 1, 8, 129, 257, 513; W*C*es off 16 bytes (C = 3, 129, 257, 513)
+    ((2, 5, 7, 1), 0), ((1, 6, 11, 8), 0), ((2, 7, 9, 129), 0),
+    ((1, 4, 6, 257), 0), ((1, 3, 5, 513), 0), ((3, 7, 9, 3), 0),
+    # H = 1, W = 1, both
+    ((2, 1, 37, 16), 0), ((2, 23, 1, 24), 0), ((1, 1, 1, 5), 0),
+    # W wider than one block's span, with a ragged last span; B = 3
+    ((1, 9, 61, 129), 0), ((1, 3, 1001, 8), 0), ((3, 10, 33, 64), 0),
+    # contiguous views one element into their storage: every row off the
+    # 16-byte grid, or all rows on it but at another phase
+    ((2, 7, 9, 129), 1), ((2, 6, 10, 64), 1), ((1, 5, 8, 16), 1),
 ])
-def test_upsample_kernel_matches_plain_bitwise(cuda, dtype, shape):
-    x = _randn(shape, 2, dtype, cuda)
+def test_upsample_kernel_matches_plain_bitwise(cuda, dtype, shape, offset):
+    n = int(np.prod(shape))
+    x = _randn((n + offset,), 2, dtype, cuda)[offset:].view(shape)
+    assert x.is_contiguous() and x.storage_offset() == offset
     before = upsample_bicubic_x2.launches
     got = upsample_bicubic_x2(x)
     torch.cuda.synchronize()

@@ -32,8 +32,10 @@ from camradepth_tpu_torch.ops.attention import (
 )
 from camradepth_tpu_torch.ops.groupnorm import group_norm
 from camradepth_tpu_torch.ops.resize import (
+    SMEM_MAX,
     upsample_bicubic_x2,
     upsample_bicubic_x2_reference,
+    upsample_plan,
 )
 from tests.torch_port import one_torch_thread  # noqa: F401
 
@@ -124,6 +126,58 @@ def test_upsample_matches_torch_interpolate(shape):
     got = upsample_bicubic_x2(xt)
     np.testing.assert_allclose(got.numpy(), want.permute(0, 2, 3, 1).numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# the five decoder inputs of base at 416x800, batch 8, then ragged ones:
+# C = 1, 3, 129, 257, 513, H = 1, W = 1, a ragged last W span, B = 3
+PLAN_SHAPES = [(8, 13, 25, 256), (8, 26, 50, 128), (8, 52, 100, 128),
+               (8, 104, 200, 129), (8, 208, 400, 129), (2, 5, 7, 1),
+               (3, 7, 9, 3), (2, 7, 9, 129), (1, 4, 6, 257), (1, 3, 5, 513),
+               (2, 1, 37, 16), (2, 23, 1, 24), (1, 1, 1, 5), (1, 9, 61, 129),
+               (1, 3, 1001, 8)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_upsample_plan_covers_every_output_once(shape, itemsize):
+    """The blocks of csrc/upsample_bicubic_x2.cu's launch: each writes the
+    2x2 outputs of its input rows and columns; together they write every
+    output exactly once, in the shared memory a block may have."""
+    b, h, w, c = shape
+    plan = upsample_plan(b, h, w, c, itemsize, 132)
+    assert plan.smem <= SMEM_MAX
+    spans, strips, nb = plan.grid
+    assert nb == b and spans == -(-w // plan.tw)
+    assert strips == -(-h // plan.rows)
+    count = np.zeros((2 * h, 2 * w), np.int32)
+    for sy in range(strips):
+        for sx in range(spans):
+            rows = slice(2 * sy * plan.rows, 2 * min((sy + 1) * plan.rows, h))
+            cols = slice(2 * sx * plan.tw, 2 * min((sx + 1) * plan.tw, w))
+            count[rows, cols] += 1
+    assert (count == 1).all()
+    if shape[0] == 8:  # the decoder's launches fill the card
+        assert spans * strips * nb >= 2 * 132
+
+
+def test_upsample_plan_keeps_decoder_spans_in_registers():
+    """At the decoder's widths a block's H span, its 2-column halo on each
+    side and the 16-byte slack fit the kernel's 256 threads x 2 vectors."""
+    for itemsize in (2, 4):
+        n = 16 // itemsize
+        for b, h, w, c in PLAN_SHAPES[:5]:
+            plan = upsample_plan(b, h, w, c, itemsize, 132)
+            assert (plan.tw + 4) * c + 2 * n <= 2 * 256 * n
+
+
+def test_upsample_plan_refuses_what_shared_memory_cannot_hold():
+    assert upsample_plan(1, 8, 8, 4148, 4, 132).smem <= SMEM_MAX
+    assert upsample_plan(1, 8, 8, 4838, 2, 132).smem <= SMEM_MAX
+    for c, itemsize in ((4149, 4), (4839, 2)):
+        with pytest.raises(ValueError, match="shared memory"):
+            upsample_plan(1, 8, 8, c, itemsize, 132)
+    with pytest.raises(ValueError, match="empty"):
+        upsample_plan(1, 0, 8, 3, 2, 132)
 
 
 ATTN_CASES = [(1, 13, 16), (2, 7, 32), (4, 21, 160), (8, 5, 64),

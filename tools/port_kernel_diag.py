@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Where the port's bf16 attention and fused-conv kernels spend their time,
-on one CUDA card (a diagnostic beside chip_smoke.py's timings).
+"""Where the port's bf16 attention, bicubic and fused-conv kernels spend
+their time, on one CUDA card (a diagnostic beside chip_smoke.py's timings).
 
-    python3 tools/port_kernel_diag.py
+    python3 tools/port_kernel_diag.py [attention] [bicubic] [conv]
+
+With no argument every section runs.
 
 Attention, at each encoder stage of `base` 416x800, batch 8: the mean time
 of a launch through the Python wrapper (CUDA events around 50 back-to-back
@@ -11,7 +13,12 @@ calls, as chip_smoke.py times), of the bare C entry point called in a loop
 time alone). Fused conv, at the three 416x800 ShortResBlock shapes: the
 chained sources (affine + GELU on all but the first) against the same
 shapes read as they are (no transform), and one plain source of the same
-K. Prints one line per measurement; needs a card.
+K. Bicubic, at the five decoder inputs of `base` 416x800, batch 8: the
+kernel's device time replayed from a CUDA graph, and its rate of the bytes
+it must move (one read, four writes) against 3.35 TB/s, beside the same
+for a `y.copy_(x)` of as many bytes (a yardstick of the card's streaming
+rate; the port never calls it). Prints one line per measurement; needs a
+card.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 B = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 
 
 def events_ms(fn, iters=50):
@@ -91,6 +99,36 @@ def attention():
               f"wrapper_ms={t_w:.4f} bare_ms={t_b:.4f} graph_ms={t_g:.4f}")
 
 
+def bicubic():
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
+
+    m = preset("base").model
+    h, w = m.img_size
+    shapes = [(*m.feature_shape(3), m.dims[3]),
+              (*m.feature_shape(2), m.mid_channels),
+              (*m.feature_shape(1), m.mid_channels),
+              (*m.feature_shape(0), m.mid_channels + 1),
+              (h // 2, w // 2, m.mid_channels + 1)]
+    total = copy_total = 0.0
+    for i, (hh, ww, c) in enumerate(shapes):
+        x = randn((B, hh, ww, c), 20 + i)
+        moved = 5 * x.numel() * x.element_size()  # one read, four writes
+        t_k = graph_ms(lambda: upsample_bicubic_x2(x), 20)
+        src = torch.empty(5 * x.numel() // 2, dtype=x.dtype, device="cuda")
+        dst = torch.empty_like(src)
+        t_c = graph_ms(lambda: dst.copy_(src), 20)
+        total, copy_total = total + t_k, copy_total + t_c
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        print(f"bicubic bf16 B={B} {hh}x{ww}x{c}: kernel_ms={t_k:.4f} "
+              f"{moved / t_k / 1e6:.0f} GB/s ({100 * bound / t_k:.1f} % of "
+              f"3350); copy of the same bytes copy_ms={t_c:.4f} "
+              f"{moved / t_c / 1e6:.0f} GB/s; bound_ms={bound:.4f}")
+        del x, src, dst
+    print(f"bicubic per bf16 batch-{B} forward: kernel_ms={total:.4f} "
+          f"copy_ms={copy_total:.4f}")
+
+
 def conv():
     from camradepth_tpu_torch.ops.conv_fused import Source, conv3x3_fused
 
@@ -130,9 +168,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    sections = {"attention": attention, "bicubic": bicubic, "conv": conv}
     with torch.inference_mode():
-        attention()
-        conv()
+        for name in sys.argv[1:] or sections:
+            sections[name]()
 
 
 if __name__ == "__main__":
