@@ -1,23 +1,31 @@
-"""Command-line interface of the PyTorch/CUDA port: ``test`` and ``serve``.
+"""Command-line interface of the PyTorch/CUDA port: ``train``, ``test``
+and ``serve``.
 
+  python -m camradepth_tpu_torch.cli train --preset base --split S.npy \\
+      [--run-dir R] [--save-model] [--set train.num_epochs=1] [--device ..]
   python -m camradepth_tpu_torch.cli test  --preset base --split S.npy \\
       --checkpoint W.pth [--report-json R.json] [--device cuda|cpu]
   python -m camradepth_tpu_torch.cli serve --preset base --split S.npy \\
       --checkpoint W.pth --out served/ [--limit N] [--device cuda|cpu]
 
-The counterparts of ``camradepth_tpu.cli``'s ``cmd_test``
-(``camradepth_tpu/cli.py:402-462``) and of the dense, single-device
-split-streaming part of ``cmd_serve`` (``:655-852``), with the same flags
-where they apply. ``test`` prints the reference metric report and writes
-the same report JSON keys as ``camradepth_tpu.cli test --report-json``;
-``serve`` streams the split through :class:`serving.DepthEngine`, writes
-``NNNNN_depth.npy`` per frame and prints the same stats line.
+The counterparts of ``camradepth_tpu.cli``'s single-device ``cmd_train``
+(``camradepth_tpu/cli.py:314-349``), ``cmd_test`` (``:402-462``) and the
+dense, single-device split-streaming part of ``cmd_serve``
+(``:655-852``), with the same flags where they apply. ``train`` runs
+:class:`train.trainer.Trainer` and prints the best validation loss; its
+checkpoints are ``.pth`` files that ``test`` and ``serve`` load. ``test``
+prints the reference metric report and writes the same report JSON keys
+as ``camradepth_tpu.cli test --report-json``; ``serve`` streams the split
+through :class:`serving.DepthEngine`, writes ``NNNNN_depth.npy`` per frame
+and prints the same stats line.
 
-``--checkpoint`` is a reference-format ``.pth``, loaded strictly. One flag
-is new: ``--device`` (default ``cuda``, which raises without a card). The
-options of slices still to come are refused with the ROADMAP item that
-brings them: wire loaders (queue 1 item 5), mesh and HTTP serving (item 8),
-StableHLO artifacts (item 9).
+``--checkpoint`` is a reference-format ``.pth``, loaded strictly (for
+``train``: a warm start, shape-matching, or a full trainer checkpoint).
+One flag is new: ``--device`` (default ``cuda``, which raises without a
+card). The options of slices still to come are refused with the ROADMAP
+item that brings them: wire loaders (queue 1 item 5), mesh and HTTP
+serving (item 8), StableHLO artifacts (item 9), multi-device training
+(item 10).
 """
 
 from __future__ import annotations
@@ -90,6 +98,76 @@ def _build_config(args):
     except ValueError as e:  # bad --set path or value, preset invariants
         raise UserError(str(e)) from e
     return cfg
+
+
+# Options of the JAX CLI's train that the port does not take yet.
+_LATER_TRAIN_FLAGS = ("data_parallel", "fsdp", "spatial_parallel",
+                      "multihost", "coordinator")
+
+
+def _build_train_config(args):
+    """The train config from the flags, as the JAX package's
+    ``_build_config_inner`` (``camradepth_tpu/cli.py:127-190``) for the
+    flags the port takes; ``--set`` applies last."""
+    from camradepth_tpu_torch import config as C
+
+    try:
+        cfg = C.preset(args.preset)
+        data_kw = {}
+        if args.split:
+            data_kw["split_path"] = args.split
+        if args.train_val_split:
+            n_tr, n_va = (int(v) for v in args.train_val_split.split(","))
+            data_kw["train_val_split"] = (n_tr, n_va)
+        if data_kw:
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
+        train_kw = {}
+        if args.batch_size is not None and args.desired_batch_size is None:
+            # keep the accumulation invariant when only batch_size is given
+            train_kw["desired_batch_size"] = args.batch_size
+        for flag in ("batch_size", "desired_batch_size", "learning_rate",
+                     "num_steps", "num_epochs", "checkpoint", "output_dir",
+                     "run_name"):
+            v = getattr(args, flag)
+            if v is not None:
+                train_kw[flag] = v
+        if args.pad_microbatch is not None:
+            train_kw["pad_microbatch_to"] = args.pad_microbatch
+        if args.save_model:
+            train_kw["save_model"] = True
+        if args.async_checkpoint:
+            train_kw["async_checkpoint"] = True
+        if args.checkpoint:
+            train_kw["load_ckpt"] = True
+        if args.num_epochs is not None:
+            train_kw["num_steps"] = None  # an epoch count, not a step budget
+        if train_kw:
+            cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                        **train_kw))
+        if args.compute_dtype:
+            cfg = cfg.replace(model=dataclasses.replace(
+                cfg.model, compute_dtype=args.compute_dtype))
+        if args.set_overrides:
+            cfg = C.apply_overrides(cfg, args.set_overrides)
+    except ValueError as e:  # bad --set path or value, preset invariants
+        raise UserError(str(e)) from e
+    return cfg
+
+
+def cmd_train(args) -> int:
+    from camradepth_tpu_torch.train.trainer import Trainer
+
+    for flag in _LATER_TRAIN_FLAGS:
+        if getattr(args, flag, None):
+            raise UserError(
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
+                "queue 1 item 10 (multi-device)): the port trains on one "
+                "device")
+    cfg = _build_train_config(args)
+    trainer = Trainer(cfg, run_dir=args.run_dir, device=args.device)
+    best = trainer.train()
+    print(f"best val loss: {best:.6f}")
+    return 0
 
 
 def _check_args(args) -> None:
@@ -180,9 +258,57 @@ def cmd_serve(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="camradepth_tpu_torch",
-        description="CamRaDepth on PyTorch/CUDA: test and serve",
+        description="CamRaDepth on PyTorch/CUDA: train, test and serve",
     )
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train a model variant on one device")
+    p.add_argument("--preset", default="base",
+                   choices=["base", "base_rgb", "supervised_seg",
+                            "unsupervised_seg", "sup_unsup_seg",
+                            "sup_unsup_seg_rgb"],
+                   help="published experiment preset (args.py:72-122)")
+    p.add_argument("--split", default=None, help="(N,7) split .npy path")
+    p.add_argument("--train-val-split", default=None, metavar="NTR,NVA",
+                   help="train and val row counts of the split")
+    p.add_argument("--checkpoint", default=None,
+                   help="warm start: a reference .pth (shape-matching "
+                        "params) or a trainer checkpoint (full state)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--desired-batch-size", type=int, default=None,
+                   help="effective batch via gradient accumulation "
+                        "(args.py:31); defaults to --batch-size when that "
+                        "is given")
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--num-steps", type=int, default=None)
+    p.add_argument("--num-epochs", type=int, default=None,
+                   help="train this many epochs (clears the step budget)")
+    p.add_argument("--pad-microbatch", type=int, default=None,
+                   help="pad each training microbatch to this size with "
+                        "dummy samples that every loss term ignores")
+    p.add_argument("--output-dir", default=None)
+    p.add_argument("--run-name", default=None)
+    p.add_argument("--run-dir", default=None,
+                   help="explicit run directory (default: auto-indexed "
+                        "Output/<arch>/<run>/<n>)")
+    p.add_argument("--save-model", action="store_true",
+                   help="write a checkpoint at each new best val loss")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write best-val checkpoints on a background thread")
+    p.add_argument("--compute-dtype", default=None,
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--set", action="append", dest="set_overrides",
+                   default=None, metavar="SECTION.FIELD=VALUE",
+                   help="override a config field by dotted path (sections "
+                        "model, data, train); repeatable, applied last")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; cpu runs "
+                        "the kernels' plain versions)")
+    for flag in ("--data-parallel", "--fsdp", "--spatial-parallel"):
+        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--multihost", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("test", help="test-split metric report")
     p.add_argument("--report-json", default=None, metavar="PATH",

@@ -1,20 +1,20 @@
 """Configuration for the PyTorch/CUDA port of CamRaDepth.
 
 The package's own copy of the parts of ``camradepth_tpu/config.py`` that
-serving, the data pipeline and ``cli test``/``cli serve`` read:
-:class:`ModelConfig`, :class:`DataConfig`, :class:`ExperimentConfig`,
-:func:`preset`, :func:`apply_overrides` (``--set``) and
-:func:`tiny_test_config`. Field names and defaults are those of the JAX
-package, so one set of keyword arguments builds both configs and a JAX
-config maps onto this one field for field. Training and mesh settings
-arrive with the slices that use them.
+serving, training, the data pipeline and the CLI read:
+:class:`ModelConfig`, :class:`DataConfig`, :class:`TrainConfig`,
+:class:`ExperimentConfig`, :func:`preset`, :func:`apply_overrides`
+(``--set``), :func:`num_epochs_for_steps` and :func:`tiny_test_config`.
+Field names and defaults are those of the JAX package, so one set of
+keyword arguments builds both configs and a JAX config maps onto this one
+field for field. Mesh settings arrive with the multi-device slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 # ImageNet normalization constants. The reference normalizes cv2's BGR
 # image with these RGB-ordered statistics; the quirk is kept for weight
@@ -62,11 +62,14 @@ class ModelConfig:
     # this one field for field.
     use_pallas_attention: bool = False
     use_pallas_resize: bool = False
-    # Options that later slices of the port bring. The model raises
-    # NotImplementedError when one of them is set.
+    # Recompute in the backward pass (torch.utils.checkpoint): every decoder
+    # stage, every encoder block, or the decoder stages up to quarter
+    # resolution (camradepth_tpu/config.py:87-96).
     remat_decoder: bool = False
     remat_encoder: bool = False
     remat_decoder_small: bool = False
+    # An option that a later slice of the port brings: the model raises
+    # NotImplementedError when it is set.
     tpu_decoder: bool = False
 
     def __post_init__(self):
@@ -129,9 +132,69 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Optimization settings of single-device training (reference
+    args.py:29-42, 105-122; ``camradepth_tpu/config.py:197-274``)."""
+
+    batch_size: int = 2
+    desired_batch_size: int = 6
+    learning_rate: float = 6e-5
+    div_factor: float = 2.0
+    final_div_factor: float = 1e4
+    pct_start: float = 0.15
+    num_epochs: int = 30
+    num_steps: Optional[int] = 60_000
+    early_stopping_thresh: int = 6
+    stop_after: Optional[int] = None
+    betas: Tuple[float, float] = (0.9, 0.999)
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    # Deep-supervision loss weights [final, stage4, stage3, seg_final,
+    # seg_inter] (runner.py:213-215). The reference model returns no
+    # intermediate seg, so the last weight only inflates the denominator.
+    loss_weights: Tuple[float, float, float, float, float] = (1, 1, 1, 0.2,
+                                                               0.2)
+    seg_inter_loss: bool = False
+    # Pad each training microbatch with dummy samples up to this size; the
+    # dummies are no-ops for every masked loss term.
+    pad_microbatch_to: Optional[int] = None
+    seed: int = 0
+    checkpoint: Optional[str] = None
+    load_ckpt: bool = False
+    save_model: bool = False
+    # write best-val checkpoints on a background thread
+    async_checkpoint: bool = False
+    # SIGTERM during train() saves a full checkpoint at the next
+    # optimizer-step boundary; auto-resume continues from it
+    graceful_preemption: bool = True
+    # dtype of batch["features"] on its way to the device: "auto" ships
+    # bf16 when the model computes in bf16 (its first op casts the input,
+    # so this is exact) and fp32 otherwise
+    transfer_dtype: str = "auto"  # auto | float32 | bfloat16
+    # microbatch stacks assembled and copied ahead on a worker thread
+    prefetch_batches: int = 2
+    output_dir: str = "Output"
+    arch_name: str = "Transformer"
+    run_name: str = "current"
+    log_every: int = 50
+
+    def __post_init__(self):
+        if self.desired_batch_size % self.batch_size:
+            raise ValueError(
+                "desired_batch_size must be a multiple of batch_size"
+            )
+
+    @property
+    def update_interval(self) -> int:
+        """Gradient-accumulation factor (args.py:132)."""
+        return self.desired_batch_size // self.batch_size
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     name: str = "base"
 
     def replace(self, **kw) -> "ExperimentConfig":
@@ -182,9 +245,12 @@ def preset(name: str, **overrides) -> ExperimentConfig:
 def _coerce_override(raw: str, current):
     """Parse an override string against the current field value's type,
     as ``camradepth_tpu/config.py:353-399`` does for the types the port's
-    config holds: bools take 1/0/true/false/yes/no/on/off; numeric tuples
-    take comma lists (ints stay ints unless the value needs a float)."""
+    config holds: none/null clears an optional field; bools take
+    1/0/true/false/yes/no/on/off; numeric tuples take comma lists (ints
+    stay ints unless the value needs a float)."""
     s = raw.strip()
+    if s.lower() in ("none", "null"):
+        return None  # clears an Optional field (train.num_steps, ...)
     if isinstance(current, bool):
         low = s.lower()
         if low in ("1", "true", "yes", "on"):
@@ -196,6 +262,14 @@ def _coerce_override(raw: str, current):
         return int(s)
     if isinstance(current, float):
         return float(s)
+    if current is None:
+        # an Optional field at None: a number if the value reads as one
+        # (train.pad_microbatch_to), else the string (train.checkpoint)
+        try:
+            f = float(s)
+            return int(f) if f == int(f) and "." not in s else f
+        except ValueError:
+            return s
     if isinstance(current, tuple):
         parts = [p.strip() for p in s.strip("()").split(",") if p.strip()]
         ref = list(current) + [current[-1]] * (len(parts) - len(current))
@@ -209,18 +283,17 @@ def _coerce_override(raw: str, current):
 
 # Config sections of the JAX package that the port does not have yet, and
 # the ROADMAP queue-1 item that brings each.
-_LATER_SECTIONS = {"train": "item 3 (training)", "mesh": "item 10 "
-                   "(multi-device)"}
+_LATER_SECTIONS = {"mesh": "item 10 (multi-device)"}
 
 
 def apply_overrides(cfg: ExperimentConfig, pairs) -> ExperimentConfig:
     """Dotted ``section.field=value`` overrides, as the JAX package's
     ``apply_overrides`` (``camradepth_tpu/config.py:402-445``): sections
-    ``model`` and ``data``, plus the top-level ``name``. Values are coerced
-    against the current field's type and ``__post_init__`` checks re-run.
-    A ``train.*`` or ``mesh.*`` path raises, naming the ROADMAP item that
+    ``model``, ``data`` and ``train``, plus the top-level ``name``. Values
+    are coerced against the current field's type and ``__post_init__``
+    checks re-run. A ``mesh.*`` path raises, naming the ROADMAP item that
     brings that section."""
-    sections = ("model", "data")
+    sections = ("model", "data", "train")
     for pair in pairs:
         if "=" not in pair:
             raise ValueError(
@@ -261,9 +334,20 @@ def apply_overrides(cfg: ExperimentConfig, pairs) -> ExperimentConfig:
     return cfg
 
 
+def num_epochs_for_steps(cfg: ExperimentConfig) -> int:
+    """Auto-derived epoch count when training is step-budgeted
+    (args.py:141-143; ``camradepth_tpu/config.py:448-456``)."""
+    if cfg.train.num_steps is None:
+        return cfg.train.num_epochs
+    train_n = cfg.data.effective_train_val_split[0]
+    if train_n <= 0:
+        return cfg.train.num_epochs
+    return max(1, cfg.train.num_steps * cfg.train.batch_size // train_n)
+
+
 def tiny_test_config(**overrides) -> ExperimentConfig:
     """A miniature config for unit tests (``camradepth_tpu/config.py:
-    459-481``, model and data sections)."""
+    459-481``)."""
     model = ModelConfig(
         img_size=(64, 128),
         dims=(16, 32, 32, 64),
@@ -278,8 +362,10 @@ def tiny_test_config(**overrides) -> ExperimentConfig:
         compute_dtype="float32",
         use_pallas_attention=False,
     )
+    train = TrainConfig(batch_size=2, desired_batch_size=4, num_steps=None,
+                        num_epochs=1)
     data = DataConfig(image_dimension=(64, 128), train_val_split=(4, 2))
-    cfg = ExperimentConfig(model=model, data=data, name="tiny")
+    cfg = ExperimentConfig(model=model, data=data, train=train, name="tiny")
     if overrides:
         cfg = cfg.replace(**overrides)
     return cfg

@@ -56,6 +56,17 @@
 // In both, the head sum stays inside the block: blocks run in no fixed
 // order, so nothing is carried across them the way the TPU grid carries it
 // in out_ref (:57-63), and no float atomics are used.
+//
+// Argmax for the backward (the `_argmax` entry points, used when gradients
+// are needed): both kernels also write int32 amax [B, heads, N], the key
+// of each row's largest unscaled fp32 dot, the first one on a tie
+// (camradepth_tpu/ops/attention.py:46-47 takes jnp.argmax before the
+// scale). Each thread keeps the unscaled maximum with its key, and the
+// partial maxima meet by value, then by the lower key. The score is that
+// maximum times the scale: rounding is monotone, so fl(max v * scale) =
+// max fl(v * scale) and the scores equal those of the inference launches
+// bit for bit. The inference entry points compile the same templates with
+// the argmax off: no argmax instruction and no argmax byte is in them.
 
 #include <math_constants.h>
 
@@ -87,13 +98,29 @@ __device__ __forceinline__ float dot_row(const float (&qr)[DMAX],
   return dot;
 }
 
-template <typename T, int DMAX>
+// (v, key) beats (bv, bkey): a larger value, or an equal one at a lower
+// key (a key of -1 stands for none and never wins a tie).
+__device__ __forceinline__ bool beats(float v, int key, float bv, int bkey) {
+  return v > bv ||
+         (v == bv && static_cast<unsigned>(key) < static_cast<unsigned>(bkey));
+}
+
+__device__ __forceinline__ void take(float& bv, int& bkey, float v, int key) {
+  if (beats(v, key, bv, bkey)) {
+    bv = v;
+    bkey = key;
+  }
+}
+
+template <typename T, int DMAX, bool ARG>
 __global__ void __launch_bounds__(kThreads)
     scores_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  float* __restrict__ out, int N, int M, int C, int heads,
-                  int d, int dp, int splits, float scale) {
+                  float* __restrict__ out, int* __restrict__ amax, int N,
+                  int M, int C, int heads, int d, int dp, int splits,
+                  float scale) {
   __shared__ __align__(16) float ks[kKeys * DMAX];
   __shared__ float part[kThreads];
+  __shared__ int part_key[ARG ? kThreads : 1];
   const int tokens = kThreads / splits;
   const int t = threadIdx.x % tokens;
   const int slice = threadIdx.x / tokens;
@@ -111,6 +138,7 @@ __global__ void __launch_bounds__(kThreads)
       qr[i] = (i < d) ? to_f32(qb[h * d + i]) : 0.f;
     }
     float mx = -CUDART_INF_F;
+    int mkey = -1;  // ARG: mx is the unscaled maximum, at key mkey
     for (int m0 = 0; m0 < M; m0 += kKeys) {
       const int mt = min(kKeys, M - m0);
       __syncthreads();  // every thread is done with the previous chunk
@@ -132,16 +160,40 @@ __global__ void __launch_bounds__(kThreads)
         const float d1 = dot_row(qr, ks + (j + 1) * dp, dp);
         const float d2 = dot_row(qr, ks + (j + 2) * dp, dp);
         const float d3 = dot_row(qr, ks + (j + 3) * dp, dp);
-        mx = fmaxf(mx, fmaxf(fmaxf(d0 * scale, d1 * scale),
-                             fmaxf(d2 * scale, d3 * scale)));
+        if (ARG) {
+          take(mx, mkey, d0, m0 + j);
+          take(mx, mkey, d1, m0 + j + 1);
+          take(mx, mkey, d2, m0 + j + 2);
+          take(mx, mkey, d3, m0 + j + 3);
+        } else {
+          mx = fmaxf(mx, fmaxf(fmaxf(d0 * scale, d1 * scale),
+                               fmaxf(d2 * scale, d3 * scale)));
+        }
       }
-      for (; j < j1; ++j) mx = fmaxf(mx, dot_row(qr, ks + j * dp, dp) * scale);
+      for (; j < j1; ++j) {
+        const float dj = dot_row(qr, ks + j * dp, dp);
+        if (ARG) {
+          take(mx, mkey, dj, m0 + j);
+        } else {
+          mx = fmaxf(mx, dj * scale);
+        }
+      }
     }
     part[threadIdx.x] = mx;
+    if (ARG) part_key[threadIdx.x] = mkey;
     __syncthreads();
     if (slice == 0) {
       float m = part[t];
-      for (int s = 1; s < splits; ++s) m = fmaxf(m, part[s * tokens + t]);
+      if (ARG) {
+        int key = part_key[t];
+        for (int s = 1; s < splits; ++s)
+          take(m, key, part[s * tokens + t], part_key[s * tokens + t]);
+        if (live)
+          amax[(static_cast<long long>(b) * heads + h) * N + n] = max(key, 0);
+        m = __fmul_rn(m, scale);  // not fused into the head sum's add
+      } else {
+        for (int s = 1; s < splits; ++s) m = fmaxf(m, part[s * tokens + t]);
+      }
       acc += m;
     }
     // the next head's first chunk loop synchronises before `part` is
@@ -201,18 +253,31 @@ __device__ __forceinline__ float row_max(float mx, float v0, float v1,
   return fmaxf(mx, fmaxf(fmaxf(v0, v1), fmaxf(v8, v9)));
 }
 
+// ARG: the unscaled values of one accumulator row's pairs of keys (key,
+// key + 1) and (key + 8, key + 9), in key order, into (bv, bkey).
+__device__ __forceinline__ void row_arg(float& bv, int& bkey, float v0,
+                                        float v1, float v8, float v9, int key,
+                                        int M) {
+  if (key < M) take(bv, bkey, v0, key);
+  if (key + 1 < M) take(bv, bkey, v1, key + 1);
+  if (key + 8 < M) take(bv, bkey, v8, key + 8);
+  if (key + 9 < M) take(bv, bkey, v9, key + 9);
+}
+
 // DK: k-steps of 16 per head (d16 = 16 * DK channels, d <= d16).
-template <int DK>
+template <int DK, bool ARG>
 __global__ void __launch_bounds__(kMmaThreads)
     scores_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
-                      float* __restrict__ out, int N, int M, int C, int heads,
-                      int d, int pitch, int T, int MC, int vec, float scale) {
+                      float* __restrict__ out, int* __restrict__ amax, int N,
+                      int M, int C, int heads, int d, int pitch, int T, int MC,
+                      int vec, float scale) {
   constexpr int d16 = 16 * DK;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [T][pitch]
   __nv_bfloat16* ks = qs + T * pitch;                          // [MC][pitch]
   float* s_max = reinterpret_cast<float*>(ks + MC * pitch);    // [items][16]
+  int* s_key = reinterpret_cast<int*>(s_max + T * heads);  // ARG: [items][16]
 
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * T;
@@ -224,8 +289,10 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int items = groups * heads;  // (16 tokens, head), item = h*groups+tg
   const __nv_bfloat16* kb = k + static_cast<long long>(b) * M * C;
 
-  for (int i = threadIdx.x; i < items * 16; i += kMmaThreads)
+  for (int i = threadIdx.x; i < items * 16; i += kMmaThreads) {
     s_max[i] = -CUDART_INF_F;
+    if (ARG) s_key[i] = -1;
+  }
   stage_rows(qs, q + (static_cast<long long>(b) * N + n0) * C, 0, T, N - n0,
              C, d, d16, heads, pitch, vec);
   // ldmatrix rows and columns of this lane: A (q) and B (keys)
@@ -251,6 +318,7 @@ __global__ void __launch_bounds__(kMmaThreads)
                                     hh * d16 + s * 16 + a_col));
       const __nv_bfloat16* kh = ks + b_row * pitch + hh * d16 + b_col;
       float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;  // rows g, g + 8
+      int key0 = -1, key1 = -1;  // ARG: keys of the unscaled maxima
       // kKeyTiles tiles of 16 keys at a time: 2 * kKeyTiles independent
       // accumulators per k-step keep the tensor cores' pipeline full
       for (int j0 = 0; j0 < mc; j0 += 16 * kKeyTiles) {
@@ -278,7 +346,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
         for (int u = 0; u < kKeyTiles; ++u) {
           const int key = m0 + j0 + 16 * u + 2 * t;
-          if (m0 + j0 + 16 * u + 16 <= M) {
+          if (ARG) {
+            if (j0 + 16 * u < mc) {
+              row_arg(mx0, key0, c[u][0][0], c[u][0][1], c[u][1][0],
+                      c[u][1][1], key, M);
+              row_arg(mx1, key1, c[u][0][2], c[u][0][3], c[u][1][2],
+                      c[u][1][3], key, M);
+            }
+          } else if (m0 + j0 + 16 * u + 16 <= M) {
             mx0 = fmaxf(mx0, fmaxf(fmaxf(c[u][0][0] * scale,
                                          c[u][0][1] * scale),
                                    fmaxf(c[u][1][0] * scale,
@@ -298,13 +373,36 @@ __global__ void __launch_bounds__(kMmaThreads)
       // the four lanes of a row hold its maxima over disjoint keys
 #pragma unroll
       for (int o = 1; o <= 2; o <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+        if (ARG) {
+          const float v0 = __shfl_xor_sync(0xffffffffu, mx0, o);
+          const int k0 = __shfl_xor_sync(0xffffffffu, key0, o);
+          const float v1 = __shfl_xor_sync(0xffffffffu, mx1, o);
+          const int k1 = __shfl_xor_sync(0xffffffffu, key1, o);
+          take(mx0, key0, v0, k0);
+          take(mx1, key1, v1, k1);
+        } else {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+        }
       }
       if (t == 0) {  // the same warp owns this item in every chunk
         float* sm = s_max + it * 16;
-        sm[g] = fmaxf(sm[g], mx0);
-        sm[g + 8] = fmaxf(sm[g + 8], mx1);
+        if (ARG) {
+          int* sk = s_key + it * 16;
+          float v = sm[g];
+          int kk = sk[g];
+          take(v, kk, mx0, key0);
+          sm[g] = v;
+          sk[g] = kk;
+          v = sm[g + 8];
+          kk = sk[g + 8];
+          take(v, kk, mx1, key1);
+          sm[g + 8] = v;
+          sk[g + 8] = kk;
+        } else {
+          sm[g] = fmaxf(sm[g], mx0);
+          sm[g + 8] = fmaxf(sm[g + 8], mx1);
+        }
       }
     }
   }
@@ -313,24 +411,33 @@ __global__ void __launch_bounds__(kMmaThreads)
     if (n0 + i < N) {
       const int tg = i >> 4;
       float acc = 0.f;
-      for (int hh = 0; hh < heads; ++hh)
-        acc += s_max[(hh * groups + tg) * 16 + (i & 15)];
+      for (int hh = 0; hh < heads; ++hh) {
+        const int at = (hh * groups + tg) * 16 + (i & 15);
+        if (ARG) {
+          acc += __fmul_rn(s_max[at], scale);  // rounded, then added
+          amax[(static_cast<long long>(b) * heads + hh) * N + n0 + i] =
+              max(s_key[at], 0);
+        } else {
+          acc += s_max[at];
+        }
+      }
       out[static_cast<long long>(b) * N + n0 + i] = acc;
     }
   }
 }
 
-template <int DK>
+template <int DK, bool ARG>
 int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, float* out,
-               int B, int N, int M, int C, int heads, int d, float scale,
-               cudaStream_t stream) {
+               int* amax, int B, int N, int M, int C, int heads, int d,
+               float scale, cudaStream_t stream) {
   const int pitch = heads * 16 * DK + 8;  // an odd number of 16-byte units
   // the largest token tile that still gives every SM a block: each block
   // stages all keys, so fewer, larger tiles move fewer bytes
   int T = 256;
   while (T > 16 && static_cast<long long>((N + T - 1) / T) * B < sm_count())
     T /= 2;
-  const int fixed = T * pitch * 2 + T * heads * 4;  // q tile, row maxima
+  // q tile, row maxima (and their keys)
+  const int fixed = T * pitch * 2 + T * heads * 4 * (ARG ? 2 : 1);
   const int m16 = (M + 15) & ~15;
   const int MC = min(m16, (kSmemMax - fixed) / (pitch * 2) / 16 * 16);
   if (MC < 16) return static_cast<int>(cudaErrorInvalidValue);
@@ -338,7 +445,7 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, float* out,
   static int smem_set = 0;
   if (smem > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        scores_mma_kernel<DK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        scores_mma_kernel<DK, ARG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = smem;
@@ -348,8 +455,8 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, float* out,
   };
   const int vec = d % 8 == 0 && C % 8 == 0 && aligned(q) && aligned(k);
   const dim3 grid((N + T - 1) / T, B);
-  scores_mma_kernel<DK><<<grid, kMmaThreads, smem, stream>>>(
-      q, k, out, N, M, C, heads, d, pitch, T, MC, vec, scale);
+  scores_mma_kernel<DK, ARG><<<grid, kMmaThreads, smem, stream>>>(
+      q, k, out, amax, N, M, C, heads, d, pitch, T, MC, vec, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -358,25 +465,32 @@ bool bad_shape(int B, int M, int C, int heads) {
          B > 65535;
 }
 
-int launch_bf16(const void* q, const void* k, void* out, int B, int N, int M,
-                int C, int heads, float scale, void* stream) {
+template <bool ARG>
+int launch_bf16(const void* q, const void* k, void* out, void* amax, int B,
+                int N, int M, int C, int heads, float scale, void* stream) {
   if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   if (bad_shape(B, M, C, heads)) return static_cast<int>(cudaErrorInvalidValue);
   const int d = C / heads;
   const auto* qt = static_cast<const __nv_bfloat16*>(q);
   const auto* kt = static_cast<const __nv_bfloat16*>(k);
   auto* o = static_cast<float*>(out);
+  auto* a = static_cast<int*>(amax);
   auto s = static_cast<cudaStream_t>(stream);
   switch ((d + 15) / 16) {
-    case 1: return launch_mma<1>(qt, kt, o, B, N, M, C, heads, d, scale, s);
-    case 2: return launch_mma<2>(qt, kt, o, B, N, M, C, heads, d, scale, s);
-    case 3: return launch_mma<3>(qt, kt, o, B, N, M, C, heads, d, scale, s);
-    default: return launch_mma<4>(qt, kt, o, B, N, M, C, heads, d, scale, s);
+    case 1:
+      return launch_mma<1, ARG>(qt, kt, o, a, B, N, M, C, heads, d, scale, s);
+    case 2:
+      return launch_mma<2, ARG>(qt, kt, o, a, B, N, M, C, heads, d, scale, s);
+    case 3:
+      return launch_mma<3, ARG>(qt, kt, o, a, B, N, M, C, heads, d, scale, s);
+    default:
+      return launch_mma<4, ARG>(qt, kt, o, a, B, N, M, C, heads, d, scale, s);
   }
 }
 
-int launch_f32(const void* q, const void* k, void* out, int B, int N, int M,
-               int C, int heads, float scale, void* stream) {
+template <bool ARG>
+int launch_f32(const void* q, const void* k, void* out, void* amax, int B,
+               int N, int M, int C, int heads, float scale, void* stream) {
   if (B <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
   if (bad_shape(B, M, C, heads)) return static_cast<int>(cudaErrorInvalidValue);
   const int d = C / heads;
@@ -395,12 +509,13 @@ int launch_f32(const void* q, const void* k, void* out, int B, int N, int M,
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   float* o = static_cast<float*>(out);
+  int* a = static_cast<int*>(amax);
   if (dp <= 32) {
-    scores_kernel<float, 32><<<grid, kThreads, 0, s>>>(
-        qt, kt, o, N, M, C, heads, d, dp, splits, scale);
+    scores_kernel<float, 32, ARG><<<grid, kThreads, 0, s>>>(
+        qt, kt, o, a, N, M, C, heads, d, dp, splits, scale);
   } else {
-    scores_kernel<float, 64><<<grid, kThreads, 0, s>>>(
-        qt, kt, o, N, M, C, heads, d, dp, splits, scale);
+    scores_kernel<float, 64, ARG><<<grid, kThreads, 0, s>>>(
+        qt, kt, o, a, N, M, C, heads, d, dp, splits, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -411,12 +526,27 @@ extern "C" int maxpool_attention_scores_f32(const void* q, const void* k,
                                             void* out, int B, int N, int M,
                                             int C, int heads, float scale,
                                             void* stream) {
-  return launch_f32(q, k, out, B, N, M, C, heads, scale, stream);
+  return launch_f32<false>(q, k, out, nullptr, B, N, M, C, heads, scale,
+                           stream);
 }
 
 extern "C" int maxpool_attention_scores_bf16(const void* q, const void* k,
                                              void* out, int B, int N, int M,
                                              int C, int heads, float scale,
                                              void* stream) {
-  return launch_bf16(q, k, out, B, N, M, C, heads, scale, stream);
+  return launch_bf16<false>(q, k, out, nullptr, B, N, M, C, heads, scale,
+                            stream);
+}
+
+// The same scores, and amax [B, heads, N] (int32) for the backward.
+extern "C" int maxpool_attention_scores_argmax_f32(
+    const void* q, const void* k, void* out, void* amax, int B, int N, int M,
+    int C, int heads, float scale, void* stream) {
+  return launch_f32<true>(q, k, out, amax, B, N, M, C, heads, scale, stream);
+}
+
+extern "C" int maxpool_attention_scores_argmax_bf16(
+    const void* q, const void* k, void* out, void* amax, int B, int N, int M,
+    int C, int heads, float scale, void* stream) {
+  return launch_bf16<true>(q, k, out, amax, B, N, M, C, heads, scale, stream);
 }

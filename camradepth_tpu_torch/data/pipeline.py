@@ -121,6 +121,12 @@ class BatchLoader:
         self._seed = seed
         self._epoch = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """Make the next ``iter`` give epoch ``epoch``'s order (0-based),
+        as the ``epoch + 1``-th iteration of a fresh loader would: a
+        resumed run then sees the batches of an uninterrupted one."""
+        self._epoch = epoch
+
     def __len__(self) -> int:
         n = len(self.frames)
         if self.shuffle:

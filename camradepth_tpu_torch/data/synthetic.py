@@ -7,9 +7,9 @@ reference's per-frame artifact contract (%05d_im.jpg, _radar.npy,
 _radar_filtered.npy, _mseg.npy, _im_uv.npy, _rad_vel.npy, _gt.npy) plus a
 split table, so the data pipeline, the test harness and serving run end to
 end without the nuScenes dataset: sparse radar (~0.1 % fill), semi-dense
-GT (~25 % fill), 21-class seg labels with 255 ignore. The JAX package's
-learnable layered scenes (``scene=True``) are not ported; they serve
-training (ROADMAP queue 1 item 3).
+GT (~25 % fill), 21-class seg labels with 255 ignore; training steps on
+it too. The JAX package's learnable layered scenes (``scene=True``, for
+runs meant to show a falling validation loss) are not ported.
 """
 
 from __future__ import annotations

@@ -13,8 +13,13 @@ the output is the JAX package's nested dict, in fp32:
 
 Parameter names and shapes are the reference ``state_dict`` layout (the
 key scheme of ``tests/torch_mirror.py``), so a reference checkpoint loads
-with ``load_state_dict(strict=True)``. Weights are held in the compute
-dtype (4-D conv weights in ``channels_last``); GroupNorm affines stay fp32.
+with ``load_state_dict(strict=True)``. For inference the weights are held
+in the compute dtype (4-D conv weights in ``channels_last``); for training
+(``create_model(..., train=True)``) they stay fp32, as the JAX package's
+params do, and each layer casts its weight to the compute dtype at use.
+GroupNorm affines stay fp32 in both. ``remat_*`` recompute encoder blocks
+or decoder stages in the backward pass; dropout draws from the generator
+given to :meth:`CamRaDepth.set_generator`.
 """
 
 from __future__ import annotations
@@ -34,15 +39,16 @@ from camradepth_tpu_torch.models.layers import (
     ConvLayer,
     Decoder,
     DepthActivation,
+    DropPath,
     Dropout2d,
     GroupNorm,
     TokenLinear,
+    remat,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # ModelConfig options that later slices of the port bring.
-_LATER = ("supervised_seg", "unsupervised_seg", "tpu_decoder",
-          "remat_decoder", "remat_encoder", "remat_decoder_small")
+_LATER = ("supervised_seg", "unsupervised_seg", "tpu_decoder")
 
 
 class CamRaDepth(nn.Module):
@@ -61,7 +67,7 @@ class CamRaDepth(nn.Module):
         self.dest_encoder = SimplifiedTransformer(
             cfg.input_channels, dims, cfg.heads, cfg.ff_expansion,
             cfg.sr_ratios, cfg.depths, cfg.drop_path_rate, cfg.qkv_bias,
-            cfg.groupnorm_divisor,
+            cfg.groupnorm_divisor, remat_blocks=cfg.remat_encoder,
         )
         # 1x1 skip convs (CamRaDepth.py:61-64, 109-112)
         self.from_encoder_1 = ConvLayer(dims[3], dims[3], 1, 1, 0)
@@ -80,6 +86,24 @@ class CamRaDepth(nn.Module):
         self.depth_activation_4 = DepthActivation(mid)
         self.depth_activation_5 = DepthActivation(mid)
         self.dropout = Dropout2d(cfg.dropout_rate)
+        # decoder stages recomputed in the backward pass: all five
+        # (remat_decoder), or the three up to quarter resolution
+        # (remat_decoder_small), camradepth_tpu/models/camradepth.py:85-110
+        n_remat = 5 if cfg.remat_decoder else (
+            3 if cfg.remat_decoder_small else 0)
+        self._remat_stages = frozenset(range(n_remat))
+
+    def set_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Draw every dropout mask (DropPath, Dropout2d) from
+        ``generator``."""
+        for mod in self.modules():
+            if isinstance(mod, (DropPath, Dropout2d)):
+                mod.generator = generator
+
+    def _stage(self, i: int, *args) -> torch.Tensor:
+        if i in self._remat_stages and torch.is_grad_enabled():
+            return remat(self.depth_upsample[i], *args)
+        return self.depth_upsample[i](*args)
 
     def forward(self, x: torch.Tensor) -> dict:
         cfg = self.cfg
@@ -94,17 +118,17 @@ class CamRaDepth(nn.Module):
         enc2 = self.from_encoder_2(lay[2])
         enc3 = self.from_encoder_3(lay[1])
         enc4 = self.from_encoder_4(lay[0])
-        up, drop = self.depth_upsample, self.dropout
-        d = drop(up[0](enc1, enc2))
-        d = drop(up[1](d, enc3))
-        d = drop(up[2](d, enc4))
+        up, drop = self._stage, self.dropout
+        d = drop(up(0, enc1, enc2))
+        d = drop(up(1, d, enc3))
+        d = drop(up(2, d, enc4))
         inter_depth_3 = self.depth_activation_3(d)
         d = torch.cat([d, inter_depth_3], dim=-1)
-        d4 = drop(up[3](d))
+        d4 = drop(up(3, d))
         inter_depth_4 = self.depth_activation_4(d4)
         d4 = torch.cat([d4, inter_depth_4], dim=-1)
         # final stage with the raw input as skip (CamRaDepth.py:149)
-        d5 = drop(up[4](d4, x))
+        d5 = drop(up(4, d4, x))
         final_depth = self.depth_activation_5(d5)
         return {
             "depth": {
@@ -148,15 +172,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                     mod.bias.zero_()
 
 
-def _to_compute_dtype(model: CamRaDepth) -> None:
-    """Hold every weight but the GroupNorm affines in the compute dtype,
-    and 4-D conv weights in channels_last (the layout cuDNN runs NHWC
-    convolutions with)."""
+def _to_compute_dtype(model: CamRaDepth, train: bool = False) -> None:
+    """Hold 4-D conv weights in channels_last (the layout cuDNN runs NHWC
+    convolutions with) and, for inference, every weight but the GroupNorm
+    affines in the compute dtype. Training keeps them fp32."""
     for mod in model.modules():
         if isinstance(mod, GroupNorm):
             continue
         for p in mod.parameters(recurse=False):
-            p.data = p.data.to(model.dtype)
+            if not train:
+                p.data = p.data.to(model.dtype)
             if p.ndim == 4:
                 p.data = p.data.contiguous(memory_format=torch.channels_last)
 
@@ -166,24 +191,28 @@ def create_model(
     device="cuda",
     state_dict: Optional[Mapping[str, object]] = None,
     seed: int = 0,
+    train: bool = False,
 ) -> CamRaDepth:
-    """A CamRaDepth in eval mode on ``device``.
+    """A CamRaDepth on ``device``: in eval mode with its weights cast once
+    to the compute dtype, or with ``train=True`` in train mode with fp32
+    weights, cast at each use.
 
     Weights come from ``state_dict`` (reference layout; numpy arrays or
-    tensors, loaded strictly and cast once to the compute dtype) or, when
-    none is given, fresh from a ``torch.Generator`` seeded with ``seed``.
-    Raises when ``device`` is CUDA and no card is there.
+    tensors, loaded strictly) or, when none is given, fresh from a
+    ``torch.Generator`` seeded with ``seed``. Raises when ``device`` is
+    CUDA and no card is there.
     """
     dev = resolve_device(device)
     with torch.device("meta"):
         model = CamRaDepth(cfg)
     model.to_empty(device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
-    _to_compute_dtype(model)
+    _to_compute_dtype(model, train)
     if state_dict is not None:
         model.load_state_dict(
             {k: v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
              for k, v in state_dict.items()},
             strict=True,
         )
-    return model.to(dev).eval()
+    model = model.to(dev)
+    return model.train() if train else model.eval()

@@ -28,6 +28,7 @@ from camradepth_tpu_torch.models.layers import (
     TokenLinear,
     gelu_for_dtype,
     group_norm_divisor,
+    remat,
 )
 from camradepth_tpu_torch.ops.attention import maxpool_attention
 
@@ -140,8 +141,10 @@ class SimplifiedTransformer(nn.Module):
                  num_heads: Sequence[int], mlp_ratios: Sequence[int],
                  sr_ratios: Sequence[int], depths: Sequence[int],
                  drop_path_rate: float = 0.1, qkv_bias: bool = True,
-                 divisor: int = 16):
+                 divisor: int = 16, remat_blocks: bool = False):
         super().__init__()
+        # recompute each block in the backward pass (remat_encoder)
+        self.remat_blocks = remat_blocks
         # linear stochastic-depth decay across all blocks (ref :214)
         dpr = np.linspace(0.0, drop_path_rate, sum(depths))
         chans = [in_ch] + list(dims[:-1])
@@ -164,7 +167,10 @@ class SimplifiedTransformer(nn.Module):
             b, h, w, c = x.shape
             tok = x.reshape(b, h * w, c)
             for blk in getattr(self, f"block{i + 1}"):
-                tok = blk(tok, (h, w))
+                if self.remat_blocks and torch.is_grad_enabled():
+                    tok = remat(blk, tok, (h, w))
+                else:
+                    tok = blk(tok, (h, w))
             x = tok.reshape(b, h, w, c)
             outs.append(x)
         return outs

@@ -18,14 +18,23 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from camradepth_tpu_torch.ops.gelu import gelu_for_dtype
 from camradepth_tpu_torch.ops.groupnorm import group_norm
 from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
 
 
+def cast_to(p: Optional[torch.Tensor], dtype: torch.dtype):
+    """A parameter in the compute dtype: itself when it is held in that
+    dtype (inference), else cast at use, as flax casts fp32 params with
+    ``dtype=bfloat16`` (training keeps fp32 master weights)."""
+    return p if p is None or p.dtype == dtype else p.to(dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` (weight [O, I, kh, kw]) applied to NHWC tensors.
+    """``nn.Conv2d`` (weight [O, I, kh, kw]) applied to NHWC tensors, with
+    the weight and bias cast to the input's dtype at use.
 
     A bf16 convolution on the CPU runs in fp32 and rounds its output to
     bf16, as cuDNN and XLA do: oneDNN's bf16 path loses precision on the
@@ -33,12 +42,14 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xc = x.permute(0, 3, 1, 2)
+        weight = cast_to(self.weight, x.dtype)
+        bias = cast_to(self.bias, x.dtype)
         if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-            bias = None if self.bias is None else self.bias.float()
-            y = self._conv_forward(xc.float(), self.weight.float(), bias)
+            y = self._conv_forward(xc.float(), weight.float(),
+                                   None if bias is None else bias.float())
             y = y.to(x.dtype)
         else:
-            y = super().forward(xc)
+            y = self._conv_forward(xc, weight, bias)
         return y.permute(0, 2, 3, 1)
 
 
@@ -50,7 +61,8 @@ class TokenLinear(nn.Conv1d):
         super().__init__(in_features, out_features, 1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[:, :, 0], self.bias)
+        return F.linear(x, cast_to(self.weight, x.dtype)[:, :, 0],
+                        cast_to(self.bias, x.dtype))
 
 
 class GroupNorm(nn.Module):
@@ -76,7 +88,8 @@ def group_norm_divisor(channels: int, divisor: int = 16) -> GroupNorm:
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth; identity at eval or at rate 0. The mask
-    is drawn from ``generator`` when one is set."""
+    is drawn from ``generator`` (the run's explicit generator, set by
+    ``CamRaDepth.set_generator``) when one is set."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -110,6 +123,37 @@ class Dropout2d(nn.Module):
         mask = torch.rand(shape, generator=self.generator,
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)``, its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, the counterpart of ``nn.remat``).
+
+    The recompute replays the global RNG state (for masks drawn without a
+    generator), not a ``torch.Generator`` object, so a dropout mask drawn
+    from the run's generator would be drawn anew. The generators of the
+    module's dropout layers are therefore rewound to their state at the
+    forward for the recompute, and put back after it."""
+    gens = {id(m.generator): m.generator for m in module.modules()
+            if isinstance(m, (DropPath, Dropout2d))
+            and m.generator is not None}
+    saved = [(g, g.get_state()) for g in gens.values()]
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return module(*a)
+        now = [(g, g.get_state()) for g, _ in saved]
+        for g, state in saved:
+            g.set_state(state)
+        try:
+            return module(*a)
+        finally:
+            for g, state in now:
+                g.set_state(state)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 class ConvLayer(nn.Module):

@@ -35,14 +35,34 @@ _L = ctypes.c_longlong
 # C signature of every entry point, by library (source stem).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "maxpool_attention_scores": {
-        # (q, k, out, B, N, M, C, heads, scale, stream)
-        f"maxpool_attention_scores_{t}": [_P, _P, _P, _I, _I, _I, _I, _I,
-                                          _F, _P]
+        **{
+            # (q, k, out, B, N, M, C, heads, scale, stream)
+            f"maxpool_attention_scores_{t}": [_P, _P, _P, _I, _I, _I, _I,
+                                              _I, _F, _P]
+            for t in ("f32", "bf16")
+        },
+        **{
+            # (q, k, out, amax, B, N, M, C, heads, scale, stream)
+            f"maxpool_attention_scores_argmax_{t}": [_P, _P, _P, _P, _I, _I,
+                                                     _I, _I, _I, _F, _P]
+            for t in ("f32", "bf16")
+        },
+    },
+    "maxpool_attention_scores_bwd": {
+        # (q, k, amax, g, dq, dk, partial, B, N, M, C, heads, tokens, MC,
+        #  scale, stream)
+        f"maxpool_attention_scores_bwd_{t}": [_P, _P, _P, _P, _P, _P, _P, _I,
+                                              _I, _I, _I, _I, _I, _I, _F, _P]
         for t in ("f32", "bf16")
     },
     "upsample_bicubic_x2": {
         # (x, y, B, H, W, C, tw, rows, stream)
         f"upsample_bicubic_x2_{t}": [_P, _P, _I, _I, _I, _I, _I, _I, _P]
+        for t in ("f32", "bf16")
+    },
+    "upsample_bicubic_x2_bwd": {
+        # (gy, work, gx, B, H, W, C, stream)
+        f"upsample_bicubic_x2_bwd_{t}": [_P, _P, _P, _I, _I, _I, _I, _P]
         for t in ("f32", "bf16")
     },
     "conv3x3_fused": {
@@ -51,8 +71,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                _I, _P]
         for t in ("f32", "bf16")
     },
-    # (x, y, n, stream)
-    "gelu_bf16": {"gelu_bf16": [_P, _P, _L, _P]},
+    # (x, y, n, stream) and (x, gy, gx, n, stream)
+    "gelu_bf16": {"gelu_bf16": [_P, _P, _L, _P],
+                  "gelu_bf16_bwd": [_P, _P, _P, _L, _P]},
 }
 
 _lock = threading.Lock()
@@ -156,22 +177,25 @@ def launch(name: str, fn: str, device, *args) -> None:
     check(lib, err, name)
 
 
-def refuse_autograd(what: str, *tensors) -> None:
-    """Raise when a kernel would cut the autograd graph: the kernels have
-    no backward yet (it comes with training, ROADMAP queue 1 item 3), so a
-    CUDA call that gradients would have to flow through is an error, not
-    a silently detached result. Run under ``torch.inference_mode()`` or
-    ``torch.no_grad()``, as serving and evaluation do."""
+def needs_grad(*tensors) -> bool:
+    """Whether gradients must flow through a call on ``tensors``."""
     import torch
 
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise when an inference-only kernel would cut the autograd graph: a
+    CUDA call that gradients would have to flow through is an error, not
+    a silently detached result. Run it under ``torch.inference_mode()`` or
+    ``torch.no_grad()``."""
+    if needs_grad(*tensors):
         raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward yet and would return "
-            "a result detached from the autograd graph; call it under "
-            "torch.inference_mode() or torch.no_grad() (training comes "
-            "with ROADMAP queue 1 item 3)"
+            f"{what}: the CUDA kernel is inference-only (it has no "
+            "backward) and would return a result detached from the "
+            "autograd graph; call it under torch.inference_mode() or "
+            "torch.no_grad()"
         )
 
 

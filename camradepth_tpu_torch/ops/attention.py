@@ -7,18 +7,35 @@ max-pooled score s[b, n] times the channel mean vbar[b, c].
 
 :func:`maxpool_attention_scores` is the kernel's wrapper. On a CUDA tensor
 it launches the Hopper kernel ``csrc/maxpool_attention_scores.cu``; on a
-CPU tensor it runs :func:`maxpool_attention_scores_reference`, the plain
-PyTorch version. Only the forward is ported; the backward (argmax gather
-and scatter-add) comes with training. Until then a CUDA input that
-requires a gradient, with gradients enabled, raises instead of returning
-a result detached from the graph; the CPU path stays differentiable.
+CPU tensor it runs the plain PyTorch version. When gradients must flow it
+goes through :class:`_Scores`, the port's form of the JAX custom VJP
+(``camradepth_tpu/ops/attention.py:51-97``): the forward also keeps the
+argmax [B, h, N] over the unscaled fp32 dots, and the backward is a gather
+for dq and a scatter-add for dk, with no [B, h, N, M] tensor. On the card
+those are the forward kernel's ``_argmax`` entry points and
+``csrc/maxpool_attention_scores_bwd.cu``; on the CPU, the plain versions
+:func:`maxpool_attention_scores_argmax_reference` and
+:func:`maxpool_attention_scores_backward_reference`.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Tuple
+
 import torch
 
 from camradepth_tpu_torch.ops import _build
+
+
+def _dots(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The unscaled fp32 dots [B, h, N, M]."""
+    b, n, c = q.shape
+    m = k.shape[1]
+    d = c // num_heads
+    qh = q.float().reshape(b, n, num_heads, d)
+    kh = k.float().reshape(b, m, num_heads, d)
+    return torch.einsum("bnhd,bmhd->bhnm", qh, kh)
 
 
 def maxpool_attention_scores_reference(
@@ -27,31 +44,49 @@ def maxpool_attention_scores_reference(
     """Plain version: s[b, n] = sum_h max_m <q_bnh, k_bmh> * scale, with the
     dot in fp32 and the scale applied before the max
     (``camradepth_tpu/ops/attention.py:32-48``). Returns fp32 [B, N]."""
+    return (_dots(q, k, num_heads) * scale).amax(dim=-1).sum(dim=1)
+
+
+def maxpool_attention_scores_argmax_reference(
+    q: torch.Tensor, k: torch.Tensor, num_heads: int, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward with its argmax: (s [B, N] fp32, amax
+    [B, h, N] int32), the argmax taken over the unscaled fp32 dots, the
+    first key on a tie (``jnp.argmax``, ``attention.py:46-47``)."""
+    scores = _dots(q, k, num_heads)
+    s = (scores * scale).amax(dim=-1).sum(dim=1)
+    return s, scores.argmax(dim=-1).to(torch.int32)
+
+
+def maxpool_attention_scores_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, amax: torch.Tensor, g: torch.Tensor,
+    num_heads: int, scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward, the mirror of ``_scores_bwd``
+    (``camradepth_tpu/ops/attention.py:79-97``): gs = g * scale in fp32,
+    dq = gs * k[amax] (gather), dk = the sum of gs * q over the tokens
+    whose argmax is each key (scatter-add in fp32); both cast to the
+    q/k dtype."""
     b, n, c = q.shape
     m = k.shape[1]
     d = c // num_heads
-    qh = q.float().reshape(b, n, num_heads, d)
-    kh = k.float().reshape(b, m, num_heads, d)
-    scores = torch.einsum("bnhd,bmhd->bhnm", qh, kh)  # [B, h, N, M]
-    return (scores * scale).amax(dim=-1).sum(dim=1)
+    qh = q.reshape(b, n, num_heads, d).transpose(1, 2)  # [B, h, N, d]
+    kh = k.reshape(b, m, num_heads, d).transpose(1, 2)  # [B, h, M, d]
+    gs = (g.float() * scale)[:, None, :]  # [B, 1, N]
+    idx = amax.long()[..., None].expand(b, num_heads, n, d)
+    k_sel = torch.gather(kh, 2, idx).float()  # [B, h, N, d]
+    dq = (gs[..., None] * k_sel).transpose(1, 2).reshape(b, n, c)
+    contrib = gs[..., None] * qh.float()  # [B, h, N, d]
+    dk = torch.zeros((b, num_heads, m, d), dtype=torch.float32,
+                     device=q.device).scatter_add_(2, idx, contrib)
+    dk = dk.transpose(1, 2).reshape(b, m, c)
+    return dq.to(q.dtype), dk.to(k.dtype)
 
 
-def maxpool_attention_scores(
-    q: torch.Tensor, k: torch.Tensor, num_heads: int, scale: float
-) -> torch.Tensor:
-    """Head-summed max-pooled attention scores.
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-    Args:
-      q: [B, N, C] projected queries, bf16 or fp32.
-      k: [B, M, C] projected keys, same dtype and device.
-      num_heads: head count h; C must be divisible by h, and C/h <= 64 on
-        the card.
-      scale: score scale, (C/h) ** -0.5 in the model.
-    Returns:
-      fp32 [B, N].
-    """
-    if q.device.type == "cpu" and k.device.type == "cpu":
-        return maxpool_attention_scores_reference(q, k, num_heads, scale)
+
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> None:
     if q.device.type != "cuda" or k.device != q.device:
         raise ValueError(
             f"q and k must both be CUDA tensors of one device or both lie on "
@@ -67,27 +102,155 @@ def maxpool_attention_scores(
     ):
         raise ValueError(f"need q [B,N,C] and k [B,M,C], got {tuple(q.shape)}"
                          f" and {tuple(k.shape)}")
-    b, n, c = q.shape
-    m = k.shape[1]
+    c, m = q.shape[2], k.shape[1]
     if c % num_heads or c // num_heads > 64 or m == 0:
         raise ValueError(
             f"the kernel takes head dims <= 64 and M > 0; got C={c}, "
             f"heads={num_heads}, M={m}"
         )
-    _build.refuse_autograd("maxpool_attention_scores", q, k)
-    q = q.contiguous()
-    k = k.contiguous()
+
+
+def _scores_cuda(q, k, num_heads, scale, argmax: bool):
+    """The forward kernel: s [B, N], and amax [B, h, N] when ``argmax``."""
+    b, n, c = q.shape
+    m = k.shape[1]
     out = torch.empty((b, n), dtype=torch.float32, device=q.device)
-    _build.launch("maxpool_attention_scores",
-                  f"maxpool_attention_scores_{_SUFFIX[q.dtype]}", q.device,
-                  q.data_ptr(), k.data_ptr(), out.data_ptr(), b, n, m, c,
-                  num_heads, float(scale))
+    lib, suffix = "maxpool_attention_scores", _SUFFIX[q.dtype]
+    if argmax:
+        amax = torch.empty((b, num_heads, n), dtype=torch.int32,
+                           device=q.device)
+        _build.launch(lib, f"maxpool_attention_scores_argmax_{suffix}",
+                      q.device, q.data_ptr(), k.data_ptr(), out.data_ptr(),
+                      amax.data_ptr(), b, n, m, c, num_heads, float(scale))
+    else:
+        amax = None
+        _build.launch(lib, f"maxpool_attention_scores_{suffix}", q.device,
+                      q.data_ptr(), k.data_ptr(), out.data_ptr(), b, n, m, c,
+                      num_heads, float(scale))
     maxpool_attention_scores.launches += 1
-    return out
+    return out, amax
+
+
+class BackwardPlan(NamedTuple):
+    tokens: int  # tokens per chunk of the dk pass
+    chunks: int
+    keys: int  # keys per block (MC)
+
+
+# shared memory the dk pass may take per block: its [MC][C] fp32 tile
+_DK_SMEM = 96 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def scores_backward_plan(b: int, n: int, m: int, c: int,
+                         sms: int) -> BackwardPlan:
+    """Blocks of the backward's dk pass for q [b, n, c] and k [b, m, c] on
+    a card with ``sms`` SMs: keys per block as many as a [keys][c] fp32
+    tile in 96 KB of shared memory holds; then as many token chunks as
+    give about two blocks per SM, but no more than one per 128 tokens
+    (each chunk adds a [m][c] fp32 partial to the workspace)."""
+    keys = max(1, min(m, _DK_SMEM // (4 * c)))
+    ranges = -(-m // keys)
+    chunks = max(1, min(-(-n // 128), -(-2 * sms // (b * ranges))))
+    tokens = -(-n // chunks)
+    return BackwardPlan(tokens, -(-n // tokens), keys)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _scores_backward_cuda(q, k, amax, g, num_heads, scale):
+    b, n, c = q.shape
+    m = k.shape[1]
+    index = q.device.index
+    plan = scores_backward_plan(b, n, m, c, _sm_count(
+        torch.cuda.current_device() if index is None else index))
+    g = g.float().contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    partial = torch.empty((b, plan.chunks, m, c), dtype=torch.float32,
+                          device=q.device)
+    _build.launch("maxpool_attention_scores_bwd",
+                  f"maxpool_attention_scores_bwd_{_SUFFIX[q.dtype]}",
+                  q.device, q.data_ptr(), k.data_ptr(), amax.data_ptr(),
+                  g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  partial.data_ptr(), b, n, m, c, num_heads, plan.tokens,
+                  plan.keys, float(scale))
+    maxpool_attention_scores_backward.launches += 1
+    return dq, dk
+
+
+def maxpool_attention_scores_with_argmax(q, k, num_heads: int, scale: float):
+    """(s [B, N] fp32, amax [B, h, N] int32): the kernel's ``_argmax``
+    entry point on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu" and k.device.type == "cpu":
+        return maxpool_attention_scores_argmax_reference(q, k, num_heads,
+                                                         scale)
+    _check_cuda(q, k, num_heads)
+    return _scores_cuda(q.contiguous(), k.contiguous(), num_heads, scale,
+                        True)
+
+
+def maxpool_attention_scores_backward(q, k, amax, g, num_heads: int,
+                                      scale: float):
+    """(dq, dk) of the scores for the cotangent ``g`` [B, N]: the backward
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return maxpool_attention_scores_backward_reference(
+            q, k, amax, g, num_heads, scale)
+    _check_cuda(q, k, num_heads)
+    return _scores_backward_cuda(q.contiguous(), k.contiguous(),
+                                 amax.contiguous(), g, num_heads, scale)
+
+
+maxpool_attention_scores_backward.launches = 0
+
+
+class _Scores(torch.autograd.Function):
+    """The scores with the JAX package's custom VJP: argmax saved in the
+    forward, gather and scatter-add in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, num_heads, scale):
+        s, amax = maxpool_attention_scores_with_argmax(q, k, num_heads, scale)
+        ctx.save_for_backward(q, k, amax)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, amax = ctx.saved_tensors
+        dq, dk = maxpool_attention_scores_backward(q, k, amax, g,
+                                                   ctx.num_heads, ctx.scale)
+        return dq, dk, None, None
+
+
+def maxpool_attention_scores(
+    q: torch.Tensor, k: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """Head-summed max-pooled attention scores.
+
+    Args:
+      q: [B, N, C] projected queries, bf16 or fp32.
+      k: [B, M, C] projected keys, same dtype and device.
+      num_heads: head count h; C must be divisible by h, and C/h <= 64 on
+        the card.
+      scale: score scale, (C/h) ** -0.5 in the model.
+    Returns:
+      fp32 [B, N]; differentiable in q and k.
+    """
+    if _build.needs_grad(q, k):
+        return _Scores.apply(q, k, num_heads, scale)
+    if q.device.type == "cpu" and k.device.type == "cpu":
+        return maxpool_attention_scores_reference(q, k, num_heads, scale)
+    _check_cuda(q, k, num_heads)
+    return _scores_cuda(q.contiguous(), k.contiguous(), num_heads, scale,
+                        False)[0]
 
 
 maxpool_attention_scores.launches = 0
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def maxpool_attention(

@@ -16,7 +16,12 @@ input above XLA's subnormal flush.
 
 :func:`gelu_bf16` is the kernel's wrapper: on a CUDA tensor it launches the
 elementwise kernel ``csrc/gelu_bf16.cu`` (one launch, where the plain
-version would be eight), on a CPU tensor it runs the plain version.
+version would be eight), on a CPU tensor it runs the plain version. When
+gradients must flow it goes through :class:`_GeluBf16`, whose backward is
+the VJP as JAX evaluates it on bf16 (21 operations, each rounded; see
+:func:`gelu_bf16_backward_reference`), not torch's autograd of the eight
+forward operations, which rounds at other places: on the card the kernel's
+second entry point ``gelu_bf16_bwd``, on the CPU the plain version.
 """
 
 from __future__ import annotations
@@ -40,16 +45,37 @@ def gelu_bf16_reference(x: torch.Tensor) -> torch.Tensor:
     return x * ((torch.tanh(inner) + 1.0) * 0.5)
 
 
-def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
-    """JAX's bf16 tanh-form GELU of a bf16 tensor of any shape."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"gelu_bf16 takes bf16, got {x.dtype}")
-    if x.device.type == "cpu":
-        return gelu_bf16_reference(x)
+def gelu_bf16_backward_reference(x: torch.Tensor,
+                                 g: torch.Tensor) -> torch.Tensor:
+    """Plain version of the VJP of :func:`gelu_bf16_reference` for the
+    cotangent ``g``: the operations of the jaxpr of ``jax.vjp(partial(
+    jax.nn.gelu, approximate=True), x)[1]`` on bf16, in its order, each
+    rounded to bf16."""
+    d = x * x
+    e = d * 3.0
+    c = d * x
+    f = c * BF16_KAPPA
+    inner = (x + f) * BF16_SQRT_2_OVER_PI
+    i = torch.tanh(inner)
+    j = 1.0 - i
+    half = (i + 1.0) * 0.5
+    n = g * half
+    p = ((x * g) * 0.5) * j
+    r = p + p * i
+    s = r * BF16_SQRT_2_OVER_PI
+    return (n + s) + (s * BF16_KAPPA) * e
+
+
+def _check_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"x must lie on the CPU or a CUDA device, got "
                          f"{x.device}")
-    _build.refuse_autograd("gelu_bf16", x)
+
+
+def _forward(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return gelu_bf16_reference(x)
+    _check_cuda(x)
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
@@ -58,6 +84,52 @@ def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
                   out.data_ptr(), x.numel())
     gelu_bf16.launches += 1
     return out
+
+
+def gelu_bf16_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The bf16 GELU's VJP at ``x`` for the cotangent ``g`` (bf16, the
+    shape of x): the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError(f"gelu_bf16_backward takes bf16, got {x.dtype} and "
+                        f"{g.dtype}")
+    if x.device.type == "cpu":
+        return gelu_bf16_backward_reference(x, g)
+    _check_cuda(x)
+    x = x.contiguous()
+    g = g.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    _build.launch("gelu_bf16", "gelu_bf16_bwd", x.device, x.data_ptr(),
+                  g.data_ptr(), out.data_ptr(), x.numel())
+    gelu_bf16_backward.launches += 1
+    return out
+
+
+gelu_bf16_backward.launches = 0
+
+
+class _GeluBf16(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _forward(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return gelu_bf16_backward(x, g)
+
+
+def gelu_bf16(x: torch.Tensor) -> torch.Tensor:
+    """JAX's bf16 tanh-form GELU of a bf16 tensor of any shape;
+    differentiable with JAX's bf16 VJP."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"gelu_bf16 takes bf16, got {x.dtype}")
+    if _build.needs_grad(x):
+        return _GeluBf16.apply(x)
+    return _forward(x)
 
 
 gelu_bf16.launches = 0

@@ -14,10 +14,13 @@ the input dtype between the axes.
 :func:`upsample_bicubic_x2` is the kernel's wrapper. On a CUDA tensor it
 launches the Hopper kernel ``csrc/upsample_bicubic_x2.cu``; on a CPU tensor
 it runs :func:`upsample_bicubic_x2_reference`, the plain PyTorch version.
-Only the forward is ported; the backward comes with training. Until then a
-CUDA input that requires a gradient, with gradients enabled, raises instead
-of returning a result detached from the graph; the CPU path stays
-differentiable. :func:`upsample_plan` sizes the kernel's blocks.
+:func:`upsample_plan` sizes the kernel's blocks. When gradients must flow,
+the call goes through :class:`_Upsample`, whose backward is the adjoint of
+the two-phase filter (the transpose the JAX package takes through XLA,
+``camradepth_tpu/ops/resize_pallas.py:250-255``): the W axis back in fp32,
+rounded to the input dtype, then the H axis back in fp32, rounded; on the
+card ``csrc/upsample_bicubic_x2_bwd.cu``, on the CPU
+:func:`upsample_bicubic_x2_backward_reference`, bit for bit alike.
 """
 
 from __future__ import annotations
@@ -69,6 +72,58 @@ def upsample_bicubic_x2_reference(x: torch.Tensor) -> torch.Tensor:
     """Plain version over [B, H, W, C] (``camradepth_tpu/ops/resize.py:
     40-122``)."""
     return _upsample_axis_x2(_upsample_axis_x2(x, 1), 2)
+
+
+@functools.lru_cache(maxsize=None)
+def adjoint_coefficients(n: int) -> Tuple[Tuple[float, ...], ...]:
+    """A[o][i] of one axis of length n, as ``[i][s]`` for the eight
+    outputs o = 2i - 3 + s (s = 0..7) that input i feeds: the sum of the
+    phase weights whose edge-clamped tap is i, 0 for o outside [0, 2n).
+    Taps past an edge fold into row 0 or n - 1. Every value is exact in
+    fp32 (the weights are dyadic with few bits)."""
+    rows = []
+    for i in range(n):
+        row = []
+        for s in range(8):
+            o = 2 * i - 3 + s
+            a = 0.0
+            if 0 <= o < 2 * n:
+                k, p = divmod(o, 2)
+                w = W_ODD if p else W_EVEN
+                for t in range(4):
+                    if min(max(k + p + t - 2, 0), n - 1) == i:
+                        a += w[t]
+            row.append(a)
+        rows.append(tuple(row))
+    return tuple(rows)
+
+
+def _adjoint_axis_x2(g: torch.Tensor, axis: int) -> torch.Tensor:
+    """Transpose of :func:`_upsample_axis_x2` along ``axis`` of an fp32
+    NHWC tensor (2n -> n): input i sums A[o][i] * g[o] over its eight
+    outputs in the order of o, each product and sum rounded in fp32."""
+    n = g.shape[axis] // 2
+    coef = torch.tensor(adjoint_coefficients(n), dtype=torch.float32,
+                        device=g.device)  # [n, 8]
+    shape = [1] * g.ndim
+    shape[axis] = n
+    lead, tail = list(g.shape), list(g.shape)
+    lead[axis], tail[axis] = 3, 5
+    gp = torch.cat([g.new_zeros(lead), g, g.new_zeros(tail)], dim=axis)
+    acc = None
+    for s in range(8):
+        index = [slice(None)] * g.ndim
+        index[axis] = slice(s, s + 2 * n, 2)
+        term = gp[tuple(index)] * coef[:, s].reshape(shape)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def upsample_bicubic_x2_backward_reference(gy: torch.Tensor) -> torch.Tensor:
+    """Plain version of the adjoint: [B, 2H, 2W, C] -> [B, H, W, C] in the
+    dtype of ``gy``; the W axis first, rounded to that dtype, then H."""
+    gw = _adjoint_axis_x2(gy.float(), 2).to(gy.dtype)
+    return _adjoint_axis_x2(gw.float(), 1).to(gy.dtype)
 
 
 # csrc/upsample_bicubic_x2.cu: threads per block, 16-byte vectors per
@@ -125,11 +180,7 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
-    """Bicubic x2 over the spatial axes of NHWC ``x`` [B, H, W, C] (bf16 or
-    fp32, any C); returns [B, 2H, 2W, C] in ``x.dtype``."""
-    if x.device.type == "cpu":
-        return upsample_bicubic_x2_reference(x)
+def _check_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"x must lie on a CUDA device or the CPU, got "
                          f"{x.device}")
@@ -137,7 +188,13 @@ def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"dtype must be one of {list(_SUFFIX)}, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"need NHWC [B,H,W,C], got {tuple(x.shape)}")
-    _build.refuse_autograd("upsample_bicubic_x2", x)
+
+
+def _forward(x: torch.Tensor) -> torch.Tensor:
+    """The forward on either device, outside autograd."""
+    if x.device.type == "cpu":
+        return upsample_bicubic_x2_reference(x)
+    _check_cuda(x)
     b, h, w, c = x.shape
     x = x.contiguous()
     y = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
@@ -149,6 +206,46 @@ def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
                   x.data_ptr(), y.data_ptr(), b, h, w, c, plan.tw, plan.rows)
     upsample_bicubic_x2.launches += 1
     return y
+
+
+def upsample_bicubic_x2_backward(gy: torch.Tensor) -> torch.Tensor:
+    """The adjoint of the upsample for the cotangent ``gy`` [B, 2H, 2W, C]:
+    the backward kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if gy.device.type == "cpu":
+        return upsample_bicubic_x2_backward_reference(gy)
+    _check_cuda(gy)
+    b, h2, w2, c = gy.shape
+    h, w = h2 // 2, w2 // 2
+    gy = gy.contiguous()
+    work = torch.empty((b, h2, w, c), dtype=gy.dtype, device=gy.device)
+    gx = torch.empty((b, h, w, c), dtype=gy.dtype, device=gy.device)
+    _build.launch("upsample_bicubic_x2_bwd",
+                  f"upsample_bicubic_x2_bwd_{_SUFFIX[gy.dtype]}", gy.device,
+                  gy.data_ptr(), work.data_ptr(), gx.data_ptr(), b, h, w, c)
+    upsample_bicubic_x2_backward.launches += 1
+    return gx
+
+
+upsample_bicubic_x2_backward.launches = 0
+
+
+class _Upsample(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _forward(x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return upsample_bicubic_x2_backward(gy)
+
+
+def upsample_bicubic_x2(x: torch.Tensor) -> torch.Tensor:
+    """Bicubic x2 over the spatial axes of NHWC ``x`` [B, H, W, C] (bf16 or
+    fp32, any C); returns [B, 2H, 2W, C] in ``x.dtype``, differentiable."""
+    if _build.needs_grad(x):
+        return _Upsample.apply(x)
+    return _forward(x)
 
 
 upsample_bicubic_x2.launches = 0

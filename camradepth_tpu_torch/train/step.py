@@ -1,0 +1,125 @@
+"""The train step (microbatch gradient accumulation) and the eval step.
+
+Counterpart of ``camradepth_tpu/train/step.py:34-217``. One optimizer step
+consumes ``update_interval`` microbatches: each runs its forward and
+backward (the gradients add up in ``.grad``), then the sum is divided by
+the count, its global L2 norm is taken, and diffGradNorm takes one step.
+Activations are in the compute dtype; the params, their gradients, the
+optimizer state, the norms and the losses are fp32. The GT min-pool
+pyramid is built on the device, so only the full-resolution inverse-depth
+map comes from the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from camradepth_tpu_torch.ops.pooling import minpool_sparse
+from camradepth_tpu_torch.train.losses import multitask_loss
+
+
+def pad_microbatch(micro: Dict[str, torch.Tensor],
+                   target: int) -> Dict[str, torch.Tensor]:
+    """Pad a microbatch with dummy samples up to ``target`` rows
+    (``camradepth_tpu/train/step.py:34-59``): depth GT zeros and seg labels
+    255, which every masked loss term ignores, so the loss and the
+    gradients equal the unpadded step's."""
+    def pad(name, a):
+        mb = a.shape[0]
+        if a.ndim == 0 or mb >= target:
+            return a
+        fill = 255 if name.startswith("seg") else 0
+        extra = a.new_full((target - mb,) + tuple(a.shape[1:]), fill)
+        return torch.cat([a, extra], dim=0)
+
+    return {k: (v if v is None else pad(k, v)) for k, v in micro.items()}
+
+
+def build_gt(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Deep-supervision targets from the raw batch (pyramid on the
+    device)."""
+    gt_depth = batch["gt_depth"]
+    s3 = minpool_sparse(gt_depth)  # H/2
+    s2 = minpool_sparse(s3)  # H/4
+    return {
+        "depth": gt_depth,
+        "depth_stage4": s3,
+        "depth_stage3": s2,
+        "seg": batch.get("seg"),
+        "seg_inter": batch.get("seg_inter"),
+    }
+
+
+def microbatch_loss(cfg, model, micro: Dict[str, torch.Tensor],
+                    generator: Optional[torch.Generator] = None):
+    """(loss, metrics) of one microbatch in train mode, its dropout drawn
+    from ``generator``."""
+    if cfg.train.pad_microbatch_to:
+        micro = pad_microbatch(micro, cfg.train.pad_microbatch_to)
+    model.set_generator(generator)
+    pred = model(micro["features"])
+    return multitask_loss(pred, build_gt(micro), cfg)
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                          for t in tensors))
+
+
+def train_step(cfg, model, optimizer, microbatches: List[Dict],
+               generators: Sequence[Optional[torch.Generator]],
+               lr: float) -> Dict[str, torch.Tensor]:
+    """One optimizer step over ``microbatches`` (``update_interval`` dicts
+    of device tensors), microbatch i's dropout drawn from
+    ``generators[i]``, at learning rate ``lr``. Returns the metrics, each
+    the mean over the microbatches, and ``grad_norm``, the global L2 norm
+    of the averaged gradients (0-d device tensors: reading one waits for
+    the step)."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer.zero_grad(set_to_none=True)
+    per_micro = []
+    for micro, gen in zip(microbatches, generators):
+        loss, metrics = microbatch_loss(cfg, model, micro, gen)
+        loss.backward()
+        per_micro.append({k: v.detach() for k, v in metrics.items()})
+    accum = len(per_micro)
+    with torch.no_grad():
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif accum > 1:
+                p.grad.div_(accum)
+        grad_norm = global_norm([p.grad for p in params])
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    out = {k: torch.stack([m[k] for m in per_micro]).mean()
+           for k in per_micro[0]}
+    out["grad_norm"] = grad_norm
+    return out
+
+
+@torch.no_grad()
+def eval_step(cfg, model, batch: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
+    """Per-frame metrics of a batch in eval mode, each [B]
+    (``camradepth_tpu/train/step.py:152-179``): the loss terms of each
+    frame alone, so the caller can drop the loader's padded tail frames
+    and weight the aggregate by frame."""
+    pred = model(batch["features"])
+    gt = build_gt(batch)
+    n = batch["features"].shape[0]
+
+    def frame(tree, i):
+        if isinstance(tree, dict):
+            return {k: frame(v, i) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(frame(v, i) for v in tree)
+        return None if tree is None else tree[i:i + 1]
+
+    rows = [multitask_loss(frame(pred, i), frame(gt, i), cfg)[1]
+            for i in range(n)]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

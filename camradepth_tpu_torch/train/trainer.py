@@ -1,0 +1,353 @@
+"""Single-device training driver: epochs, validation, early stopping,
+checkpoints, resume and preemption.
+
+Counterpart of ``camradepth_tpu/train/trainer.py:202-781`` without its
+mesh and multi-host branches (ROADMAP queue 1 item 10):
+
+- one optimizer step consumes ``update_interval`` microbatches
+  (``train/step.py``); the OneCycle schedule is indexed by the optimizer
+  step;
+- the dropout of microbatch j of step i in epoch e draws from a
+  ``torch.Generator`` on the device seeded from (seed, e, i, j), the
+  port's counterpart of ``fold_in``, so a run is reproducible and a
+  resumed run draws what an uninterrupted one draws;
+- microbatches are assembled and copied to the device ahead of the step
+  on a worker thread (``utils/prefetch.py``), features in
+  ``train.transfer_dtype``;
+- validation runs in eval mode under ``torch.no_grad()``, per frame, with
+  the loader's padded tail frames (``batch["valid"]``) and non-finite
+  frames dropped from the means;
+- early stopping, the ``stop_after = num_epochs - 4`` quirk
+  (runner.py:382-384), best-validation checkpoints, auto-resume from the
+  newest checkpoint of the run directory (the interrupted epoch's consumed
+  steps skipped), and SIGTERM handled at an optimizer-step boundary.
+
+On ``cuda`` everything runs on the card: nothing moves to the CPU but the
+scalars that are logged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import signal
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from camradepth_tpu_torch import resolve_device
+from camradepth_tpu_torch.config import ExperimentConfig, num_epochs_for_steps
+from camradepth_tpu_torch.data.pipeline import make_loaders
+from camradepth_tpu_torch.models.camradepth import create_model
+from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+from camradepth_tpu_torch.train.schedule import onecycle
+from camradepth_tpu_torch.train.step import eval_step, train_step
+from camradepth_tpu_torch.utils import checkpoint as ckpt_util
+from camradepth_tpu_torch.utils.logging import MetricWriter, create_run_dir
+from camradepth_tpu_torch.utils.prefetch import prefetch_iter
+
+# the batch keys a step reads (the seg labels only with a seg branch)
+_BATCH_KEYS = ("features", "gt_depth")
+_SEG_KEYS = ("seg", "seg_inter")
+
+
+class _PreemptionMonitor:
+    """SIGTERM -> a flag the trainer polls at optimizer-step boundaries;
+    ``restore`` puts the previous handlers back. Main thread only."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self._flag = False
+        self._prev = {s: signal.signal(s, self._handle) for s in signals}
+
+    def _handle(self, signum, frame):
+        self._flag = True
+
+    def triggered(self) -> bool:
+        return self._flag
+
+    def restore(self) -> None:
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        self._prev = {}
+
+
+def step_generator(device: torch.device, seed: int, epoch: int, step: int,
+                   micro: int) -> torch.Generator:
+    """The dropout generator of one microbatch, on ``device``, seeded from
+    (seed, epoch, step, micro)."""
+    s = np.random.SeedSequence([seed, epoch, step, micro]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(
+        int(s) & 0x7FFF_FFFF_FFFF_FFFF)
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, loaders: Optional[Dict] = None,
+                 run_dir: Optional[str] = None, auto_resume: bool = False,
+                 device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.loaders = loaders or make_loaders(cfg.data,
+                                               cfg.train.batch_size)
+        if self.loaders.get("train") is None:
+            raise ValueError(
+                "training requires a non-empty train split; the current "
+                "config assigns 0 frames to train (mini_dataset routes every "
+                "frame to test: use 'cli test', or a split with train "
+                "frames)")
+        steps_per_epoch = max(1, len(self.loaders["train"]))
+        self.num_epochs = num_epochs_for_steps(cfg)
+        opt_steps = max(1, self.num_epochs * steps_per_epoch
+                        // cfg.train.update_interval)
+        self.schedule = onecycle(
+            cfg.train.learning_rate, total_steps=opt_steps,
+            pct_start=cfg.train.pct_start, div_factor=cfg.train.div_factor,
+            final_div_factor=cfg.train.final_div_factor)
+        self.model = create_model(cfg.model, device=self.device,
+                                  seed=cfg.train.seed, train=True)
+        self.optimizer = DiffGradNorm(
+            self.model.parameters(), lr=self.schedule(0),
+            betas=cfg.train.betas, eps=cfg.train.eps,
+            weight_decay=cfg.train.weight_decay)
+        self.training_steps = 0
+        self.val_steps = 0
+        self.start_epoch = 0
+        if cfg.train.checkpoint and cfg.train.load_ckpt:
+            self.load_checkpoint(cfg.train.checkpoint)
+        self.run_dir = Path(run_dir) if run_dir else create_run_dir(
+            cfg.train.output_dir, cfg.train.arch_name, cfg.train.run_name)
+        self.run_dir.mkdir(parents=True, exist_ok=True)
+        self.writer = MetricWriter(self.run_dir)
+        self._async_saver = (ckpt_util.AsyncSaver()
+                             if cfg.train.async_checkpoint else None)
+        self._preempt_monitor: Optional[_PreemptionMonitor] = None
+        self._preempted = False
+        (self.run_dir / "config.json").write_text(
+            json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+        if auto_resume:
+            latest = ckpt_util.latest_checkpoint(self.run_dir)
+            if latest is not None:
+                self._restore(ckpt_util.restore_checkpoint(latest))
+                # both name forms count epochs completed: a regular save
+                # resumes at the next epoch, a preempt save restarts the
+                # interrupted one and skips its consumed steps
+                self.start_epoch = ckpt_util.epochs_completed(latest)
+                print(f"#### auto-resumed from {latest.name} (epoch "
+                      f"{self.start_epoch}, step {self.training_steps})")
+
+    # ------------------------------------------------------------------
+    def state(self) -> Dict:
+        """The training state as a host snapshot (model, optimizer,
+        step)."""
+        return ckpt_util.host_snapshot(self.model, self.optimizer,
+                                       self.training_steps)
+
+    def _restore(self, state: Dict) -> None:
+        self.model.load_state_dict(state["state_dict"], strict=True)
+        if "optimizer" in state:
+            self.optimizer.load_state_dict(state["optimizer"])
+        self.training_steps = int(state.get("step", 0))
+
+    def load_checkpoint(self, path: str) -> None:
+        """A full trainer checkpoint restores the model, the optimizer and
+        the step; any other ``.pth`` (a reference state_dict) loads its
+        shape-matching parameters (runner.py:124-132)."""
+        state = ckpt_util.restore_checkpoint(path)
+        if isinstance(state, dict) and "optimizer" in state:
+            self._restore(state)
+            print(f"#### restored the full training state from {path}")
+            return
+        sd = state.get("state_dict", state) if isinstance(state, dict) \
+            else state
+        ckpt_util.partial_restore(sd, self.model)
+        print(f"#### partial-restored params from {path}")
+
+    # ------------------------------------------------------------------
+    def _transfer_dtype(self) -> Optional[torch.dtype]:
+        td = self.cfg.train.transfer_dtype
+        if td == "auto":
+            td = ("bfloat16" if self.cfg.model.compute_dtype == "bfloat16"
+                  else "float32")
+        if td == "bfloat16":
+            return torch.bfloat16
+        if td == "float32":
+            return None
+        raise ValueError(f"train.transfer_dtype must be auto|float32|"
+                         f"bfloat16, got {td!r}")
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        """One host batch's arrays on the device (features in the transfer
+        dtype: bf16 is exact when the model computes in bf16, as its first
+        operation casts the input)."""
+        tdt = self._transfer_dtype()
+        out = {}
+        keys = _BATCH_KEYS + (_SEG_KEYS if self.cfg.model.supervised_seg
+                              else ())
+        for k in keys:
+            if k in batch and batch[k] is not None:
+                t = torch.from_numpy(np.ascontiguousarray(batch[k]))
+                if k == "features" and tdt is not None:
+                    t = t.to(tdt)
+                out[k] = t.to(self.device, non_blocking=True)
+        return out
+
+    def _micro_source(self, it, n_steps: int):
+        accum = self.cfg.train.update_interval
+        for _ in range(n_steps):
+            try:
+                yield [next(it) for _ in range(accum)]
+            except StopIteration:
+                return
+
+    def _preemption_requested(self) -> bool:
+        return (self.cfg.train.graceful_preemption
+                and self._preempt_monitor is not None
+                and self._preempt_monitor.triggered())
+
+    def train_one_epoch(self, epoch: int, skip_opt_steps: int = 0) -> None:
+        cfg = self.cfg
+        loader = self.loaders["train"]
+        if hasattr(loader, "set_epoch"):
+            loader.set_epoch(epoch)
+        it = iter(loader)
+        accum = cfg.train.update_interval
+        n_opt_steps = max(1, len(loader) // accum)
+        start = min(skip_opt_steps, n_opt_steps)
+        for _ in range(start * accum):
+            if next(it, None) is None:
+                break
+        self.model.train()
+        t0 = time.perf_counter()
+        batches = prefetch_iter(
+            self._micro_source(it, n_opt_steps - start),
+            max(1, cfg.train.prefetch_batches),
+            lambda ms: [self._to_device(b) for b in ms])
+        for i in range(start, n_opt_steps):
+            micro = next(batches, None)
+            if micro is None:
+                break
+            gens = [step_generator(self.device, cfg.train.seed, epoch, i, j)
+                    for j in range(len(micro))]
+            metrics = self._train_step(micro, gens,
+                                       self.schedule(self.training_steps))
+            self.training_steps += 1
+            if i % cfg.train.log_every == 0 or i == n_opt_steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                if not np.isfinite(m["grad_norm"]):
+                    print("#### WARNING: non-finite gradients at step "
+                          f"{self.training_steps} - check input scaling")
+                m["lr"] = self.schedule(self.training_steps)
+                m["steps_per_sec"] = (i + 1 - start) / (
+                    time.perf_counter() - t0)
+                self.writer.scalars(m, self.training_steps, prefix="train/")
+                print(f"[epoch {epoch + 1}/{self.num_epochs} step {i + 1}/"
+                      f"{n_opt_steps}] loss {m['loss']:.5f} rmse "
+                      f"{m['rmse_m']:.3f}m lr {m['lr']:.2e}")
+            if self._preemption_requested():
+                self._preempted = True
+                break
+        batches.close()  # stops the prefetch thread at once on a break
+
+    def _train_step(self, micro, gens, lr):
+        return train_step(self.cfg, self.model, self.optimizer, micro, gens,
+                          lr)
+
+    def evaluate(self) -> Dict[str, float]:
+        if self.loaders.get("val") is None:
+            raise ValueError("validation requires a non-empty val split; "
+                             "the current config assigns 0 frames to val.")
+        sums: Dict[str, float] = {}
+        counts: Dict[str, float] = {}
+        n_frames = 0.0
+        self.model.eval()
+        try:
+            for batch in self.loaders["val"]:
+                dev = self._to_device(batch)
+                bsz = int(dev["features"].shape[0])
+                valid = np.asarray(batch.get("valid", np.ones(bsz)),
+                                   np.float64)
+                metrics = eval_step(self.cfg, self.model, dev)
+                for k, v in metrics.items():
+                    v = v.double().cpu().numpy()
+                    finite = np.isfinite(v)
+                    sums[k] = sums.get(k, 0.0) + float(
+                        np.sum(np.where(finite, v, 0.0) * valid))
+                    counts[k] = counts.get(k, 0.0) + float(
+                        np.sum(valid * finite))
+                n_frames += float(valid.sum())
+        finally:
+            self.model.train()
+        if n_frames == 0:
+            return {"loss": float("nan"), "rmse_m": float("nan")}
+        agg = {k: (sums[k] / counts[k] if counts[k] else float("nan"))
+               for k in sums}
+        self.val_steps += 1
+        self.writer.scalars(agg, self.val_steps, prefix="val/")
+        return agg
+
+    def train(self) -> float:
+        """Train from ``start_epoch``; returns the best validation loss."""
+        self._preempted = False
+        if (self.cfg.train.graceful_preemption
+                and self._preempt_monitor is None
+                and threading.current_thread() is threading.main_thread()):
+            self._preempt_monitor = _PreemptionMonitor()
+        try:
+            return self._train_loop()
+        finally:
+            if self._preempt_monitor is not None:
+                self._preempt_monitor.restore()
+                self._preempt_monitor = None
+
+    def _train_loop(self) -> float:
+        cfg = self.cfg
+        best_eval = float("inf")
+        patience = 0
+        stop_after = cfg.train.stop_after or max(1, self.num_epochs - 4)
+        steps_per_epoch = max(
+            1, len(self.loaders["train"]) // cfg.train.update_interval)
+        for epoch in range(self.start_epoch, self.num_epochs):
+            skip = (max(0, self.training_steps - epoch * steps_per_epoch)
+                    if epoch == self.start_epoch else 0)
+            self.train_one_epoch(epoch, skip_opt_steps=skip)
+            if self._preempted:
+                path = ckpt_util.save_preemption_checkpoint(
+                    self.run_dir, self.state(), epoch)
+                print(f"#### SIGTERM: saved preemption checkpoint to {path} "
+                      f"(step {self.training_steps}); rerun with auto-resume "
+                      "to continue")
+                break
+            val = self.evaluate()
+            print(f"#### epoch {epoch + 1}: val loss {val['loss']:.5f} RMSE "
+                  f"{val.get('rmse_m', float('nan')):.3f} m")
+            if val["loss"] < best_eval:
+                best_eval = val["loss"]
+                patience = 0
+                if cfg.train.save_model:
+                    if cfg.train.async_checkpoint:
+                        if self._async_saver is None:
+                            self._async_saver = ckpt_util.AsyncSaver()
+                        path = self._async_saver.save(
+                            self.run_dir, self.state(), epoch, best_eval)
+                    else:
+                        path = ckpt_util.save_checkpoint(
+                            self.run_dir, self.state(), epoch, best_eval)
+                    print(f"#### saved best checkpoint to {path}")
+            else:
+                patience += 1
+            if patience >= cfg.train.early_stopping_thresh:
+                print("#### early stopping")
+                break
+            if epoch + 1 >= stop_after:
+                # the reference skips the final low-lr epochs
+                print("#### stop_after reached")
+                break
+        if self._async_saver is not None:
+            self._async_saver.close()
+            self._async_saver = None
+        self.writer.close()
+        return best_eval

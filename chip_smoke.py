@@ -30,7 +30,18 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       a 32-frame synthetic corpus and the golden's weights as a .pth:
       test in bf16 and in fp32, the fp32 report held against the CPU's
       over the first 4 frames and the bf16 one against the fp32 one, and
-      serve writing 32 depth maps, with frames/s.
+      serve writing 32 depth maps, with frames/s;
+  (h) training: each backward kernel (attention scores with the forward's
+      argmax, bicubic adjoint, bf16 GELU VJP) against its plain version at
+      every shape of a `base` 416x800 batch-2 microbatch in bf16 and fp32,
+      plus ragged shapes, with kernel, plain, library and bound times; one
+      fp32 optimizer step (TF32 off, no dropout) of `base` at 128x256 on
+      the card against the port's CPU run of the same step; then the main
+      path of this slice, `cli train` at `base` 416x800 in bf16, batch 2 x
+      update_interval 3, one epoch of 4 optimizer steps on a 32-frame
+      synthetic corpus split 24/8, with eval and a best checkpoint that
+      load_engine serves, the launches of every kernel per microbatch, and
+      steps/s, peak memory and one profiled step's device idle share.
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -501,9 +512,7 @@ def phase_e(engine, frames, stream_stats, counters, reset_counters,
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         launches = counters()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     batch_ms = 1e3 * stream_stats["elapsed_s"] / stream_stats["batches"]
     print(f"(e) profiled bf16 batch-{BATCH} forward: device busy "
@@ -521,6 +530,20 @@ def phase_e(engine, frames, stream_stats, counters, reset_counters,
         ms = sum(e.self_device_time_total for e in sel) / 1e3
         print(f"(e) {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of device"
               f" time), x{sum(e.count for e in sel)}")
+
+
+def device_kernels(prof):
+    """The profile's device kernels, summed by name, largest first. A
+    user annotation (such as the optimizer's ``Optimizer.step#...`` range)
+    also shows on the device timeline, spanning the kernels inside it; it
+    is not a kernel and is left out, so the sum is the device's busy
+    time."""
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return kernels
 
 
 def bf16_ulps(got, want) -> float:
@@ -794,25 +817,430 @@ def phase_g(cfg, weights, counters, reset_counters):
     return fps
 
 
+# attention backward: dq is one product per element (bit for bit); dk sums
+# the products in fp32 in another order than the plain scatter-add (rtol
+# 1e-5, atol 1e-5; in bf16 the one rounding of those sums may land one bf16
+# ulp apart). The argmax equals the plain one but at near ties (the top two
+# dots within 1e-4 * (1 + |max|)), where it must be one of the tied keys.
+ATTN_BWD_TOL = dict(rtol=1e-5, atol=1e-5)
+ARGMAX_TIE = 1e-4
+# fp32 step, card against the port's CPU run of the same step: loss and
+# grad_norm rtol 1e-3, each parameter's gradient relative L2 error 1e-3
+STEP_RTOL = 1e-3
+STEP_GRAD_REL_L2 = 1e-3
+TRAIN_BATCH = 2
+
+
+def argmax_near_ties(q, k, heads, amax):
+    """Check the kernel's argmax against the plain fp32 dots; returns the
+    number of near-tied rows (where either key is accepted)."""
+    b, n, c = q.shape
+    d = c // heads
+    dots = torch.einsum("bnhd,bmhd->bhnm", q.float().reshape(b, n, heads, d),
+                        k.float().reshape(b, -1, heads, d))
+    top2 = dots.topk(min(2, dots.shape[-1]), dim=-1).values
+    tol = ARGMAX_TIE * (1 + top2[..., 0].abs())
+    tie = (top2[..., 0] - top2[..., -1] <= tol) & (dots.shape[-1] > 1)
+    want = dots.argmax(dim=-1).to(torch.int32)
+    require(bool(((amax == want) | tie).all()), "argmax differs off a tie")
+    at = torch.gather(dots, -1, amax.long()[..., None])[..., 0]
+    require(bool((top2[..., 0] - at <= tol).all()), "argmax not a max")
+    return int(tie.sum())
+
+
+def phase_h_kernels(cfg):
+    """Each backward kernel against its plain version at every shape of a
+    base 416x800 batch-2 microbatch and ragged ones, both dtypes; times
+    summed per bf16 microbatch."""
+    from camradepth_tpu_torch.ops.attention import (
+        maxpool_attention_scores,
+        maxpool_attention_scores_backward,
+        maxpool_attention_scores_backward_reference,
+        maxpool_attention_scores_with_argmax,
+    )
+    from camradepth_tpu_torch.ops.gelu import (
+        gelu_bf16_backward,
+        gelu_bf16_backward_reference,
+    )
+    from camradepth_tpu_torch.ops.resize import (
+        upsample_bicubic_x2_backward,
+        upsample_bicubic_x2_backward_reference,
+    )
+
+    m = cfg.model
+    h, w = m.img_size
+    b = TRAIN_BATCH
+    attn = []
+    for i in range(4):
+        fh, fw = m.feature_shape(i)
+        sr = m.sr_ratios[i]
+        attn.append((b, fh * fw, (fh // sr) * (fw // sr), m.dims[i],
+                     m.heads[i], m.depths[i]))
+    # d = 8 below one token tile; d = 40 with M = 1; B = 3 with N, M ragged
+    attn += [(2, 9, 33, 8, 1, 0), (1, 37, 1, 40, 1, 0),
+             (3, 1001, 77, 120, 3, 0)]
+    mid = m.mid_channels
+    up = [(b, *m.feature_shape(3), m.dims[3], 1),
+          (b, *m.feature_shape(2), mid, 1), (b, *m.feature_shape(1), mid, 1),
+          (b, *m.feature_shape(0), mid + 1, 1), (b, h // 2, w // 2, mid + 1, 1),
+          # C = 129 with B = 3; H = 1; W = 1 and C = 3 (rows off 16 bytes)
+          (3, 7, 9, 129, 0), (2, 1, 37, 16, 0), (2, 5, 1, 3, 0)]
+    gelu = [((b,) + shape[1:], n) for shape, n in gelu_forward_shapes(cfg)]
+    gelu += [((3, 5, 7, 13), 0)]
+
+    def row(source, replaces, library):
+        return dict(route="cuda", source="camradepth_tpu_torch/csrc/" + source,
+                    replaces=replaces, max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                    bound_ms=0.0, library_ms=0.0 if library else None,
+                    bound_by=None)
+
+    rec = {
+        "maxpool_attention_scores_backward": row(
+            "maxpool_attention_scores_bwd.cu",
+            "camradepth_tpu/ops/attention_pallas.py:76", False),
+        "upsample_bicubic_x2_backward": row(
+            "upsample_bicubic_x2_bwd.cu",
+            "camradepth_tpu/ops/resize_pallas.py:209", True),
+        "gelu_bf16_backward": row(
+            "gelu_bf16.cu", "camradepth_tpu/models/layers.py:41", True),
+    }
+    argmax_ms = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        es = torch.finfo(dtype).bits // 8
+        tag = str(dtype).removeprefix("torch.")
+        r = rec["maxpool_attention_scores_backward"]
+        for seed, (bb, n, mm, c, heads, per_mb) in enumerate(attn):
+            q = randn((bb, n, c), 500 + seed, dtype)
+            k = randn((bb, mm, c), 600 + seed, dtype)
+            g = randn((bb, n), 700 + seed, torch.float32)
+            scale = (c // heads) ** -0.5
+            s, amax = maxpool_attention_scores_with_argmax(q, k, heads, scale)
+            require(torch.equal(s, maxpool_attention_scores(q, k, heads,
+                                                            scale)),
+                    ("argmax launch changed the scores", n, c))
+            ties = argmax_near_ties(q, k, heads, amax)
+            dq, dk = maxpool_attention_scores_backward(q, k, amax, g, heads,
+                                                       scale)
+            wq, wk = maxpool_attention_scores_backward_reference(
+                q, k, amax, g, heads, scale)
+            torch.cuda.synchronize()
+            require(torch.equal(dq, wq), ("dq not bit for bit", n, c, tag))
+            if dtype == torch.bfloat16:
+                ulps = bf16_ulps(dk, wk)
+                require(ulps <= 1.0, ("dk", n, c, ulps))
+                how = f"dk {ulps:.2f} bf16 ulps (tol 1)"
+            else:
+                torch.testing.assert_close(dk, wk, **ATTN_BWD_TOL)
+                how = f"dk tol {ATTN_BWD_TOL}"
+            dk2 = maxpool_attention_scores_backward(q, k, amax, g, heads,
+                                                    scale)[1]
+            require(torch.equal(dk, dk2), "dk not deterministic")
+            err = (dk.float() - wk.float()).abs().max().item()
+            t_k = device_ms(lambda: maxpool_attention_scores_backward(
+                q, k, amax, g, heads, scale))
+            t_a = device_ms(lambda: maxpool_attention_scores_with_argmax(
+                q, k, heads, scale))
+            t_p = cuda_ms(lambda: maxpool_attention_scores_backward_reference(
+                q, k, amax, g, heads, scale), iters=3)
+            # q, k, amax and g read once, dq and dk written once; a gather
+            # product per dq element, a product and a sum per dk term
+            t_b, t_o = bound(2 * bb * (n + mm) * c * es + bb * heads * n * 4
+                             + bb * n * 4, 4.0 * bb * n * c, FP32_OPS_PER_S)
+            print(f"(h) attention backward {tag} B={bb} N={n} M={mm} C={c} "
+                  f"h={heads}: argmax equal ({ties} near ties), dq bit for "
+                  f"bit, {how}, deterministic; kernel_ms={t_k:.4f} "
+                  f"plain_ms={t_p:.4f} bound_ms={max(t_b, t_o):.4f}; "
+                  f"forward with argmax {t_a:.4f} ms")
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if dtype == torch.bfloat16:
+                r["ms"] += per_mb * t_k
+                r["plain_ms"] += per_mb * t_p
+                add_bound(r, per_mb, t_b, t_o)
+                argmax_ms += per_mb * t_a
+            del q, k, g, s, amax, dq, dk, wq, wk, dk2
+        r = rec["upsample_bicubic_x2_backward"]
+        for seed, (bb, hh, ww, c, per_mb) in enumerate(up):
+            gy = randn((bb, 2 * hh, 2 * ww, c), 800 + seed, dtype)
+            got = upsample_bicubic_x2_backward(gy)
+            want = upsample_bicubic_x2_backward_reference(gy)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), ("bicubic adjoint not bit for "
+                                             "bit", hh, ww, c, tag))
+            t_k = device_ms(lambda: upsample_bicubic_x2_backward(gy))
+            t_p = cuda_ms(lambda: upsample_bicubic_x2_backward_reference(gy),
+                          iters=3)
+            # one ATen call: the adjoint of F.interpolate(bicubic), which
+            # reads NCHW (the NHWC view is copied) and adds by atomics
+            gy_nchw = gy.permute(0, 3, 1, 2)
+            t_l = device_ms(lambda: torch.ops.aten.upsample_bicubic2d_backward(
+                gy_nchw, [2 * hh, 2 * ww], [bb, c, hh, ww], False, 2.0, 2.0))
+            n_in = bb * hh * ww * c
+            # gy read once, gx written once; 8 products and sums per output
+            # of each axis
+            t_b, t_o = bound(5 * n_in * es, 48.0 * n_in, FP32_OPS_PER_S)
+            print(f"(h) upsample backward {tag} B={bb} H={hh} W={ww} C={c}: "
+                  f"bit for bit; kernel_ms={t_k:.4f} plain_ms={t_p:.4f} "
+                  f"library_ms={t_l:.4f} bound_ms={max(t_b, t_o):.4f}")
+            if dtype == torch.bfloat16:
+                r["ms"] += per_mb * t_k
+                r["plain_ms"] += per_mb * t_p
+                r["library_ms"] += per_mb * t_l
+                add_bound(r, per_mb, t_b, t_o)
+            del gy, got, want, gy_nchw
+    r = rec["gelu_bf16_backward"]
+    for seed, (shape, per_mb) in enumerate(gelu):
+        x = randn(shape, 900 + seed, torch.bfloat16)
+        gy = randn(shape, 950 + seed, torch.bfloat16)
+        got = gelu_bf16_backward(x, gy)
+        want = gelu_bf16_backward_reference(x, gy)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                ("gelu backward not bit for bit", shape))
+        t_k = device_ms(lambda: gelu_bf16_backward(x, gy))
+        t_p = cuda_ms(lambda: gelu_bf16_backward_reference(x, gy), iters=3)
+        # one ATen call: torch's tanh-GELU backward, which rounds once
+        t_l = device_ms(lambda: torch.ops.aten.gelu_backward(
+            gy, x, approximate="tanh"))
+        t_b, t_o = bound(6 * x.numel(), 40.0 * x.numel(), FP32_OPS_PER_S)
+        print(f"(h) gelu backward bf16 {tuple(shape)} x{per_mb}: bit for bit;"
+              f" kernel_ms={t_k:.4f} plain_ms={t_p:.4f} library_ms="
+              f"{t_l:.4f} bound_ms={max(t_b, t_o):.4f}")
+        r["ms"] += per_mb * t_k
+        r["plain_ms"] += per_mb * t_p
+        r["library_ms"] += per_mb * t_l
+        add_bound(r, per_mb, t_b, t_o)
+        del x, gy, got, want
+    torch.cuda.empty_cache()
+    for name, r in rec.items():
+        print(f"(h) {name}: per bf16 batch-{TRAIN_BATCH} microbatch "
+              f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"library_ms={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']})")
+    print(f"(h) attention forward with argmax: {argmax_ms:.4f} ms per bf16 "
+          f"batch-{TRAIN_BATCH} microbatch (34 launches)")
+    return rec
+
+
+def step_inputs(cfg, b, seed, device):
+    """A microbatch of random features and sparse inverse-depth GT."""
+    h, w = cfg.model.img_size
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((b, h, w, cfg.model.input_channels),
+                                dtype=np.float32)
+    gt = rng.uniform(0.01, 1.0, (b, h, w)).astype(np.float32)
+    gt *= rng.uniform(size=(b, h, w)) < 0.25
+    return {"features": torch.from_numpy(feats).to(device),
+            "gt_depth": torch.from_numpy(gt).to(device)}
+
+
+def phase_h_step_parity(cfg):
+    """One fp32 optimizer step of base at 128x256 with dropout off, on the
+    card and on the CPU from the same weights and inputs."""
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+    from camradepth_tpu_torch.train.step import train_step
+
+    mcfg = dataclasses.replace(cfg.model, img_size=(128, 256),
+                               compute_dtype="float32", drop_path_rate=0.0,
+                               dropout_rate=0.0)
+    scfg = cfg.replace(model=mcfg)
+    results = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        model = create_model(mcfg, device=dev, seed=3, train=True)
+        opt = DiffGradNorm(model.parameters(), lr=1e-4)
+        micro = [step_inputs(scfg, TRAIN_BATCH, 31, dev)]
+        metrics = train_step(scfg, model, opt, micro, [None], 1e-4)
+        results[dev] = ({k: float(v) for k, v in metrics.items()},
+                        {n: p.grad.detach().double().cpu()
+                         for n, p in model.named_parameters()})
+        del model, opt, micro
+    (mc, gc), (mp, gp) = results["cuda"], results["cpu"]
+    for k in ("loss", "grad_norm"):
+        require(abs(mc[k] - mp[k]) <= STEP_RTOL * abs(mp[k]),
+                (k, mc[k], mp[k]))
+    worst, worst_name = 0.0, None
+    for name, g in gp.items():
+        rel = ((gc[name] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    require(worst <= STEP_GRAD_REL_L2, (worst_name, worst))
+    print(f"(h) fp32 step of base at 128x256, batch {TRAIN_BATCH}, card vs "
+          f"CPU: loss {mc['loss']:.7f} vs {mp['loss']:.7f}, grad_norm "
+          f"{mc['grad_norm']:.7f} vs {mp['grad_norm']:.7f} (rtol "
+          f"{STEP_RTOL}); worst gradient relative L2 error {worst:.3g} "
+          f"({worst_name}; tol {STEP_GRAD_REL_L2}); "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def per_microbatch(cfg, micro, evals):
+    """Launches (attention, upsample, conv, gelu, attention backward,
+    upsample backward, gelu backward) of ``micro`` bf16 training
+    microbatches and ``evals`` bf16 eval forwards."""
+    n_gelu = sum(n for _, n in gelu_forward_shapes(cfg))
+    n_attn = sum(cfg.model.depths)
+    fwd = micro + evals
+    return (fwd * n_attn, fwd * 5, 0, fwd * n_gelu, micro * n_attn,
+            micro * 5, micro * n_gelu)
+
+
+def phase_h_train(cfg, counters, reset_counters):
+    """The main path: cli train at base 416x800 bf16, batch 2 x 3, one
+    epoch of 4 optimizer steps, eval, best checkpoint; then load_engine on
+    that checkpoint, and one step under the profiler."""
+    from camradepth_tpu_torch.data import synthetic
+    from camradepth_tpu_torch.serving import load_engine
+    from camradepth_tpu_torch.utils.checkpoint import best_checkpoint
+
+    h, w = cfg.model.img_size
+    n_train, n_val, accum = 24, 8, 3
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        split = synthetic.generate(tmp / "data", num_frames=n_train + n_val,
+                                   hw=(h, w), seed=0, rain_every=4)
+        run_dir = tmp / "run"
+        argv = ["train", "--preset", "base", "--split", str(split),
+                "--train-val-split", f"{n_train},{n_val}", "--run-dir",
+                str(run_dir), "--save-model", "--batch-size",
+                str(TRAIN_BATCH), "--desired-batch-size",
+                str(TRAIN_BATCH * accum), "--num-epochs", "1", "--set",
+                "train.log_every=1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counters()
+        require(rc == 0, (rc, out[-2000:]))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        steps = n_train // (TRAIN_BATCH * accum)
+        evals = -(-n_val // TRAIN_BATCH)
+        want = per_microbatch(cfg, steps * accum, evals)
+        print(f"(h) cli train base 416x800 bf16 batch {TRAIN_BATCH} x "
+              f"update_interval {accum}: {steps} optimizer steps + eval of "
+              f"{n_val} frames in {wall:.1f} s; launches (attention, upsample,"
+              f" conv, gelu, attention bwd, upsample bwd, gelu bwd) "
+              f"{launches} (expected {want}: 34 + 34, 5 + 5, 53 + 53 per "
+              f"microbatch, forwards only for eval)")
+        require(launches == want, (launches, want))
+        rows = [json.loads(line) for line in
+                (run_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+        rates = [r["value"] for r in rows if r["tag"] == "train/steps_per_sec"]
+        val = [r["value"] for r in rows if r["tag"] == "val/loss"]
+        require(len(losses) == steps and len(val) == 1, (losses, val))
+        require(all(np.isfinite(v) for v in losses + val), (losses, val))
+        best = best_checkpoint(run_dir)
+        require(best is not None, "no best checkpoint written")
+        print(f"(h) train losses {[round(v, 6) for v in losses]}, val loss "
+              f"{val[0]:.6f}; steps_per_sec={rates[-1]:.3f} (epoch, loader "
+              f"included); peak memory {peak_gb:.2f} GiB; best checkpoint "
+              f"{best.name}")
+        engine = load_engine(cfg, str(best), batch_size=TRAIN_BATCH,
+                             device="cuda")
+        frames = np.random.default_rng(5).standard_normal(
+            (TRAIN_BATCH, h, w, cfg.model.input_channels), dtype=np.float32)
+        res = engine.infer_batch(frames)
+        d = res["depth"]
+        require(d.shape == (TRAIN_BATCH, h, w) and np.isfinite(d).all(),
+                d.shape)
+        print(f"(h) load_engine served {len(d)} frames from {best.name}: "
+              f"depth {d.min():.3f} .. {d.max():.3f} m")
+        del engine
+    profile_train_step(cfg, accum)
+    return launches
+
+
+def profile_train_step(cfg, accum):
+    """One bf16 optimizer step (batch 2 x 3) timed without the profiler,
+    and one under it: device busy, the idle share, and the largest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.models.layers import GroupNorm
+    from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+    from camradepth_tpu_torch.train.step import train_step
+    from camradepth_tpu_torch.train.trainer import step_generator
+
+    model = create_model(cfg.model, device="cuda", seed=0, train=True)
+    casts = sum(1 for mod in model.modules() if not isinstance(mod, GroupNorm)
+                for _ in mod.parameters(recurse=False))
+    opt = DiffGradNorm(model.parameters(), lr=1e-5)
+    micro = [step_inputs(cfg, TRAIN_BATCH, 40 + j, "cuda")
+             for j in range(accum)]
+    for mb in micro:
+        mb["features"] = mb["features"].to(torch.bfloat16)
+    dev = torch.device("cuda")
+
+    def step(i):
+        gens = [step_generator(dev, 0, 0, i, j) for j in range(accum)]
+        return train_step(cfg, model, opt, micro, gens, 1e-5)
+
+    step(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(2)
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"(h) one bf16 optimizer step (batch {TRAIN_BATCH} x {accum}): "
+          f"{wall_ms:.2f} ms wall without the profiler, device busy "
+          f"{busy_ms:.2f} ms under it, {sum(e.count for e in kernels)} kernel "
+          f"launches; device idle share {100 * (1 - busy_ms / wall_ms):.1f} %;"
+          f" fp32 weights cast at use: {casts} tensors per microbatch "
+          f"forward")
+    for e in kernels[:14]:
+        ms = e.self_device_time_total / 1e3
+        print(f"(h)   {ms:8.3f} ms {100 * ms / busy_ms:5.1f} % x{e.count:<5d} "
+              f"{e.key[:100]}")
+    for name in ("scores_", "dq_kernel", "dk_", "upsample_kernel",
+                 "adjoint_axis", "gelu_bf16_kernel", "gelu_bf16_bwd"):
+        sel = [e for e in kernels if name in e.key]
+        ms = sum(e.self_device_time_total for e in sel) / 1e3
+        print(f"(h) {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of device"
+              f" time), x{sum(e.count for e in sel)}")
+    del model, opt, micro
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
     sys.path.insert(0, str(ROOT))
     from camradepth_tpu_torch.config import preset
-    from camradepth_tpu_torch.ops.attention import maxpool_attention_scores
+    from camradepth_tpu_torch.ops.attention import (
+        maxpool_attention_scores,
+        maxpool_attention_scores_backward,
+    )
     from camradepth_tpu_torch.ops.conv_fused import conv3x3_fused
-    from camradepth_tpu_torch.ops.gelu import gelu_bf16
-    from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
+    from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_backward
+    from camradepth_tpu_torch.ops.resize import (
+        upsample_bicubic_x2,
+        upsample_bicubic_x2_backward,
+    )
 
     wrappers = (maxpool_attention_scores, upsample_bicubic_x2, conv3x3_fused,
-                gelu_bf16)
+                gelu_bf16, maxpool_attention_scores_backward,
+                upsample_bicubic_x2_backward, gelu_bf16_backward)
 
     def counters():
+        # the forward kernels' four counts (all seven: all_counters)
+        return tuple(fn.launches for fn in wrappers[:4])
+
+    def all_counters():
         return tuple(fn.launches for fn in wrappers)
 
     def reset_counters():
         for fn in wrappers:
-            fn.launches = 0
+            fn.launches = 0  # the backward kernels' counts too
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -833,15 +1261,23 @@ def main() -> None:
     t5 = time.perf_counter()
     phase_g(cfg, weights, counters, reset_counters)
     t6 = time.perf_counter()
+    rec.update(phase_h_kernels(cfg))
+    phase_h_step_parity(cfg)
+    train_launches = phase_h_train(cfg, all_counters, reset_counters)
+    t7 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
-          f"(g) {t6 - t5:.1f}")
+          f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
-    # fused conv from its own main path in (f)
+    # fused conv from its own main path in (f), the backward kernels from
+    # the training run of (h)
     n_launch = {"maxpool_attention_scores": launches[0],
                 "upsample_bicubic_x2": launches[1],
                 "conv3x3_fused": rec["conv3x3_fused"].pop("launches"),
-                "gelu_bf16": launches[3]}
+                "gelu_bf16": launches[3],
+                "maxpool_attention_scores_backward": train_launches[4],
+                "upsample_bicubic_x2_backward": train_launches[5],
+                "gelu_bf16_backward": train_launches[6]}
     kernels = []
     for name, r in rec.items():
         n = n_launch[name]

@@ -232,7 +232,7 @@ def test_cli_serve_writes_one_depth_map_per_frame(corpus, tmp_path,
     (["--http-port", "0"], "item 8"),
     (["--data-parallel", "2"], "item 10"),
     (["--set", "data.wire_format=on"], "item 5"),
-    (["--set", "train.batch_size=4"], "item 3"),
+    (["--set", "mesh.data_parallel=2"], "item 10"),
 ])
 def test_cli_refuses_options_of_later_slices(corpus, capsys, extra, item):
     _, split, pth = corpus

@@ -10,7 +10,14 @@ Tolerances: the attention kernel sums the d products in another order than
 the plain einsum (1e-5 relative, fp32 accumulation in both dtypes; in bf16
 on the tensor cores, whose products are exact in fp32); the bicubic and
 the bf16 GELU kernels round every operation as their plain versions do, so
-they must agree bit for bit. The fused conv sums its fp32 products in another
+they must agree bit for bit, and so must their backward kernels. The
+attention backward's dq is one product per element (bit for bit); its dk
+sums the products in fp32 in another order than the plain scatter-add
+(rtol 1e-5, atol 1e-5 in fp32; in bf16 the one rounding of those sums may
+then land one bf16 ulp apart, so 1 bf16 ulp). The argmax equals the plain one except where the two largest
+dots of a row lie within the sums' roundoff of each other (a near tie,
+gap below 1e-4 * (1 + |max|)); there the kernel's key must be one of the
+tied ones. The fused conv sums its fp32 products in another
 order than cuDNN's fp32 conv before the one rounding of its raw output: at
 most 1 bf16 ulp in bf16 (for outputs above 2**-7 of their RMS; see
 _bf16_ulps), and rtol 1e-4, atol 2e-5 in fp32 (the JAX
@@ -24,7 +31,10 @@ import torch
 
 from camradepth_tpu_torch.ops.attention import (
     maxpool_attention_scores,
+    maxpool_attention_scores_backward,
+    maxpool_attention_scores_backward_reference,
     maxpool_attention_scores_reference,
+    maxpool_attention_scores_with_argmax,
 )
 from camradepth_tpu_torch.ops.conv_fused import (
     Source,
@@ -32,9 +42,16 @@ from camradepth_tpu_torch.ops.conv_fused import (
     conv3x3_reference,
     gn_affine_from_stats,
 )
-from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_reference
+from camradepth_tpu_torch.ops.gelu import (
+    gelu_bf16,
+    gelu_bf16_backward,
+    gelu_bf16_backward_reference,
+    gelu_bf16_reference,
+)
 from camradepth_tpu_torch.ops.resize import (
     upsample_bicubic_x2,
+    upsample_bicubic_x2_backward,
+    upsample_bicubic_x2_backward_reference,
     upsample_bicubic_x2_reference,
 )
 
@@ -215,21 +232,157 @@ def test_conv3x3_fused_reads_unaligned_views(cuda, dtype):
         torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("call", ["attention", "upsample", "conv", "gelu"])
+@pytest.mark.parametrize("call", ["conv"])
 def test_kernels_refuse_inputs_that_need_gradients(cuda, call):
+    """The fused conv is inference-only (as in the JAX package)."""
     x = _randn((1, 4, 6, 8), 8, torch.float32, cuda).requires_grad_()
     fns = {
-        "attention": lambda: maxpool_attention_scores(
-            x.reshape(1, 24, 8), x.reshape(1, 24, 8), 2, 0.5),
-        "upsample": lambda: upsample_bicubic_x2(x),
         "conv": lambda: conv3x3_fused(
             [Source(x)], torch.zeros(3, 3, 8, 4, device=cuda)),
-        "gelu": lambda: gelu_bf16(x.to(torch.bfloat16)),
     }
     with pytest.raises(RuntimeError, match="no backward"):
         fns[call]()
     with torch.no_grad():
         fns[call]()
+
+
+@pytest.mark.parametrize("call", ["attention", "upsample", "gelu"])
+def test_kernels_pass_gradients_that_match_the_plain_version(cuda, call):
+    """A CUDA input that needs a gradient runs the forward and backward
+    kernels, and the gradient equals the plain version's autograd (dense
+    max for the attention scores; bit for bit for the bicubic and GELU)."""
+    dtype = torch.bfloat16 if call == "gelu" else torch.float32
+    x = _randn((1, 4, 6, 8), 8, dtype, cuda).requires_grad_()
+    y = _randn((1, 4, 6, 8), 9, dtype, cuda).requires_grad_()
+    fns = {
+        "attention": (lambda f, a, b: f(a.reshape(1, 24, 8),
+                                        b.reshape(1, 24, 8), 2, 0.5),
+                      maxpool_attention_scores,
+                      maxpool_attention_scores_reference),
+        "upsample": (lambda f, a, b: f(a), upsample_bicubic_x2,
+                     upsample_bicubic_x2_reference),
+        "gelu": (lambda f, a, b: f(a), gelu_bf16, None),
+    }
+    call_fn, kernel, plain = fns[call]
+    counters = {"attention": maxpool_attention_scores_backward,
+                "upsample": upsample_bicubic_x2_backward,
+                "gelu": gelu_bf16_backward}
+    before = counters[call].launches
+    out = call_fn(kernel, x, y)
+    g = _randn(tuple(out.shape), 10, out.dtype, cuda)
+    got = torch.autograd.grad(out, [x, y], g, allow_unused=True)
+    torch.cuda.synchronize()
+    assert counters[call].launches == before + 1
+    if call == "gelu":
+        want = gelu_bf16_backward_reference(x.detach(), g)
+        assert torch.equal(got[0].view(torch.int16), want.view(torch.int16))
+        return
+    x2 = x.detach().clone().requires_grad_()
+    y2 = y.detach().clone().requires_grad_()
+    want = torch.autograd.grad(call_fn(plain, x2, y2), [x2, y2], g,
+                               allow_unused=True)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def _near_tie_ok(q, k, heads, got_amax):
+    """The kernel's argmax against the plain fp32 dots: equal, or (where
+    the two largest dots of a row are within 1e-4 * (1 + |max|)) one of
+    the tied keys. Returns the number of near-tied rows."""
+    b, n, c = q.shape
+    d = c // heads
+    dots = torch.einsum("bnhd,bmhd->bhnm", q.float().reshape(b, n, heads, d),
+                        k.float().reshape(b, -1, heads, d))
+    top2 = dots.topk(min(2, dots.shape[-1]), dim=-1).values
+    bound = 1e-4 * (1 + top2[..., 0].abs())
+    tie = (top2[..., 0] - top2[..., -1] <= bound) & (dots.shape[-1] > 1)
+    want = dots.argmax(dim=-1).to(torch.int32)
+    assert bool(((got_amax == want) | tie).all())
+    at = torch.gather(dots, -1, got_amax.long()[..., None])[..., 0]
+    assert bool((top2[..., 0] - at <= bound).all())
+    return int(tie.sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,m,c,heads", [
+    # the four stage shapes of a base 416x800 training microbatch
+    (2, 20800, 325, 64, 1), (2, 5200, 325, 128, 2), (2, 1300, 325, 160, 4),
+    (2, 325, 325, 256, 8),
+    # d = 8 and 40, M off the key tile and M = 1, N below one token tile,
+    # B = 3
+    (2, 9, 33, 8, 1), (1, 37, 1, 40, 1), (3, 1001, 77, 120, 3),
+])
+def test_attention_backward_kernel_matches_plain(cuda, dtype, b, n, m, c,
+                                                 heads):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = _randn((b, n, c), 20, dtype, cuda)
+    k = _randn((b, m, c), 21, dtype, cuda)
+    g = _randn((b, n), 22, torch.float32, cuda)
+    scale = (c // heads) ** -0.5
+    s, amax = maxpool_attention_scores_with_argmax(q, k, heads, scale)
+    # the argmax launch gives the inference launch's scores bit for bit
+    assert torch.equal(s, maxpool_attention_scores(q, k, heads, scale))
+    _near_tie_ok(q, k, heads, amax)
+    before = maxpool_attention_scores_backward.launches
+    dq, dk = maxpool_attention_scores_backward(q, k, amax, g, heads, scale)
+    torch.cuda.synchronize()
+    assert maxpool_attention_scores_backward.launches == before + 1
+    want_dq, want_dk = maxpool_attention_scores_backward_reference(
+        q, k, amax, g, heads, scale)
+    assert dq.dtype == dtype and dk.dtype == dtype
+    assert torch.equal(dq, want_dq)
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(dk, want_dk) <= 1.0
+    else:
+        torch.testing.assert_close(dk, want_dk, rtol=1e-5, atol=1e-5)
+    # deterministic: a second launch gives the same bits
+    dq2, dk2 = maxpool_attention_scores_backward(q, k, amax, g, heads, scale)
+    assert torch.equal(dk, dk2) and torch.equal(dq, dq2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [
+    # the five decoder inputs of base at 416x800, batch 2
+    (2, 13, 25, 256), (2, 26, 50, 128), (2, 52, 100, 128), (2, 104, 200, 129),
+    (2, 208, 400, 129),
+    # C = 1, 3, 129; H = 1, W = 1, both, H = W = 2; B = 3
+    (2, 5, 7, 1), (3, 7, 9, 3), (1, 1, 37, 16), (2, 23, 1, 24),
+    (1, 1, 1, 5), (1, 2, 2, 129),
+])
+def test_upsample_backward_kernel_matches_plain_bitwise(cuda, dtype, shape):
+    b, h, w, c = shape
+    gy = _randn((b, 2 * h, 2 * w, c), 23, dtype, cuda)
+    before = upsample_bicubic_x2_backward.launches
+    got = upsample_bicubic_x2_backward(gy)
+    torch.cuda.synchronize()
+    assert upsample_bicubic_x2_backward.launches == before + 1
+    want = upsample_bicubic_x2_backward_reference(gy)
+    assert got.shape == (b, h, w, c) and got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_gelu_bf16_backward_kernel_matches_plain_bitwise(cuda):
+    """Every bf16 bit pattern of x against a few cotangents, and an
+    odd-length view one element into its storage."""
+    bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32)
+    x = bits.to(torch.int16).view(torch.bfloat16).to(cuda)
+    for gval in (1.0, -0.3125, 3.5, 1e-3):
+        gy = torch.full_like(x, gval)
+        for v, gv in ((x, gy), (x[1:-2], gy[1:-2])):
+            got = gelu_bf16_backward(v, gv)
+            want = gelu_bf16_backward_reference(v, gv)
+            same = (got.view(torch.int16) == want.view(torch.int16)) | (
+                got.isnan() & want.isnan())
+            assert bool(same.all()), gval
+    gy = _randn(tuple(x.shape), 24, torch.bfloat16, cuda)
+    got = gelu_bf16_backward(x, gy)
+    want = gelu_bf16_backward_reference(x, gy)
+    same = (got.view(torch.int16) == want.view(torch.int16)) | (
+        got.isnan() & want.isnan())
+    assert bool(same.all())
 
 
 def test_gelu_bf16_kernel_matches_plain_bitwise(cuda):
@@ -246,3 +399,42 @@ def test_gelu_bf16_kernel_matches_plain_bitwise(cuda):
         same = (got.view(torch.int16) == want.view(torch.int16)) | (
             got.isnan() & want.isnan())
         assert bool(same.all())
+
+
+@pytest.mark.parametrize("option", ["remat_encoder", "remat_decoder",
+                                    "remat_decoder_small"])
+def test_remat_on_the_card_gives_the_gradients_of_no_remat(cuda, option):
+    """torch.utils.checkpoint replays the global RNG, not a CUDA
+    torch.Generator: the port rewinds the dropout generators for the
+    recompute, so the gradients with remat equal those without, bit for
+    bit, in bf16 with dropout on (cuDNN held deterministic)."""
+    import dataclasses
+
+    from camradepth_tpu_torch.config import tiny_test_config
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+    from camradepth_tpu_torch.train.step import train_step
+
+    torch.backends.cudnn.deterministic = True
+    base = tiny_test_config()
+    base = base.replace(model=dataclasses.replace(
+        base.model, img_size=(64, 128), compute_dtype="bfloat16",
+        drop_path_rate=0.1, dropout_rate=0.2))
+    micro = {"features": _randn((2, 64, 128, 7), 30, torch.float32, cuda),
+             "gt_depth": _randn((2, 64, 128), 31, torch.float32,
+                                cuda).abs().clamp(max=1.0)}
+
+    def grads(cfg):
+        model = create_model(cfg.model, device=cuda, seed=5, train=True)
+        opt = DiffGradNorm(model.parameters(), lr=0.0)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        m = train_step(cfg, model, opt, [micro], [gen], 0.0)
+        return float(m["loss"]), {k: p.grad.clone()
+                                  for k, p in model.named_parameters()}
+
+    loss0, g0 = grads(base)
+    loss1, g1 = grads(base.replace(model=dataclasses.replace(
+        base.model, **{option: True})))
+    assert loss0 == loss1
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k

@@ -78,11 +78,14 @@ def test_entry_points_default_to_cuda():
         DepthEngine(cfg, model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_engine(cfg, "no_such_checkpoint.pth")
+    from camradepth_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
 
 
 @pytest.mark.parametrize("name", ["supervised_seg", "unsupervised_seg",
-                                  "tpu_decoder", "remat_encoder",
-                                  "remat_decoder", "remat_decoder_small"])
+                                  "tpu_decoder"])
 def test_later_options_raise(name):
     from camradepth_tpu_torch.models.camradepth import CamRaDepth
 
@@ -92,13 +95,23 @@ def test_later_options_raise(name):
 
 def test_config_maps_field_for_field_from_jax_config():
     from camradepth_tpu.config import preset as jax_preset
-    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu.config import tiny_test_config as jax_tiny
+    from camradepth_tpu_torch.config import TrainConfig, preset
+    from camradepth_tpu_torch.config import tiny_test_config
 
     for name in ("base", "base_rgb", "sup_unsup_seg"):
         jm, tm = jax_preset(name).model, preset(name).model
         for f in ModelConfig.__dataclass_fields__:
             assert getattr(tm, f) == getattr(jm, f), (name, f)
         assert preset(name).data.max_depth == jax_preset(name).data.max_depth
+        # every TrainConfig field of the port is the JAX one, by default
+        jt, tt = jax_preset(name).train, preset(name).train
+        for f in TrainConfig.__dataclass_fields__:
+            assert getattr(tt, f) == getattr(jt, f), (name, f)
+        assert tt.update_interval == jt.update_interval == 3
+    for f in TrainConfig.__dataclass_fields__:
+        assert getattr(tiny_test_config().train, f) == getattr(
+            jax_tiny().train, f), f
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
