@@ -317,8 +317,10 @@ struct Bf16Smem {
   static constexpr int kWpitch = NT + 8;  // odd number of 16-byte units
   static constexpr int kWstage = 9 * kKC * kWpitch;  // elements
   static constexpr int kAstage = kHaloPix * kApitch;  // elements
-  // two stages of weights and halo, then the bf16 GELU table
+  // two stages of weights and halo, then the bf16 GELU table (copied in
+  // 16-byte vectors)
   static constexpr int kBytes = (2 * kWstage + 2 * kAstage + kGeluTable) * 2;
+  static_assert((2 * kWstage + 2 * kAstage) % 8 == 0, "table alignment");
 };
 
 // The source of internal channel kin (< Kp) and its channel there.
@@ -505,7 +507,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int nc = (Kp + kKC - 1) / kKC;
   const int t_transform = 4 + (warp & 3);
   issue_chunk<NT>(s_a, s_w, S, w, w_vec, b, y0, x0, 0, n0, H, W, Kp, K, N);
-  fill_gelu_table(gelu_table);
+  load_gelu_table(gelu_table);
   __syncthreads();
   if (nc > 1)
     issue_chunk<NT>(s_a + L::kAstage, s_w + L::kWstage, S, w, w_vec, b, y0,
@@ -744,6 +746,8 @@ cudaError_t launch_bf16(dim3 grid, cudaStream_t st, const Sources& S,
                         float* partial, int H, int W, int K, int Kp, int N,
                         int tiles_x, int n_tiles) {
   constexpr int kBytes = Bf16Smem<NT>::kBytes;
+  const cudaError_t ready = gelu_table_ready(st);
+  if (ready != cudaSuccess) return ready;
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(

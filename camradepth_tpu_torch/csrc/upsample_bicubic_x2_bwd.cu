@@ -6,24 +6,29 @@
 // camradepth_tpu/ops/resize.py:79-122). This kernel is that transpose on
 // the card, for the forward of upsample_bicubic_x2.cu: the forward filters
 // H, rounds to the I/O type, then filters W; the adjoint takes the W axis
-// back in fp32, rounds to the I/O type, then takes the H axis back in fp32
-// and rounds, so in bf16 it rounds where the plain version
-// (ops/resize.py `upsample_bicubic_x2_backward_reference`) rounds.
+// back, then the H axis, each rounded where XLA rounds it (below), so in
+// bf16 it equals the JAX package's VJP and the plain version
+// (ops/resize.py `upsample_bicubic_x2_backward_reference`) bit for bit.
 //
-// One axis of length n (2n outputs). Output o = 2k + p reads the padded
-// inputs k + p .. k + p + 3 with the phase's weights, and a padded input j
-// is the input clamp(j - 2, 0, n - 1) (edge replication). So input i
-// receives from the outputs o in [2i - 3, 2i + 4], with a coefficient
-// A[o][i] = sum of the phase weights whose clamped tap is i: the eight
-// weights W(1.75) W(1.25) W(0.75) W(0.25) W(0.25) W(0.75) W(1.25) W(1.75)
-// inside the image, and at the two edges the taps that fall outside fold
-// into rows (or columns) 0 and n - 1. The weights are dyadic with few bits,
-// so every A[o][i] is exact in fp32 whatever the order of its sum. Each
-// input then sums A[o][i] * g[o] over its eight slots in the order of o,
-// every product and sum rounded on its own (__fmul_rn, __fadd_rn), with
-// slots outside [0, 2n) contributing 0 * 0, as the plain version sums them.
-// This is the gather form: each input collects from its own eight
-// outputs, so there are no atomics and the result is deterministic.
+// One axis of length n (2n outputs). The forward pads the axis by two
+// copies of each edge row (jnp.pad(mode="edge"), camradepth_tpu/ops/
+// resize.py:84-86) and filters the padded rows j = 0 .. n + 3: output
+// o = 2k + p reads padded rows k + p .. k + p + 3 with the phase's weights.
+// So padded row j receives the outputs o = 2j - 7 + s (s = 0..7) with the
+// eight weights W(1.75) W(1.25) W(0.75) W(0.25) W(0.25) W(0.75) W(1.25)
+// W(1.75), and XLA's transpose, read from its optimized HLO on bf16, is:
+//   1. each padded row sums its eight terms in fp32 and rounds to the I/O
+//      type (slots outside [0, 2n) contribute weight * 0);
+//   2. the last two padded rows are added, rounded, and added into row
+//      n - 1, rounded; then the first two are added, rounded, and added
+//      into row 0, rounded (for n = 1 both folds land on row 0, in that
+//      order).
+// The kernel does exactly this, every product and sum rounded on its own
+// (__fmul_rn, __fadd_rn), in the order of the plain version
+// (ops/resize.py `_adjoint_axis_x2`), so the two agree bit for bit. This
+// is the gather form: each input collects from its own outputs (an edge
+// row also from the pad rows' outputs), so there are no atomics and the
+// result is deterministic.
 //
 // Two launches of one kernel: the W axis (outer B*2H rows, n = W, inner C)
 // into a [B, 2H, W, C] workspace of the I/O type, then the H axis (outer B,
@@ -36,23 +41,31 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Bicubic weights at distances 1.75, 0.75, 0.25, 1.25 (a = -0.75): the even
-// phase's taps 0..3; the odd phase uses them reversed.
-__device__ __constant__ float kWEven[4] = {-0.03515625f, 0.26171875f,
-                                           0.87890625f, -0.10546875f};
+// The transpose's taps, in the order of s (W(1.75) W(1.25) W(0.75) ...).
+__device__ __constant__ float kTaps[8] = {
+    -0.03515625f, -0.10546875f, 0.26171875f, 0.87890625f,
+    0.87890625f,  0.26171875f,  -0.10546875f, -0.03515625f};
 
-// A[o][i] for one axis of length n, 0 outside [0, 2n).
-__device__ __forceinline__ float coef(int o, int i, int n) {
-  if (o < 0 || o >= 2 * n) return 0.f;
-  const int k = o >> 1;
-  const int p = o & 1;
-  float a = 0.f;
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
+// Step 1 for padded row j of the axis at `base` (stride `inner`).
+template <typename T>
+__device__ __forceinline__ float padded_row(const T* __restrict__ g,
+                                            long long base, long long inner,
+                                            int n, int j) {
+  float acc = 0.f;
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const int tap = min(max(k + p + t - 2, 0), n - 1);
-    if (tap == i) a += p ? kWEven[3 - t] : kWEven[t];
+  for (int s = 0; s < 8; ++s) {
+    const int o = 2 * j - 7 + s;
+    const bool in = o >= 0 && o < 2 * n;
+    const float v = in ? to_f32(g[base + o * inner]) : 0.f;
+    const float term = __fmul_rn(kTaps[s], v);
+    acc = s == 0 ? term : __fadd_rn(acc, term);
   }
-  return a;
+  return round_to<T>(acc);
 }
 
 template <typename T>
@@ -68,16 +81,20 @@ __global__ void __launch_bounds__(kThreads)
     const long long r = e / inner;
     const int i = static_cast<int>(r % n);
     const long long base = (r / n) * (2LL * n) * inner + c;
-    float acc = 0.f;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int o = 2 * i - 3 + s;
-      const bool in = o >= 0 && o < 2 * n;
-      const float v = in ? to_f32(g[base + o * inner]) : 0.f;
-      const float term = __fmul_rn(coef(o, i, n), v);
-      acc = s == 0 ? term : __fadd_rn(acc, term);
+    float v = padded_row(g, base, inner, n, i + 2);
+    if (i == n - 1) {  // step 2, the far edge first
+      const float tail = round_to<T>(
+          __fadd_rn(padded_row(g, base, inner, n, n + 2),
+                    padded_row(g, base, inner, n, n + 3)));
+      v = round_to<T>(__fadd_rn(v, tail));
     }
-    out[e] = from_f32<T>(acc);
+    if (i == 0) {
+      const float head = round_to<T>(
+          __fadd_rn(padded_row(g, base, inner, n, 0),
+                    padded_row(g, base, inner, n, 1)));
+      v = round_to<T>(__fadd_rn(v, head));
+    }
+    out[e] = from_f32<T>(v);
   }
 }
 

@@ -123,19 +123,19 @@ class CamRaDepth(nn.Module):
         d = drop(up(1, d, enc3))
         d = drop(up(2, d, enc4))
         inter_depth_3 = self.depth_activation_3(d)
-        d = torch.cat([d, inter_depth_3], dim=-1)
+        d = torch.cat([d, inter_depth_3.to(d.dtype)], dim=-1)
         d4 = drop(up(3, d))
         inter_depth_4 = self.depth_activation_4(d4)
-        d4 = torch.cat([d4, inter_depth_4], dim=-1)
+        d4 = torch.cat([d4, inter_depth_4.to(d4.dtype)], dim=-1)
         # final stage with the raw input as skip (CamRaDepth.py:149)
         d5 = drop(up(4, d4, x))
         final_depth = self.depth_activation_5(d5)
         return {
             "depth": {
                 "intermediate_depths": (
-                    None, None, inter_depth_3.float(), inter_depth_4.float()
+                    None, None, inter_depth_3, inter_depth_4
                 ),
-                "final_depth": final_depth.float(),
+                "final_depth": final_depth,
             },
             "seg": {"final_seg": None, "intermediate_seg": None,
                     "unsup_map": None},

@@ -34,35 +34,42 @@ def cast_to(p: Optional[torch.Tensor], dtype: torch.dtype):
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` (weight [O, I, kh, kw]) applied to NHWC tensors, with
-    the weight and bias cast to the input's dtype at use.
+    the weight and bias cast to the input's dtype at use. The bias is added
+    after the convolution's output is rounded to that dtype, as flax's
+    ``Conv(dtype=bfloat16)`` adds it (a bias fused into the convolution
+    would be added before the one rounding).
 
     A bf16 convolution on the CPU runs in fp32 and rounds its output to
     bf16, as cuDNN and XLA do: oneDNN's bf16 path loses precision on the
     strided 8x8 sr-conv (errors of several units on outputs of order 1)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution without its bias, in the dtype of ``x``."""
         xc = x.permute(0, 3, 1, 2)
         weight = cast_to(self.weight, x.dtype)
-        bias = cast_to(self.bias, x.dtype)
         if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-            y = self._conv_forward(xc.float(), weight.float(),
-                                   None if bias is None else bias.float())
+            y = self._conv_forward(xc.float(), weight.float(), None)
             y = y.to(x.dtype)
         else:
-            y = self._conv_forward(xc, weight, bias)
+            y = self._conv_forward(xc, weight, None)
         return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.product(x)
+        return y if self.bias is None else y + cast_to(self.bias, x.dtype)
 
 
 class TokenLinear(nn.Conv1d):
     """A 1x1 ``nn.Conv1d`` over tokens (weight [O, I, 1], the reference
-    layout) applied to [B, N, C] tokens as a dense projection."""
+    layout) applied to [B, N, C] tokens as a dense projection; the bias is
+    added after the product is rounded, as flax's ``Dense`` adds it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__(in_features, out_features, 1, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, cast_to(self.weight, x.dtype)[:, :, 0],
-                        cast_to(self.bias, x.dtype))
+        y = F.linear(x, cast_to(self.weight, x.dtype)[:, :, 0])
+        return y if self.bias is None else y + cast_to(self.bias, x.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -214,8 +221,42 @@ class Decoder(nn.Module):
         return self.conv(x)
 
 
+class _SigmoidBf16(torch.autograd.Function):
+    """``jax.nn.sigmoid`` on bf16 as XLA compiles it: 1 / (1 + exp(-x)),
+    each operation rounded to bf16, and its VJP g * (y * (1 - y)), each
+    operation rounded (XLA:CPU's optimized HLO of the bf16 train step;
+    torch's ``sigmoid`` and its backward round once)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1.0 + torch.exp(-x))  # 1.0 / t is two ops
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1.0 - y))
+
+
+def sigmoid_for_dtype(x: torch.Tensor) -> torch.Tensor:
+    """The depth heads' sigmoid, rounded as XLA rounds it in bf16."""
+    if x.dtype == torch.bfloat16:
+        return _SigmoidBf16.apply(x)
+    return torch.sigmoid(x)
+
+
 class DepthActivation(nn.Module):
-    """conv -> sigmoid -> conv depth head (utils.py:274-289)."""
+    """conv -> sigmoid -> conv depth head (utils.py:274-289), rounded in
+    bf16 as XLA compiles the JAX package's head, which departs from its
+    source in two places: the sigmoid is four rounded operations
+    (:func:`sigmoid_for_dtype`), and the head returns fp32, conv_2's
+    product rounded to the compute dtype plus its bias, not rounded again.
+    The JAX model casts each head's output to fp32 right after its bias
+    add (``camradepth_tpu/models/camradepth.py:246``), and XLA drops that
+    add's bf16 rounding: its optimized HLO of the bf16 train step adds the
+    bias in fp32 and feeds the sum to the loss as it is. The caller rounds
+    the depth where it joins the bf16 features."""
 
     def __init__(self, in_ch: int, features: int = 1, iter_channels: int = 32):
         super().__init__()
@@ -223,4 +264,5 @@ class DepthActivation(nn.Module):
         self.conv_2 = Conv2d(iter_channels, features, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv_2(torch.sigmoid(self.conv_1(x)))
+        y = self.conv_2.product(sigmoid_for_dtype(self.conv_1(x)))
+        return y.float() + cast_to(self.conv_2.bias, x.dtype).float()

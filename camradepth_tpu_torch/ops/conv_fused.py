@@ -113,6 +113,10 @@ def conv3x3_fused(
     Returns:
       ``(raw [B, H, W, N] in the activation dtype, channel sum [B, N] fp32,
       channel sum of squares [B, N] fp32)`` of the raw output.
+
+    The first bf16 call on a card fills the kernel's GELU table there and
+    waits for it (a stream synchronisation): make it outside a CUDA graph
+    capture.
     """
     b, h, w, k, n = _check(sources, weights)
     if sources[0].x.device.type == "cpu":

@@ -21,7 +21,12 @@ gradients must flow it goes through :class:`_GeluBf16`, whose backward is
 the VJP as JAX evaluates it on bf16 (21 operations, each rounded; see
 :func:`gelu_bf16_backward_reference`), not torch's autograd of the eight
 forward operations, which rounds at other places: on the card the kernel's
-second entry point ``gelu_bf16_bwd``, on the CPU the plain version.
+second entry point ``gelu_bf16_bwd``, on the CPU the plain version. Both
+kernels read what depends on x through tanh from tables of the inputs in
+``TABLE_FIELDS``, with shortcuts outside them (tests/test_torch_gelu.py
+checks both on every bf16 input). Each kernel's first launch on a card
+fills its table there and waits for it (a stream synchronisation): make it
+outside a CUDA graph capture.
 """
 
 from __future__ import annotations
@@ -35,6 +40,9 @@ from camradepth_tpu_torch.ops import _build
 # them; 0.5 and 1.0 are exact
 BF16_SQRT_2_OVER_PI = 0.796875
 BF16_KAPPA = 0.044677734375
+# the exponent fields [lo, hi) of the bf16 inputs whose GELU and VJP term i
+# the kernels read from tables (csrc/gelu_bf16.cuh kGeluLo, kGeluHi)
+TABLE_FIELDS = (118, 129)
 
 
 def gelu_bf16_reference(x: torch.Tensor) -> torch.Tensor:
@@ -45,6 +53,16 @@ def gelu_bf16_reference(x: torch.Tensor) -> torch.Tensor:
     return x * ((torch.tanh(inner) + 1.0) * 0.5)
 
 
+def gelu_bf16_tanh_term(x: torch.Tensor) -> torch.Tensor:
+    """The VJP's term i = tanh(0.796875 * (x + 0.044677734375 * x*x*x)),
+    each operation rounded to bf16: the one x-only term that the kernel
+    reads from its table (exponent fields ``TABLE_FIELDS``)."""
+    d = x * x
+    c = d * x
+    f = c * BF16_KAPPA
+    return torch.tanh((x + f) * BF16_SQRT_2_OVER_PI)
+
+
 def gelu_bf16_backward_reference(x: torch.Tensor,
                                  g: torch.Tensor) -> torch.Tensor:
     """Plain version of the VJP of :func:`gelu_bf16_reference` for the
@@ -53,10 +71,7 @@ def gelu_bf16_backward_reference(x: torch.Tensor,
     rounded to bf16."""
     d = x * x
     e = d * 3.0
-    c = d * x
-    f = c * BF16_KAPPA
-    inner = (x + f) * BF16_SQRT_2_OVER_PI
-    i = torch.tanh(inner)
+    i = gelu_bf16_tanh_term(x)
     j = 1.0 - i
     half = (i + 1.0) * 0.5
     n = g * half

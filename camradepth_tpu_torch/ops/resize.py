@@ -16,10 +16,12 @@ launches the Hopper kernel ``csrc/upsample_bicubic_x2.cu``; on a CPU tensor
 it runs :func:`upsample_bicubic_x2_reference`, the plain PyTorch version.
 :func:`upsample_plan` sizes the kernel's blocks. When gradients must flow,
 the call goes through :class:`_Upsample`, whose backward is the adjoint of
-the two-phase filter (the transpose the JAX package takes through XLA,
-``camradepth_tpu/ops/resize_pallas.py:250-255``): the W axis back in fp32,
-rounded to the input dtype, then the H axis back in fp32, rounded; on the
-card ``csrc/upsample_bicubic_x2_bwd.cu``, on the CPU
+the edge pad and two-phase filter, rounded where XLA rounds the transpose
+the JAX package takes (``camradepth_tpu/ops/resize.py:84-105``,
+``resize_pallas.py:250-255``): each axis back over its padded length in
+fp32, rounded to the input dtype, then the pads folded into the edge rows
+by rounded adds, the W axis first, then H; on the card
+``csrc/upsample_bicubic_x2_bwd.cu``, on the CPU
 :func:`upsample_bicubic_x2_backward_reference`, bit for bit alike.
 """
 
@@ -74,56 +76,55 @@ def upsample_bicubic_x2_reference(x: torch.Tensor) -> torch.Tensor:
     return _upsample_axis_x2(_upsample_axis_x2(x, 1), 2)
 
 
-@functools.lru_cache(maxsize=None)
-def adjoint_coefficients(n: int) -> Tuple[Tuple[float, ...], ...]:
-    """A[o][i] of one axis of length n, as ``[i][s]`` for the eight
-    outputs o = 2i - 3 + s (s = 0..7) that input i feeds: the sum of the
-    phase weights whose edge-clamped tap is i, 0 for o outside [0, 2n).
-    Taps past an edge fold into row 0 or n - 1. Every value is exact in
-    fp32 (the weights are dyadic with few bits)."""
-    rows = []
-    for i in range(n):
-        row = []
-        for s in range(8):
-            o = 2 * i - 3 + s
-            a = 0.0
-            if 0 <= o < 2 * n:
-                k, p = divmod(o, 2)
-                w = W_ODD if p else W_EVEN
-                for t in range(4):
-                    if min(max(k + p + t - 2, 0), n - 1) == i:
-                        a += w[t]
-            row.append(a)
-        rows.append(tuple(row))
-    return tuple(rows)
+# The transpose's taps: padded input j receives the outputs o = 2j - 7 + s
+# (s = 0..7) with these weights, the phases' weights interleaved.
+ADJOINT_TAPS = (W_EVEN[0], W_EVEN[3], W_EVEN[1], W_EVEN[2],
+                W_EVEN[2], W_EVEN[1], W_EVEN[3], W_EVEN[0])
 
 
-def _adjoint_axis_x2(g: torch.Tensor, axis: int) -> torch.Tensor:
+def _adjoint_axis_x2(g: torch.Tensor, axis: int,
+                     dtype: torch.dtype) -> torch.Tensor:
     """Transpose of :func:`_upsample_axis_x2` along ``axis`` of an fp32
-    NHWC tensor (2n -> n): input i sums A[o][i] * g[o] over its eight
-    outputs in the order of o, each product and sum rounded in fp32."""
+    NHWC tensor (2n -> n), in the values of ``dtype`` (held in fp32), as
+    XLA transposes the JAX package's edge pad and filter:
+
+    - the cotangent of the edge-padded input (n + 4 rows): padded row j
+      sums ``ADJOINT_TAPS[s] * g[2j - 7 + s]`` over s in order (0 outside
+      [0, 2n)), each product and sum rounded in fp32, then rounds to dtype;
+    - the pads fold back into the edge rows, each add rounded to dtype:
+      the last two padded rows are added together and into row n - 1,
+      then the first two together and into row 0 (for n = 1 both land on
+      row 0, in that order)."""
     n = g.shape[axis] // 2
-    coef = torch.tensor(adjoint_coefficients(n), dtype=torch.float32,
-                        device=g.device)  # [n, 8]
-    shape = [1] * g.ndim
-    shape[axis] = n
-    lead, tail = list(g.shape), list(g.shape)
-    lead[axis], tail[axis] = 3, 5
-    gp = torch.cat([g.new_zeros(lead), g, g.new_zeros(tail)], dim=axis)
+    pad = list(g.shape)
+    pad[axis] = 7
+    gp = torch.cat([g.new_zeros(pad), g, g.new_zeros(pad)], dim=axis)
     acc = None
-    for s in range(8):
+    for s, tap in enumerate(ADJOINT_TAPS):
         index = [slice(None)] * g.ndim
-        index[axis] = slice(s, s + 2 * n, 2)
-        term = gp[tuple(index)] * coef[:, s].reshape(shape)
+        index[axis] = slice(s, s + 2 * (n + 4), 2)
+        term = gp[tuple(index)] * tap
         acc = term if acc is None else acc + term
-    return acc
+
+    def rnd(t):
+        return t.to(dtype).float()
+
+    p = rnd(acc)
+    rows = p.narrow(axis, 2, n)
+    tail = rnd(p.narrow(axis, n + 2, 1) + p.narrow(axis, n + 3, 1))
+    last = rnd(rows.narrow(axis, n - 1, 1) + tail)
+    rows = torch.cat([rows.narrow(axis, 0, n - 1), last], dim=axis)
+    head = rnd(p.narrow(axis, 0, 1) + p.narrow(axis, 1, 1))
+    first = rnd(rows.narrow(axis, 0, 1) + head)
+    return torch.cat([first, rows.narrow(axis, 1, n - 1)], dim=axis)
 
 
 def upsample_bicubic_x2_backward_reference(gy: torch.Tensor) -> torch.Tensor:
     """Plain version of the adjoint: [B, 2H, 2W, C] -> [B, H, W, C] in the
-    dtype of ``gy``; the W axis first, rounded to that dtype, then H."""
-    gw = _adjoint_axis_x2(gy.float(), 2).to(gy.dtype)
-    return _adjoint_axis_x2(gw.float(), 1).to(gy.dtype)
+    dtype of ``gy``; the W axis first, then H, each rounded to that dtype
+    where XLA rounds it."""
+    gw = _adjoint_axis_x2(gy.float(), 2, gy.dtype)
+    return _adjoint_axis_x2(gw, 1, gy.dtype).to(gy.dtype)
 
 
 # csrc/upsample_bicubic_x2.cu: threads per block, 16-byte vectors per

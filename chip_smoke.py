@@ -7,7 +7,8 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
   (a) the card, its power limit, the versions and the kernels' build;
   (b) each kernel against its plain PyTorch version at every shape of the
       416x800 `base` forward at batch 8, in bf16 and fp32 (the GELU kernel:
-      bf16, bit for bit), plus ragged shapes, with kernel, plain, library
+      bf16, bit for bit, also on all 65,536 bf16 inputs), plus ragged
+      shapes, with kernel, plain, library
       and bound times (kernel and library: device time, replayed from a
       CUDA graph; plain: CUDA events around eager calls), and each bicubic
       launch's share of its bound;
@@ -34,7 +35,9 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
   (h) training: each backward kernel (attention scores with the forward's
       argmax, bicubic adjoint, bf16 GELU VJP) against its plain version at
       every shape of a `base` 416x800 batch-2 microbatch in bf16 and fp32,
-      plus ragged shapes, with kernel, plain, library and bound times; one
+      plus ragged shapes (the adjoint also where both edges' folds meet,
+      the GELU VJP also on every bf16 x against a sweep of cotangents over
+      every exponent field), with kernel, plain, library and bound times; one
       fp32 optimizer step (TF32 off, no dropout) of `base` at 128x256 on
       the card against the port's CPU run of the same step; then the main
       path of this slice, `cli train` at `base` 416x800 in bf16, batch 2 x
@@ -76,6 +79,12 @@ UPSAMPLE_TOL = dict(rtol=0.0, atol=0.0)
 # (one thread per input element and channel, 25 scalar loads), measured as
 # phase (b) measures it on an NVIDIA H100 80GB HBM3 at 700 W
 UPSAMPLE_EARLIER_MS = 2.141
+# the bf16 GELU kernels' times in their earlier designs (each block
+# evaluating its table with tanhf; the VJP's 21 operations in full per
+# element), per bf16 batch-8 forward and per batch-2 microbatch, measured
+# as phases (b) and (h) measure them on an NVIDIA H100 80GB HBM3 at 700 W
+GELU_EARLIER_MS = 3.188
+GELU_BWD_EARLIER_MS = 2.790
 # bf16 serving vs the fp32 forward, mean depth error in metres (0..100 m):
 # bf16 keeps 8 significant bits through 34 blocks and 5 decoder stages;
 # a frame with another frame's depth is off by ~14 m.
@@ -165,6 +174,33 @@ def add_bound(r, per_fwd, t_bytes, t_ops):
     r["_ops_ms"] = r.get("_ops_ms", 0.0) + per_fwd * t_ops
     r["bound_by"] = ("bytes" if r["_bytes_ms"] >= r["_ops_ms"]
                      else "operations")
+
+
+def same_bits(got, want) -> bool:
+    """bf16 tensors equal bit for bit, any NaN matching any NaN (the
+    kernels and torch write different NaN payloads)."""
+    return bool(((got.view(torch.int16) == want.view(torch.int16))
+                 | (got.isnan() & want.isnan())).all())
+
+
+def every_bf16():
+    """All 65,536 bf16 values, in the order of their bits."""
+    return torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32,
+                        device="cuda").to(torch.int16).view(torch.bfloat16)
+
+
+def cotangent_sweep(seed=31):
+    """bf16 cotangents: for each exponent field 1..254 of both signs one
+    value with a seeded mantissa, plus +-0, 16 subnormals of each sign,
+    +-inf and NaN."""
+    rng = np.random.default_rng(seed)
+    fields = np.arange(1, 255, dtype=np.uint16)
+    normal = (fields << 7) | rng.integers(0, 128, fields.size).astype(
+        np.uint16)
+    sub = rng.integers(1, 128, 16).astype(np.uint16)
+    mags = np.concatenate([normal, sub, [0, 0x7F80]]).astype(np.uint16)
+    bits = np.concatenate([mags, mags | 0x8000, [0x7FC0]]).astype(np.uint16)
+    return torch.from_numpy(bits.view(np.int16)).cuda().view(torch.bfloat16)
 
 
 def randn(shape, seed, dtype):
@@ -344,6 +380,20 @@ def phase_b(cfg):
         r["library_ms"] += per_fwd * t_l
         add_bound(r, per_fwd, t_b, t_o)
         del x, got, want
+    # every bf16 input, in storage aligned to 16 bytes (the vector path)
+    # and one element in (the element-by-element path)
+    every = every_bf16()
+    for x in (every, every[1:]):
+        require(same_bits(gelu_bf16(x), gelu_bf16_reference(x)),
+                ("gelu_bf16 not bit for bit on every input",
+                 x.data_ptr() % 16))
+    print("(b) gelu bf16: bit for bit on all 65,536 bf16 inputs, aligned "
+          "and not")
+    r = rec["gelu_bf16"]
+    print(f"(b) gelu bf16 per batch-{BATCH} forward: kernel_ms="
+          f"{r['ms']:.4f} (earlier design: {GELU_EARLIER_MS}) library_ms="
+          f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}, "
+          f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
     for name, r in rec.items():
         print(f"(b) {name}: per bf16 batch-{BATCH} forward kernel_ms="
               f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms="
@@ -883,8 +933,10 @@ def phase_h_kernels(cfg):
     up = [(b, *m.feature_shape(3), m.dims[3], 1),
           (b, *m.feature_shape(2), mid, 1), (b, *m.feature_shape(1), mid, 1),
           (b, *m.feature_shape(0), mid + 1, 1), (b, h // 2, w // 2, mid + 1, 1),
-          # C = 129 with B = 3; H = 1; W = 1 and C = 3 (rows off 16 bytes)
-          (3, 7, 9, 129, 0), (2, 1, 37, 16, 0), (2, 5, 1, 3, 0)]
+          # C = 129 with B = 3; H = 1; W = 1 and C = 3 (rows off 16 bytes);
+          # both edges' folds on one row or column (n = 1, 2)
+          (3, 7, 9, 129, 0), (2, 1, 37, 16, 0), (2, 5, 1, 3, 0),
+          (1, 1, 3, 2, 0), (2, 2, 1, 4, 0), (1, 5, 7, 129, 0)]
     gelu = [((b,) + shape[1:], n) for shape, n in gelu_forward_shapes(cfg)]
     gelu += [((3, 5, 7, 13), 0)]
 
@@ -1010,6 +1062,28 @@ def phase_h_kernels(cfg):
         r["library_ms"] += per_mb * t_l
         add_bound(r, per_mb, t_b, t_o)
         del x, gy, got, want
+    # every bf16 x against every cotangent of the sweep, aligned, and one
+    # element in (the element-by-element path) over the first 4 rows
+    cot = cotangent_sweep()
+    x = every_bf16().repeat(cot.numel(), 1)
+    gy = cot[:, None].expand_as(x).contiguous()
+    require(same_bits(gelu_bf16_backward(x, gy),
+                      gelu_bf16_backward_reference(x, gy)),
+            "gelu backward not bit for bit on the sweep")
+    n = 4 * x.shape[1]
+    xs, gs = x.view(-1)[1:n], gy.view(-1)[1:n]
+    require(same_bits(gelu_bf16_backward(xs, gs),
+                      gelu_bf16_backward_reference(xs, gs)),
+            "gelu backward not bit for bit off 16 bytes")
+    print(f"(h) gelu backward bf16: bit for bit on all 65,536 x times "
+          f"{cot.numel()} cotangents (every exponent field of both signs, "
+          f"+-0, subnormals, +-inf, NaN), aligned and not")
+    del x, gy, xs, gs
+    r = rec["gelu_bf16_backward"]
+    print(f"(h) gelu backward per bf16 batch-{TRAIN_BATCH} microbatch: "
+          f"kernel_ms={r['ms']:.4f} (earlier design: {GELU_BWD_EARLIER_MS})"
+          f" library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}, "
+          f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
     torch.cuda.empty_cache()
     for name, r in rec.items():
         print(f"(h) {name}: per bf16 batch-{TRAIN_BATCH} microbatch "

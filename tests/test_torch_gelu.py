@@ -20,7 +20,13 @@ import torch
 from camradepth_tpu.models.layers import gelu_for_dtype as jax_gelu
 from camradepth_tpu_torch.models.layers import gelu_for_dtype
 from camradepth_tpu_torch.ops import _build
-from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_reference
+from camradepth_tpu_torch.ops.gelu import (
+    BF16_SQRT_2_OVER_PI,
+    TABLE_FIELDS,
+    gelu_bf16,
+    gelu_bf16_reference,
+    gelu_bf16_tanh_term,
+)
 from tests.torch_port import one_torch_thread  # noqa: F401
 
 
@@ -55,6 +61,39 @@ def test_bf16_gelu_table_shortcuts_hold_for_every_input():
     positive = high & (bits < 0x8000)
     np.testing.assert_array_equal(y[positive], bits[positive])
     assert (y[high & ~positive] == 0x8000).all()
+
+
+def test_bf16_gelu_vjp_table_shortcuts_hold_for_every_input():
+    """The VJP kernel reads its term i = tanh(h) from a table only for the
+    exponent fields TABLE_FIELDS (csrc/gelu_bf16.cu), and only for x > 0:
+    i is odd in x, bit for bit. Below the fields, i is 0.796875 * x
+    rounded, above (and finite) +1 for x > 0 and -1 for x < 0, bit for
+    bit. Its other x-only terms it computes from i and x with the plain
+    version's operations. Checked on every bf16 input."""
+    lo, hi = TABLE_FIELDS
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    x = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
+
+    def u16(t):
+        return t.view(torch.int16).numpy().view(np.uint16)
+
+    i = u16(gelu_bf16_tanh_term(x))
+    field = (bits >> 7) & 0xFF
+    # odd: -x (the sign bit flipped) gives -i, NaN aside
+    flipped = u16(gelu_bf16_tanh_term(-x))
+    number = field < 255
+    np.testing.assert_array_equal(flipped[number], (i ^ 0x8000)[number])
+    low = field < lo
+    np.testing.assert_array_equal(i[low], u16(x * BF16_SQRT_2_OVER_PI)[low])
+    high = (field >= hi) & (field < 255)
+    sign = np.where(bits >= 0x8000, 0xBF80, 0x3F80).astype(np.uint16)
+    np.testing.assert_array_equal(i[high], sign[high])
+    # the table is needed: from field 123 up to its last field some inputs
+    # take neither shortcut (below 123 the first holds; the table shares
+    # the forward's fields)
+    inside = (field >= lo) & (field < hi)
+    differs = (i != u16(x * BF16_SQRT_2_OVER_PI)) & (i != sign)
+    assert set(field[inside & differs]) == set(range(123, hi))
 
 
 def test_fp32_gelu_matches_jax():

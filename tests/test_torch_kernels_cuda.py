@@ -351,6 +351,8 @@ def test_attention_backward_kernel_matches_plain(cuda, dtype, b, n, m, c,
     # C = 1, 3, 129; H = 1, W = 1, both, H = W = 2; B = 3
     (2, 5, 7, 1), (3, 7, 9, 3), (1, 1, 37, 16), (2, 23, 1, 24),
     (1, 1, 1, 5), (1, 2, 2, 129),
+    # both edges' folds on one row or column (the JAX VJP tests' shapes)
+    (1, 1, 3, 2), (2, 2, 1, 4), (1, 5, 7, 129),
 ])
 def test_upsample_backward_kernel_matches_plain_bitwise(cuda, dtype, shape):
     b, h, w, c = shape

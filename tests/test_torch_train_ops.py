@@ -14,12 +14,11 @@ Tolerances:
   for JAX's argmax: dq bit for bit (one product per element), dk within
   1 bf16 ulp (its fp32 sums run in another order before the rounding);
 - bicubic x2 VJP, fp32: 1e-5 (tests/test_resize_pallas.py:38-57). bf16:
-  both take each axis back in fp32 and round between the axes, and away
-  from the edges the port equals JAX bit for bit. At the edge rows and
-  columns XLA transposes the edge padding by adding the folded cotangents
-  in bf16, each add rounded, where the port folds them in fp32 before its
-  one rounding: there at most 8 bf16 ulps, taken at no less than the
-  output's RMS (measured: 3.25 to 4.0 over three seeds);
+  bit for bit everywhere, edges included, also where one or two rows or
+  columns make both edges' folds land on the same ones. Both take each
+  axis back over its edge-padded length in fp32 and round it to bf16, then
+  fold the pads into the edge rows by bf16 adds in XLA's order (the last
+  two pads into row n - 1, then the first two into row 0), W before H;
 - bf16 GELU VJP: bit for bit with JAX on every finite bf16 input above
   XLA's subnormal flush (|x| > 1e-30), for several cotangents;
 - min-pool pyramid: exact; losses: rtol 1e-6; diffGradNorm over 5 steps
@@ -54,9 +53,9 @@ from camradepth_tpu_torch.ops.attention import (
 from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_backward
 from camradepth_tpu_torch.ops.pooling import minpool_pyramid, minpool_sparse
 from camradepth_tpu_torch.ops.resize import (
-    W_EVEN,
-    adjoint_coefficients,
+    ADJOINT_TAPS,
     upsample_bicubic_x2,
+    upsample_bicubic_x2_backward_reference,
     upsample_bicubic_x2_reference,
 )
 from camradepth_tpu_torch.train import losses as tlosses
@@ -169,22 +168,21 @@ def test_scores_backward_plan_covers_every_token_and_key(b, n, m, c):
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 9])
 def test_adjoint_coefficients_are_the_forward_transposed(n):
-    """A[o][i] from the table equals the forward's response at output o to
-    a unit input at i (exact: the weights are dyadic), with the edge taps
-    folded in; away from the edges every row is the eight weights."""
+    """The fp32 adjoint of a unit cotangent at output o is column o of the
+    forward's response to unit inputs, edge folds included (exact: the
+    weights are dyadic with few bits); away from the edges an input takes
+    the eight interleaved taps."""
     eye = torch.eye(n).reshape(n, n, 1, 1)  # n unit images [n, H=n, 1, 1]
     a = upsample_bicubic_x2_reference(eye)[:, :, 0, 0]  # [i, o] (W: n=1)
-    w = W_EVEN
-    interior = (w[0], w[3], w[1], w[2], w[2], w[1], w[3], w[0])
-    for i, row in enumerate(adjoint_coefficients(n)):
-        for s_, coef in enumerate(row):
-            o = 2 * i - 3 + s_
-            want = float(a[i, o]) if 0 <= o < 2 * n else 0.0
-            # the W axis of a 1-wide image replicates, so its weights sum
-            # to 1 and leave the H response as it is
-            assert coef == want, (i, o)
-        if 2 <= i <= n - 3:
-            assert row == interior
+    # the W axis of a 1-wide image replicates, so its weights sum to 1 and
+    # leave the H response as it is: one unit per image, at column 0
+    units = torch.zeros(2 * n, 2 * n, 2, 1)
+    units[:, :, 0, 0] = torch.eye(2 * n)
+    back = upsample_bicubic_x2_backward_reference(units)[:, :, 0, 0]  # [o, i]
+    assert torch.equal(back.T, a)
+    for i in range(2, n - 2):
+        assert tuple(a[i, 2 * i - 3:2 * i + 5].tolist()) == ADJOINT_TAPS
+
 
 @pytest.fixture(scope="module")
 def jax_upsample_vjp():
@@ -204,23 +202,20 @@ def test_upsample_vjp_matches_jax_fp32(jax_upsample_vjp, shape):
                                atol=1e-5)
 
 
-def test_upsample_vjp_matches_jax_bf16(jax_upsample_vjp):
-    shape = (2, 9, 14, 129)
+@pytest.mark.parametrize("shape", [(2, 9, 14, 129), (1, 1, 3, 2),
+                                   (2, 2, 1, 4), (1, 5, 7, 129)])
+def test_upsample_vjp_matches_jax_bf16(jax_upsample_vjp, shape):
     x = torch.from_numpy(_rand(shape, 11)).to(torch.bfloat16)
-    gy = torch.from_numpy(_rand((2, 18, 28, 129), 12)).to(torch.bfloat16)
+    gy = torch.from_numpy(_rand(
+        (shape[0], 2 * shape[1], 2 * shape[2], shape[3]), 12)
+    ).to(torch.bfloat16)
     want = np.asarray(jax_upsample_vjp(
         jnp.asarray(x.float().numpy(), jnp.bfloat16),
         jnp.asarray(gy.float().numpy(), jnp.bfloat16)), np.float32)
     tx = x.clone().requires_grad_()
     (got,) = torch.autograd.grad(upsample_bicubic_x2(tx), tx, gy)
     assert got.dtype == torch.bfloat16
-    got = _np(got)
-    inner = (slice(None), slice(1, -1), slice(1, -1))
-    np.testing.assert_array_equal(got[inner], want[inner])
-    rms = float(np.sqrt(np.mean(want ** 2)))
-    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), rms)
-    ulps = np.abs(got - want) / (BF16_EPS * np.exp2(np.floor(np.log2(mag))))
-    assert ulps.max() <= 8.0
+    np.testing.assert_array_equal(_np(got), want)
 
 
 # ---- bf16 GELU -----------------------------------------------------------
