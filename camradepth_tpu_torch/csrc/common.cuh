@@ -33,6 +33,24 @@ inline int sm_count() {
   return n;
 }
 
+// Let `Kernel` take `bytes` of dynamic shared memory (above 48 KB it must
+// ask) on the current device; asked once per kernel and device.
+template <auto Kernel>
+inline cudaError_t allow_smem(int bytes) {
+  constexpr int kDevices = 64;
+  static int allowed[kDevices] = {};
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && allowed[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kDevices) allowed[dev] = bytes;
+  return err;
+}
+
 extern "C" const char* camradepth_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -748,14 +748,8 @@ cudaError_t launch_bf16(dim3 grid, cudaStream_t st, const Sources& S,
   constexpr int kBytes = Bf16Smem<NT>::kBytes;
   const cudaError_t ready = gelu_table_ready(st);
   if (ready != cudaSuccess) return ready;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_bf16_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kBytes);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
+  const cudaError_t err = allow_smem<conv_bf16_mma_kernel<NT>>(kBytes);
+  if (err != cudaSuccess) return err;
   conv_bf16_mma_kernel<NT><<<grid, kMmaThreads, kBytes, st>>>(
       S, w, w_vec, out, partial, H, W, K, Kp, N, tiles_x, n_tiles);
   return cudaGetLastError();

@@ -442,14 +442,8 @@ int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k, float* out,
   const int MC = min(m16, (kSmemMax - fixed) / (pitch * 2) / 16 * 16);
   if (MC < 16) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = fixed + MC * pitch * 2;
-  static int smem_set = 0;
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scores_mma_kernel<DK, ARG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = smem;
-  }
+  const cudaError_t err = allow_smem<scores_mma_kernel<DK, ARG>>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const auto aligned = [](const void* p) {
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };

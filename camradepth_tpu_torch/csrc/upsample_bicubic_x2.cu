@@ -326,14 +326,9 @@ int launch(const void* x, void* y, int B, int H, int W, int C, int tw,
   const long long smem = cap * 8LL + 2 * scap * static_cast<long long>(
       sizeof(T));
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  static int smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        upsample_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemMax);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_set = kSmemMax;
-  }
+  const cudaError_t err = allow_smem<upsample_kernel<T>>(
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + tw - 1) / tw, (H + rows - 1) / rows, B);
   upsample_kernel<T><<<grid, kThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(

@@ -49,10 +49,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         },
     },
     "maxpool_attention_scores_bwd": {
-        # (q, k, amax, g, dq, dk, partial, B, N, M, C, heads, tokens, MC,
-        #  scale, stream)
-        f"maxpool_attention_scores_bwd_{t}": [_P, _P, _P, _P, _P, _P, _P, _I,
-                                              _I, _I, _I, _I, _I, _I, _F, _P]
+        # (q, k, amax, g, dq, dk, partial, slotmap, B, N, M, C, heads,
+        #  tokens, chunks, slots, smem, scale, stream)
+        f"maxpool_attention_scores_bwd_{t}": [_P] * 8 + [_I] * 9 + [_F, _P]
         for t in ("f32", "bf16")
     },
     "upsample_bicubic_x2": {
@@ -61,8 +60,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         for t in ("f32", "bf16")
     },
     "upsample_bicubic_x2_bwd": {
-        # (gy, work, gx, B, H, W, C, stream)
-        f"upsample_bicubic_x2_bwd_{t}": [_P, _P, _P, _I, _I, _I, _I, _P]
+        # (gy, gx, B, H, W, C, threads, tiles, rows, grid x, grid y, rowcap,
+        #  ocap, smem, stream)
+        f"upsample_bicubic_x2_bwd_{t}": [_P, _P] + [_I] * 12 + [_P]
         for t in ("f32", "bf16")
     },
     "conv3x3_fused": {

@@ -13,7 +13,8 @@ goes through :class:`_Scores`, the port's form of the JAX custom VJP
 argmax [B, h, N] over the unscaled fp32 dots, and the backward is a gather
 for dq and a scatter-add for dk, with no [B, h, N, M] tensor. On the card
 those are the forward kernel's ``_argmax`` entry points and
-``csrc/maxpool_attention_scores_bwd.cu``; on the CPU, the plain versions
+``csrc/maxpool_attention_scores_bwd.cu`` (two launches, chunks sized by
+:func:`scores_backward_plan`); on the CPU, the plain versions
 :func:`maxpool_attention_scores_argmax_reference` and
 :func:`maxpool_attention_scores_backward_reference`.
 """
@@ -132,28 +133,53 @@ def _scores_cuda(q, k, num_heads, scale, argmax: bool):
 
 
 class BackwardPlan(NamedTuple):
-    tokens: int  # tokens per chunk of the dk pass
+    """The backward kernel's launch, as the wrapper passes it to
+    ``csrc/maxpool_attention_scores_bwd.cu``, which takes every field as
+    given."""
+
+    tokens: int  # tokens per chunk of pass 1
     chunks: int
-    keys: int  # keys per block (MC)
+    slots: int  # partial rows a chunk may write: min(tokens, M)
+    smem: int  # pass 1's dynamic shared memory per block, bytes
 
 
-# shared memory the dk pass may take per block: its [MC][C] fp32 tile
-_DK_SMEM = 96 * 1024
+# csrc/maxpool_attention_scores_bwd.cu: threads (and most tokens) per block,
+# warps per block, shared memory a block may use (H100)
+_BWD_THREADS = 256
+_BWD_WARPS = 8
+_SMEM_MAX = 232448
 
 
 @functools.lru_cache(maxsize=None)
-def scores_backward_plan(b: int, n: int, m: int, c: int,
-                         sms: int) -> BackwardPlan:
-    """Blocks of the backward's dk pass for q [b, n, c] and k [b, m, c] on
-    a card with ``sms`` SMs: keys per block as many as a [keys][c] fp32
-    tile in 96 KB of shared memory holds; then as many token chunks as
-    give about two blocks per SM, but no more than one per 128 tokens
-    (each chunk adds a [m][c] fp32 partial to the workspace)."""
-    keys = max(1, min(m, _DK_SMEM // (4 * c)))
-    ranges = -(-m // keys)
-    chunks = max(1, min(-(-n // 128), -(-2 * sms // (b * ranges))))
-    tokens = -(-n // chunks)
-    return BackwardPlan(tokens, -(-n // tokens), keys)
+def scores_backward_plan(b: int, n: int, m: int, c: int, heads: int,
+                         itemsize: int, sms: int,
+                         tokens: int = 0) -> BackwardPlan:
+    """Pass 1's blocks of the backward kernel for q [b, n, c] and k [b, m,
+    c] of ``itemsize``-byte elements with ``heads`` heads, on a card with
+    ``sms`` SMs: ``tokens`` per chunk when given (at most 256), else the
+    most of 256, 128, 64, 32 that still give a block per SM (b * heads *
+    chunks of them; 32 where none does). Its shared memory holds, in this
+    order, the chunk's q head slice (padded to 16 bytes), a segment (two
+    ints) per slot, three ints or floats per token, two ints per key and
+    two per warp; so many keys that they do not fit (some 20,000 or more,
+    by the tokens, d and dtype) raise."""
+    if heads <= 0 or c % heads:
+        raise ValueError(f"C={c} is not a multiple of heads={heads}")
+    d = c // heads
+    if tokens <= 0:
+        tokens = _BWD_THREADS
+        while tokens > 32 and b * heads * -(-n // tokens) < sms:
+            tokens //= 2
+    elif tokens > _BWD_THREADS:
+        raise ValueError(f"attention backward: {tokens} tokens per chunk, "
+                         f"over {_BWD_THREADS}")
+    slots = min(tokens, m)
+    smem = (-(-tokens * d * itemsize // 16) * 16 + 8 * slots
+            + 4 * (3 * tokens + 2 * m + 2 * _BWD_WARPS))
+    if smem > _SMEM_MAX:
+        raise ValueError(f"attention backward: M={m} keys need {smem} bytes "
+                         f"of shared memory per block, over {_SMEM_MAX}")
+    return BackwardPlan(tokens, -(-n // tokens), slots, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,23 +189,37 @@ def _sm_count(index: int) -> int:
 
 def _scores_backward_cuda(q, k, amax, g, num_heads, scale):
     b, n, c = q.shape
-    m = k.shape[1]
     index = q.device.index
-    plan = scores_backward_plan(b, n, m, c, _sm_count(
-        torch.cuda.current_device() if index is None else index))
-    g = g.float().contiguous()
+    plan = scores_backward_plan(b, n, k.shape[1], c, num_heads,
+                                q.element_size(),
+                                _sm_count(torch.cuda.current_device()
+                                          if index is None else index))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
-    partial = torch.empty((b, plan.chunks, m, c), dtype=torch.float32,
-                          device=q.device)
+    launch_backward(q, k, amax, g.float().contiguous(), dq, dk, num_heads,
+                    scale, plan)
+    maxpool_attention_scores_backward.launches += 1
+    return dq, dk
+
+
+def launch_backward(q, k, amax, g, dq, dk, num_heads, scale,
+                    plan: BackwardPlan) -> None:
+    """Launch the backward kernel on contiguous CUDA q, k, amax and fp32 g
+    into dq and dk with ``plan``, its partial rows and slot maps in
+    scratch of their own."""
+    b, n, c = q.shape
+    m = k.shape[1]
+    rows = b * num_heads * plan.chunks
+    partial = torch.empty(rows * plan.slots * (c // num_heads),
+                          dtype=torch.float32, device=q.device)
+    slotmap = torch.empty(rows * m, dtype=torch.int32, device=q.device)
     _build.launch("maxpool_attention_scores_bwd",
                   f"maxpool_attention_scores_bwd_{_SUFFIX[q.dtype]}",
                   q.device, q.data_ptr(), k.data_ptr(), amax.data_ptr(),
                   g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                  partial.data_ptr(), b, n, m, c, num_heads, plan.tokens,
-                  plan.keys, float(scale))
-    maxpool_attention_scores_backward.launches += 1
-    return dq, dk
+                  partial.data_ptr(), slotmap.data_ptr(), b, n, m, c,
+                  num_heads, plan.tokens, plan.chunks, plan.slots, plan.smem,
+                  float(scale))
 
 
 def maxpool_attention_scores_with_argmax(q, k, num_heads: int, scale: float):

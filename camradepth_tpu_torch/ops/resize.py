@@ -21,7 +21,8 @@ the JAX package takes (``camradepth_tpu/ops/resize.py:84-105``,
 ``resize_pallas.py:250-255``): each axis back over its padded length in
 fp32, rounded to the input dtype, then the pads folded into the edge rows
 by rounded adds, the W axis first, then H; on the card
-``csrc/upsample_bicubic_x2_bwd.cu``, on the CPU
+``csrc/upsample_bicubic_x2_bwd.cu`` (one launch for both axes, blocks sized
+by :func:`upsample_backward_plan`), on the CPU
 :func:`upsample_bicubic_x2_backward_reference`, bit for bit alike.
 """
 
@@ -176,6 +177,62 @@ def upsample_plan(b: int, h: int, w: int, c: int, itemsize: int,
     return UpsamplePlan(tw, rows, (spans, -(-h // rows), b), smem)
 
 
+class AdjointPlan(NamedTuple):
+    """The adjoint kernel's launch, as the wrapper passes it to
+    ``csrc/upsample_bicubic_x2_bwd.cu``, which takes every field as given."""
+
+    threads: int  # per block: a thread per channel of its tile
+    tiles: int  # channel tiles of ``threads`` channels
+    rows: int  # gx rows per block
+    grid: Tuple[int, int, int]  # (runs of 4 columns x tiles, strips, B)
+    rowcap: int  # elements staged per gy row
+    ocap: int  # elements staged per gx row
+    smem: int  # dynamic shared memory per block, bytes
+
+
+# csrc/upsample_bicubic_x2_bwd.cu: channels per block, gx columns per block,
+# gy row pairs staged at once
+_ADJOINT_TILE = 256
+_ADJOINT_RUN = 4
+_ADJOINT_STAGES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def upsample_backward_plan(b: int, h: int, w: int, c: int, itemsize: int,
+                           sms: int, rows: int = 0) -> AdjointPlan:
+    """The adjoint kernel's launch for gx [b, h, w, c] of ``itemsize``-byte
+    elements on a card with ``sms`` SMs. A block takes a run of 4 gx
+    columns at up to 256 channels, a thread a channel; its strip of gx rows
+    is ``rows`` when given, else the tallest of 32, 16, 8, 4 that still
+    gives four blocks per SM (4 where none does). Its shared memory holds,
+    in this order, four pairs of staged gy rows (the run's 14 gy columns,
+    every channel, clipped to the row, and 16 bytes of slack at each end),
+    two staged gx rows (the run's columns and the 16-byte slack before
+    them) and three rows of edge-fold operands (4 columns x ``threads``); a
+    C so wide that they do not fit (for w >= 7: over 941 channels in bf16,
+    458 in fp32) raises."""
+    if min(h, w, c) <= 0:
+        raise ValueError(f"upsample_bicubic_x2 backward: empty image "
+                         f"{(b, h, w, c)}")
+    n = 16 // itemsize
+    threads = _round_up(min(c, _ADJOINT_TILE), 32)
+    tiles = -(-c // threads)
+    rowcap = _round_up(min(2 * _ADJOINT_RUN + 6, 2 * w) * c + 2 * n, n)
+    ocap = _round_up(_ADJOINT_RUN * c + n, n)
+    smem = (2 * _ADJOINT_STAGES * rowcap + 2 * ocap
+            + 3 * _ADJOINT_RUN * threads) * itemsize
+    if smem > SMEM_MAX:
+        raise ValueError(f"upsample_bicubic_x2 backward: C={c} needs {smem} "
+                         f"bytes of shared memory per block, over {SMEM_MAX}")
+    runs = -(-w // _ADJOINT_RUN) * tiles
+    if rows <= 0:
+        rows = 32
+        while rows > 4 and b * runs * -(-h // rows) < 4 * sms:
+            rows //= 2
+    return AdjointPlan(threads, tiles, rows, (runs, -(-h // rows), b),
+                       rowcap, ocap, smem)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -217,15 +274,29 @@ def upsample_bicubic_x2_backward(gy: torch.Tensor) -> torch.Tensor:
         return upsample_bicubic_x2_backward_reference(gy)
     _check_cuda(gy)
     b, h2, w2, c = gy.shape
+    if h2 % 2 or w2 % 2:
+        raise ValueError(f"gy must be [B, 2H, 2W, C], got {tuple(gy.shape)}")
     h, w = h2 // 2, w2 // 2
     gy = gy.contiguous()
-    work = torch.empty((b, h2, w, c), dtype=gy.dtype, device=gy.device)
     gx = torch.empty((b, h, w, c), dtype=gy.dtype, device=gy.device)
-    _build.launch("upsample_bicubic_x2_bwd",
-                  f"upsample_bicubic_x2_bwd_{_SUFFIX[gy.dtype]}", gy.device,
-                  gy.data_ptr(), work.data_ptr(), gx.data_ptr(), b, h, w, c)
+    index = gy.device.index
+    plan = upsample_backward_plan(b, h, w, c, gy.element_size(), _sm_count(
+        torch.cuda.current_device() if index is None else index))
+    launch_backward(gy, gx, plan)
     upsample_bicubic_x2_backward.launches += 1
     return gx
+
+
+def launch_backward(gy: torch.Tensor, gx: torch.Tensor,
+                    plan: AdjointPlan) -> None:
+    """Launch the adjoint kernel on contiguous CUDA ``gy`` into ``gx`` with
+    ``plan``."""
+    b, h, w, c = gx.shape
+    _build.launch("upsample_bicubic_x2_bwd",
+                  f"upsample_bicubic_x2_bwd_{_SUFFIX[gy.dtype]}", gy.device,
+                  gy.data_ptr(), gx.data_ptr(), b, h, w, c, plan.threads,
+                  plan.tiles, plan.rows, *plan.grid[:2], plan.rowcap,
+                  plan.ocap, plan.smem)
 
 
 upsample_bicubic_x2_backward.launches = 0

@@ -37,7 +37,9 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       every shape of a `base` 416x800 batch-2 microbatch in bf16 and fp32,
       plus ragged shapes (the adjoint also where both edges' folds meet,
       the GELU VJP also on every bf16 x against a sweep of cotangents over
-      every exponent field), with kernel, plain, library and bound times; one
+      every exponent field; the attention backward also where every
+      token's argmax is one key, timed on its own), with kernel, plain,
+      library and bound times; one
       fp32 optimizer step (TF32 off, no dropout) of `base` at 128x256 on
       the card against the port's CPU run of the same step; then the main
       path of this slice, `cli train` at `base` 416x800 in bf16, batch 2 x
@@ -85,6 +87,13 @@ UPSAMPLE_EARLIER_MS = 2.141
 # as phases (b) and (h) measure them on an NVIDIA H100 80GB HBM3 at 700 W
 GELU_EARLIER_MS = 3.188
 GELU_BWD_EARLIER_MS = 2.790
+# the two other backward kernels' times per bf16 batch-2 microbatch in
+# their earlier designs (the adjoint: one thread per element, each axis its
+# own launch through a workspace; the attention backward: three launches
+# and a dense [chunks][M][C] fp32 partial), measured as phase (h) measures
+# them on an NVIDIA H100 80GB HBM3 at 700 W
+ADJOINT_EARLIER_MS = 1.205
+ATTN_BWD_EARLIER_MS = 1.008
 # bf16 serving vs the fp32 forward, mean depth error in metres (0..100 m):
 # bf16 keeps 8 significant bits through 34 blocks and 5 decoder stages;
 # a frame with another frame's depth is off by ~14 m.
@@ -1084,6 +1093,16 @@ def phase_h_kernels(cfg):
           f"kernel_ms={r['ms']:.4f} (earlier design: {GELU_BWD_EARLIER_MS})"
           f" library_ms={r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f}, "
           f"{100 * r['bound_ms'] / r['ms']:.1f} % of the bound")
+    for name, earlier in (("maxpool_attention_scores_backward",
+                           ATTN_BWD_EARLIER_MS),
+                          ("upsample_bicubic_x2_backward",
+                           ADJOINT_EARLIER_MS)):
+        r = rec[name]
+        share = 100 * r["bound_ms"] / r["ms"]
+        print(f"(h) {name} per bf16 batch-{TRAIN_BATCH} microbatch: "
+              f"kernel_ms={r['ms']:.4f} (earlier design: {earlier}) "
+              f"bound_ms={r['bound_ms']:.4f}, {share:.1f} % of the bound")
+    one_key_attention_backward()
     torch.cuda.empty_cache()
     for name, r in rec.items():
         print(f"(h) {name}: per bf16 batch-{TRAIN_BATCH} microbatch "
@@ -1093,6 +1112,51 @@ def phase_h_kernels(cfg):
     print(f"(h) attention forward with argmax: {argmax_ms:.4f} ms per bf16 "
           f"batch-{TRAIN_BATCH} microbatch (34 launches)")
     return rec
+
+
+def one_key_attention_backward(key=123):
+    """The attention backward in bf16 where every token's argmax is one key
+    (k's row ``key`` dominant; q's entries multiples of 1/8 in [0, 4), g
+    integers, so that every sum of products is exact in fp32), at stages 1
+    and 2 of a batch-2 microbatch: held to the limits of (h) and timed
+    apart from the per-microbatch sums."""
+    from camradepth_tpu_torch.ops.attention import (
+        maxpool_attention_scores_backward,
+        maxpool_attention_scores_backward_reference,
+        maxpool_attention_scores_with_argmax,
+    )
+
+    for bb, n, mm, c, heads in ((TRAIN_BATCH, 20800, 325, 64, 1),
+                                (TRAIN_BATCH, 5200, 325, 128, 2)):
+        rng = np.random.default_rng(30)
+        qn = np.floor(np.abs(rng.standard_normal((bb, n, c))) * 8).clip(
+            0, 31) / 8
+        kn = rng.standard_normal((bb, mm, c))
+        kn[:, key] = 4.0
+        q, k = (torch.from_numpy(a.astype(np.float32)).to("cuda",
+                                                          torch.bfloat16)
+                for a in (qn, kn))
+        g = torch.from_numpy(rng.integers(-8, 9, (bb, n)).astype(
+            np.float32)).cuda()
+        scale = (c // heads) ** -0.5
+        amax = maxpool_attention_scores_with_argmax(q, k, heads, scale)[1]
+        require(bool((amax == key).all()), "one-key argmax")
+        dq, dk = maxpool_attention_scores_backward(q, k, amax, g, heads,
+                                                   scale)
+        wq, wk = maxpool_attention_scores_backward_reference(
+            q, k, amax, g, heads, scale)
+        require(torch.equal(dq, wq), "one-key dq not bit for bit")
+        ulps = bf16_ulps(dk, wk)
+        require(ulps <= 1.0, ("one-key dk", ulps))
+        require(torch.equal(dk, maxpool_attention_scores_backward(
+            q, k, amax, g, heads, scale)[1]), "one-key dk not deterministic")
+        t_k = device_ms(lambda: maxpool_attention_scores_backward(
+            q, k, amax, g, heads, scale))
+        print(f"(h) attention backward bf16, every token's argmax one key, "
+              f"B={bb} N={n} M={mm} C={c} h={heads}: dq bit for bit, dk "
+              f"{ulps:.2f} bf16 ulps (tol 1), deterministic; kernel_ms="
+              f"{t_k:.4f} (one call, not in the sums)")
+        del q, k, g, amax, dq, dk, wq, wk
 
 
 def step_inputs(cfg, b, seed, device):
@@ -1275,8 +1339,9 @@ def profile_train_step(cfg, accum):
         ms = e.self_device_time_total / 1e3
         print(f"(h)   {ms:8.3f} ms {100 * ms / busy_ms:5.1f} % x{e.count:<5d} "
               f"{e.key[:100]}")
-    for name in ("scores_", "dq_kernel", "dk_", "upsample_kernel",
-                 "adjoint_axis", "gelu_bf16_kernel", "gelu_bf16_bwd"):
+    for name in ("scores_", "gather_partial_kernel", "dk_sum_kernel",
+                 "upsample_kernel", "adjoint_kernel", "gelu_bf16_kernel",
+                 "gelu_bf16_bwd"):
         sel = [e for e in kernels if name in e.key]
         ms = sum(e.self_device_time_total for e in sel) / 1e3
         print(f"(h) {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of device"

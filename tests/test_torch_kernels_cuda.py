@@ -49,6 +49,8 @@ from camradepth_tpu_torch.ops.gelu import (
     gelu_bf16_reference,
 )
 from camradepth_tpu_torch.ops.resize import (
+    launch_backward as launch_upsample_backward,
+    upsample_backward_plan,
     upsample_bicubic_x2,
     upsample_bicubic_x2_backward,
     upsample_bicubic_x2_backward_reference,
@@ -307,40 +309,110 @@ def _near_tie_ok(q, k, heads, got_amax):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,n,m,c,heads", [
+@pytest.mark.parametrize("b,n,m,c,heads,offset", [
     # the four stage shapes of a base 416x800 training microbatch
-    (2, 20800, 325, 64, 1), (2, 5200, 325, 128, 2), (2, 1300, 325, 160, 4),
-    (2, 325, 325, 256, 8),
+    (2, 20800, 325, 64, 1, 0), (2, 5200, 325, 128, 2, 0),
+    (2, 1300, 325, 160, 4, 0), (2, 325, 325, 256, 8, 0),
     # d = 8 and 40, M off the key tile and M = 1, N below one token tile,
     # B = 3
-    (2, 9, 33, 8, 1), (1, 37, 1, 40, 1), (3, 1001, 77, 120, 3),
+    (2, 9, 33, 8, 1, 0), (1, 37, 1, 40, 1, 0), (3, 1001, 77, 120, 3, 0),
+    # element staging and gathers: d = 6 is no multiple of a 16-byte
+    # vector; q and k one element into their storage, off the 16-byte grid
+    (1, 37, 5, 12, 2, 0), (3, 1001, 77, 120, 3, 1),
 ])
 def test_attention_backward_kernel_matches_plain(cuda, dtype, b, n, m, c,
-                                                 heads):
+                                                 heads, offset):
     torch.backends.cuda.matmul.allow_tf32 = False
-    q = _randn((b, n, c), 20, dtype, cuda)
-    k = _randn((b, m, c), 21, dtype, cuda)
+
+    def view(shape, seed):
+        flat = _randn((int(np.prod(shape)) + offset,), seed, dtype, cuda)
+        return flat[offset:].view(shape)
+
+    q, k = view((b, n, c), 20), view((b, m, c), 21)
+    if offset:
+        assert q.data_ptr() % 16 and k.data_ptr() % 16
     g = _randn((b, n), 22, torch.float32, cuda)
     scale = (c // heads) ** -0.5
     s, amax = maxpool_attention_scores_with_argmax(q, k, heads, scale)
     # the argmax launch gives the inference launch's scores bit for bit
     assert torch.equal(s, maxpool_attention_scores(q, k, heads, scale))
     _near_tie_ok(q, k, heads, amax)
+    _hold_backward_to_plain(q, k, amax, g, heads, scale)
+
+
+def _hold_backward_to_plain(q, k, amax, g, heads, scale):
+    """One launch of the backward kernel against the plain version: dq bit
+    for bit, dk within 1 bf16 ulp or rtol/atol 1e-5, and a second launch
+    bit for bit with the first."""
     before = maxpool_attention_scores_backward.launches
     dq, dk = maxpool_attention_scores_backward(q, k, amax, g, heads, scale)
     torch.cuda.synchronize()
     assert maxpool_attention_scores_backward.launches == before + 1
     want_dq, want_dk = maxpool_attention_scores_backward_reference(
         q, k, amax, g, heads, scale)
-    assert dq.dtype == dtype and dk.dtype == dtype
+    assert dq.dtype == q.dtype and dk.dtype == q.dtype
     assert torch.equal(dq, want_dq)
-    if dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         assert _bf16_ulps(dk, want_dk) <= 1.0
     else:
         torch.testing.assert_close(dk, want_dk, rtol=1e-5, atol=1e-5)
     # deterministic: a second launch gives the same bits
     dq2, dk2 = maxpool_attention_scores_backward(q, k, amax, g, heads, scale)
     assert torch.equal(dk, dk2) and torch.equal(dq, dq2)
+
+
+ONE_KEY = 123
+
+
+def _one_key_inputs(b, n, m, c, dtype, device):
+    """q, k and g for which every token of every head takes key ONE_KEY:
+    q's entries are multiples of 1/8 in [0, 4), k's row ONE_KEY is 4 in
+    every channel (its dot exceeds 4 * sum(q) >= the others' by far) and
+    the other rows N(0, 1), g integers in [-8, 8]. At d = 64 the scale is
+    1/8, so each product gs * q is a multiple of 2**-6 below 4 in magnitude
+    and every partial sum of up to 20,800 of them is exact in fp32: the
+    plain scatter-add and the kernel add the same terms in other orders,
+    and on random data those orders alone differ by ~6e-5 over 20,800
+    terms, past rtol/atol 1e-5 wherever the sum is small."""
+    rng = np.random.default_rng(30)
+    q = np.floor(np.abs(rng.standard_normal((b, n, c))) * 8).clip(0, 31) / 8
+    k = rng.standard_normal((b, m, c))
+    k[:, ONE_KEY] = 4.0
+    g = rng.integers(-8, 9, (b, n))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device, dt)
+                 for a, dt in ((q, dtype), (k, dtype), (g, torch.float32)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,n,m,c,heads", [
+    # stages 1 and 2 of a base 416x800 training microbatch
+    (2, 20800, 325, 64, 1), (2, 5200, 325, 128, 2),
+])
+@pytest.mark.parametrize("skew", ["one_key", "every_key"])
+def test_attention_backward_kernel_under_skewed_argmax(cuda, dtype, b, n, m,
+                                                       c, heads, skew):
+    """one_key: every token's argmax is one key (k with one dominant row,
+    the forward's argmax launch), so each chunk of the kernel hits one key
+    and one dk row sums all N tokens; every_key: the argmax cycles through
+    all M keys (97 is prime to 325), so each chunk hits as many keys as it
+    has tokens. Held to the limits of the other shapes."""
+    scale = (c // heads) ** -0.5
+    if skew == "one_key":
+        q, k, g = _one_key_inputs(b, n, m, c, dtype, cuda)
+        amax = maxpool_attention_scores_with_argmax(q, k, heads, scale)[1]
+        assert bool((amax == ONE_KEY).all())
+    else:
+        q = _randn((b, n, c), 25, dtype, cuda)
+        k = _randn((b, m, c), 26, dtype, cuda)
+        g = _randn((b, n), 27, torch.float32, cuda)
+        tok = torch.arange(n, device=cuda)
+        amax = torch.stack([
+            torch.stack([(97 * tok + 13 * h + 5 * i) % m
+                         for h in range(heads)]) for i in range(b)]).to(
+            torch.int32)
+        for row in amax.reshape(-1, n):
+            assert bool((torch.bincount(row, minlength=m) > 0).all())
+    _hold_backward_to_plain(q, k, amax, g, heads, scale)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -364,6 +436,40 @@ def test_upsample_backward_kernel_matches_plain_bitwise(cuda, dtype, shape):
     want = upsample_bicubic_x2_backward_reference(gy)
     assert got.shape == (b, h, w, c) and got.dtype == dtype
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,offset", [
+    # many runs of 4 columns per row (run boundaries mid-row, off the
+    # 16-byte grid at C = 129), a ragged last run; two channel tiles
+    ((2, 37, 50, 129), 0), ((1, 3, 1001, 8), 0), ((1, 5, 9, 300), 0),
+    # C = 3, and both H folds in one strip
+    ((1, 9, 5, 3), 0), ((1, 1, 3, 2), 0),
+    # gy one element into its storage: rows off the 16-byte grid, or all on
+    # it at another phase
+    ((2, 37, 50, 129), 1), ((1, 6, 20, 16), 1),
+])
+@pytest.mark.parametrize("rows", [None, 1, 3, 32])
+def test_upsample_backward_kernel_strips_and_spans(cuda, dtype, shape, offset,
+                                                   rows):
+    """The adjoint with the gx rows per block set directly (None: the
+    plan's): strip boundaries fall mid-image (H = 37 is no multiple of 3 or
+    32), every strip streams its 6-row halo, the first and last strips
+    fold the pad rows, and run boundaries fall mid-row; bit for bit with
+    the plain version."""
+    b, h, w, c = shape
+    n = b * 2 * h * 2 * w * c
+    gy = _randn((n + offset,), 24, dtype, cuda)[offset:].view(
+        b, 2 * h, 2 * w, c)
+    if rows is None:
+        got = upsample_bicubic_x2_backward(gy)
+    else:
+        got = torch.empty((b, h, w, c), dtype=dtype, device=cuda)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        launch_upsample_backward(gy, got, upsample_backward_plan(
+            b, h, w, c, gy.element_size(), sms, rows))
+    torch.cuda.synchronize()
+    assert torch.equal(got, upsample_bicubic_x2_backward_reference(gy))
 
 
 def test_gelu_bf16_backward_kernel_matches_plain_bitwise(cuda):

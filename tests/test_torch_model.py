@@ -186,11 +186,28 @@ def _jax_forward(cfg, params, x, dtype):
     return {k: np.asarray(v) for k, v in _outputs(out).items()}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_whole_model_matches_jax(small_jax_model, dtype):
+@pytest.fixture(scope="module")
+def whole_model_jax(small_jax_model):
+    """The whole-model input and the JAX model's outputs on it for a
+    compute dtype, each dtype's computed once: the bf16 case also reads the
+    fp32 outputs, which the fp32 case has computed by then."""
     jmodel, params = small_jax_model
     x = _rand((2, 64, 128, 7), 15)
-    want = _jax_forward(jmodel.cfg, params, x, dtype)
+    outputs = {}
+
+    def jax_outputs(dtype):
+        if dtype not in outputs:
+            outputs[dtype] = _jax_forward(jmodel.cfg, params, x, dtype)
+        return outputs[dtype]
+
+    return x, jax_outputs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whole_model_matches_jax(small_jax_model, whole_model_jax, dtype):
+    _, params = small_jax_model
+    x, jax_outputs = whole_model_jax
+    want = jax_outputs(dtype)
     port = create_model(ModelConfig(**SMALL, compute_dtype=dtype),
                         device="cpu", state_dict=state_dict_from_flax(params))
     with torch.no_grad():
@@ -200,7 +217,7 @@ def test_whole_model_matches_jax(small_jax_model, dtype):
     got = {k: v.numpy() for k, v in _outputs(got).items()}
     if dtype == "bfloat16":
         # the JAX model's own bf16 rounding error sets the scale
-        ref32 = _jax_forward(jmodel.cfg, params, x, "float32")
+        ref32 = jax_outputs("float32")
     for key, w in want.items():
         g = got[key]
         assert g.dtype == np.float32 and g.shape == w.shape, key

@@ -54,6 +54,8 @@ from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_backward
 from camradepth_tpu_torch.ops.pooling import minpool_pyramid, minpool_sparse
 from camradepth_tpu_torch.ops.resize import (
     ADJOINT_TAPS,
+    SMEM_MAX,
+    upsample_backward_plan,
     upsample_bicubic_x2,
     upsample_bicubic_x2_backward_reference,
     upsample_bicubic_x2_reference,
@@ -151,17 +153,37 @@ def test_attention_backward_bf16_matches_jax_off_near_ties():
     print(f"near ties: {int(tie.sum())} of {tie.size} rows")
 
 
-@pytest.mark.parametrize("b,n,m,c", [(2, 20800, 325, 64), (2, 5200, 325, 128),
-                                     (2, 1300, 325, 160), (2, 325, 325, 256),
-                                     (3, 1001, 77, 120), (1, 37, 1, 40),
-                                     (1, 9, 5000, 8)])
-def test_scores_backward_plan_covers_every_token_and_key(b, n, m, c):
-    """The dk pass's chunks cover the tokens once, its key ranges the keys,
-    and a block's [keys][C] fp32 tile fits in its 96 KB."""
-    plan = scores_backward_plan(b, n, m, c, 132)
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("b,n,m,c,heads", [
+    (2, 20800, 325, 64, 1), (2, 5200, 325, 128, 2), (2, 1300, 325, 160, 4),
+    (2, 325, 325, 256, 8), (3, 1001, 77, 120, 3), (1, 37, 1, 40, 1),
+    (1, 9, 5000, 8, 1)])
+def test_scores_backward_plan_covers_every_token_and_key(b, n, m, c, heads,
+                                                         itemsize):
+    """Pass 1's chunks cover the tokens once, at most one per thread; a
+    chunk's slots hold every key it can hit; its shared memory fits; and
+    the blocks fill the card where the tokens allow."""
+    plan = scores_backward_plan(b, n, m, c, heads, itemsize, 132)
     assert plan.chunks * plan.tokens >= n > (plan.chunks - 1) * plan.tokens
-    assert 1 <= plan.keys <= m and plan.keys * c * 4 <= 96 * 1024
-    assert plan.chunks <= -(-n // 128)
+    assert plan.tokens in (32, 64, 128, 256)
+    assert plan.slots == min(plan.tokens, m)
+    assert plan.smem <= 232448
+    assert plan.tokens == 32 or b * heads * plan.chunks >= 132
+    # the shared memory is the buffers the plan lists, in order
+    q_slice = -(-plan.tokens * (c // heads) * itemsize // 16) * 16
+    assert plan.smem == (q_slice + 8 * plan.slots
+                         + 4 * (3 * plan.tokens + 2 * m + 2 * 8))
+    # tokens set directly, as the diagnostics sweep them
+    assert scores_backward_plan(b, n, m, c, heads, itemsize, 132, 64)[:3] == (
+        64, -(-n // 64), min(64, m))
+
+
+def test_scores_backward_plan_refuses_what_shared_memory_cannot_hold():
+    assert scores_backward_plan(1, 9, 20000, 64, 1, 4, 132).smem <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        scores_backward_plan(1, 9, 30000, 64, 1, 4, 132)
+    with pytest.raises(ValueError, match="tokens per chunk"):
+        scores_backward_plan(1, 9, 5, 64, 1, 4, 132, 512)
 
 
 # ---- bicubic x2 ----------------------------------------------------------
@@ -182,6 +204,68 @@ def test_adjoint_coefficients_are_the_forward_transposed(n):
     assert torch.equal(back.T, a)
     for i in range(2, n - 2):
         assert tuple(a[i, 2 * i - 3:2 * i + 5].tolist()) == ADJOINT_TAPS
+
+
+def _adjoint_reads(n):
+    """For each of n gx columns: the gy columns of 2n its adjoint reads,
+    edge folds included, from the plain version on unit cotangents (H 1
+    high)."""
+    units = torch.zeros(2 * n, 2, 2 * n, 1)
+    o = torch.arange(2 * n)
+    units[o, 0, o, 0] = 1.0
+    back = upsample_bicubic_x2_backward_reference(units)[:, 0, :, 0]
+    return [set(torch.nonzero(back[:, i]).flatten().tolist())
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("shape,itemsize,sms", [
+    # both W folds in one run (n = 1, 2, 3)
+    ((1, 1, 3, 2), 2, 132), ((2, 2, 1, 4), 4, 132), ((1, 3, 3, 5), 2, 132),
+    # strip boundaries mid-image, a ragged last run, two channel tiles
+    ((2, 37, 50, 129), 2, 132), ((2, 37, 50, 129), 4, 1),
+    ((1, 9, 7, 300), 2, 132),
+    # the decoder's two largest and its widest inputs, batch 2
+    ((2, 208, 400, 129), 2, 132), ((2, 104, 200, 129), 4, 132),
+    ((2, 13, 25, 256), 2, 132),
+])
+def test_upsample_backward_plan_covers_gx_once_with_its_halo(shape, itemsize,
+                                                             sms):
+    """The launch the adjoint kernel takes as given: its strips, runs of 4
+    columns and channel tiles cover every gx row, column and channel once;
+    a staged gy row holds every gy column a run's gx columns read (the
+    edge folds' too, from the plain version) and its 16-byte slack at each
+    end, a staged gx row the run's columns and the slack before them; the
+    shared memory is the buffers the plan lists and fits. (Which gy rows a
+    strip streams is the kernel's: the card's strip tests hold them.)"""
+    b, h, w, c = shape
+    n = 16 // itemsize
+    plan = upsample_backward_plan(b, h, w, c, itemsize, sms)
+    runs, strips, bb = plan.grid
+    assert bb == b and plan.smem <= SMEM_MAX
+    assert (strips - 1) * plan.rows < h <= strips * plan.rows
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert (plan.tiles - 1) * plan.threads < c <= plan.tiles * plan.threads
+    assert runs == -(-w // 4) * plan.tiles
+    reads = _adjoint_reads(w)
+    for run in range(runs // plan.tiles):
+        cols = set().union(*reads[4 * run:4 * run + 4])
+        assert (max(cols) - min(cols) + 1) * c + 2 * n <= plan.rowcap, run
+    assert plan.rowcap % n == 0 and plan.ocap % n == 0
+    assert 4 * c + n <= plan.ocap
+    assert plan.smem == (8 * plan.rowcap + 2 * plan.ocap
+                         + 12 * plan.threads) * itemsize
+    assert upsample_backward_plan(b, h, w, c, itemsize, sms, 3)[:3] == (
+        plan.threads, plan.tiles, 3)
+
+
+def test_upsample_backward_plan_refuses_what_shared_memory_cannot_hold():
+    assert upsample_backward_plan(1, 8, 8, 941, 2, 132).smem <= SMEM_MAX
+    assert upsample_backward_plan(1, 8, 8, 458, 4, 132).smem <= SMEM_MAX
+    for c, itemsize in ((942, 2), (459, 4)):
+        with pytest.raises(ValueError, match="shared memory"):
+            upsample_backward_plan(1, 8, 8, c, itemsize, 132)
+    with pytest.raises(ValueError, match="empty"):
+        upsample_backward_plan(1, 0, 8, 3, 2, 132)
 
 
 @pytest.fixture(scope="module")
