@@ -15,9 +15,13 @@ dense, single-device split-streaming part of ``cmd_serve``
 :class:`train.trainer.Trainer` and prints the best validation loss; its
 checkpoints are ``.pth`` files that ``test`` and ``serve`` load. ``test``
 prints the reference metric report and writes the same report JSON keys
-as ``camradepth_tpu.cli test --report-json``; ``serve`` streams the split
-through :class:`serving.DepthEngine`, writes ``NNNNN_depth.npy`` per frame
-and prints the same stats line.
+as ``camradepth_tpu.cli test --report-json`` (with ``iou`` for a
+supervised seg preset); ``serve`` streams the split through
+:class:`serving.DepthEngine`, writes ``NNNNN_depth.npy`` per frame (and
+``NNNNN_seg.npy``, uint8 labels, for a supervised seg preset) and prints
+the same stats line. ``--tpu-decoder`` selects the ``tpu_decoder``
+variant; its checkpoints are the port's own layout, so a reference-format
+``.pth`` is refused for it.
 
 ``--checkpoint`` is a reference-format ``.pth``, loaded strictly (for
 ``train``: a warm start, shape-matching, or a full trainer checkpoint).
@@ -54,6 +58,34 @@ _LATER_FLAGS = {
 }
 
 
+def _add_tpu_decoder_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--tpu-decoder", action="store_true",
+                   help="the tpu_decoder variant: the half- and full-"
+                        "resolution decoder stages convolve at their input "
+                        "resolution, 128 wide, and upsample by depth-to-"
+                        "space; not weight-compatible with reference "
+                        "checkpoints")
+
+
+def _with_tpu_decoder(cfg, args):
+    if args.tpu_decoder:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    tpu_decoder=True))
+    return cfg
+
+
+def _refuse_layout(cfg, checkpoint, e: RuntimeError) -> None:
+    """A strict load that failed for a ``tpu_decoder`` model, as one line:
+    the variant's TPUDecoder stages and subpixel head are the port's own
+    layout, which no reference-format ``.pth`` has. Any other error goes
+    on as it is."""
+    if cfg.model.tpu_decoder and "loading state_dict" in str(e):
+        raise UserError(
+            f"{checkpoint} does not fit the tpu_decoder variant, whose "
+            "TPUDecoder stages and subpixel head have no reference layout; "
+            "give a checkpoint of a tpu_decoder run") from e
+
+
 def _add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default="base",
                    choices=["base", "base_rgb", "supervised_seg",
@@ -76,6 +108,7 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs "
                         "the kernels' plain versions)")
+    _add_tpu_decoder_flag(p)
     p.add_argument("--wire", default=None, choices=["auto", "on", "off"],
                    help=argparse.SUPPRESS)
 
@@ -93,6 +126,7 @@ def _build_config(args):
                 float(v) for v in args.max_distances.split(","))
         if data_kw:
             cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
+        cfg = _with_tpu_decoder(cfg, args)
         if args.set_overrides:
             cfg = C.apply_overrides(cfg, args.set_overrides)
     except ValueError as e:  # bad --set path or value, preset invariants
@@ -147,6 +181,7 @@ def _build_train_config(args):
         if args.compute_dtype:
             cfg = cfg.replace(model=dataclasses.replace(
                 cfg.model, compute_dtype=args.compute_dtype))
+        cfg = _with_tpu_decoder(cfg, args)
         if args.set_overrides:
             cfg = C.apply_overrides(cfg, args.set_overrides)
     except ValueError as e:  # bad --set path or value, preset invariants
@@ -205,8 +240,13 @@ def cmd_test(args) -> int:
     loader = make_loaders(cfg.data, batch_size=args.test_batch)["test"]
     if loader is None:
         raise UserError("the split has no test frames")
-    model = create_model(cfg.model, device=dev,
-                         state_dict=load_reference_checkpoint(args.checkpoint))
+    try:
+        model = create_model(
+            cfg.model, device=dev,
+            state_dict=load_reference_checkpoint(args.checkpoint))
+    except RuntimeError as e:
+        _refuse_layout(cfg, args.checkpoint, e)
+        raise
     report = evaluate(cfg, model, loader, device=dev)
     print(format_report(cfg, report))
     if args.report_json:
@@ -227,8 +267,12 @@ def cmd_serve(args) -> int:
     loader = loaders["test"] or loaders["val"]
     if loader is None:
         raise UserError("the split has no test/val frames")
-    engine = load_engine(cfg, args.checkpoint, batch_size=args.serve_batch,
-                         device=args.device)
+    try:
+        engine = load_engine(cfg, args.checkpoint,
+                             batch_size=args.serve_batch, device=args.device)
+    except RuntimeError as e:
+        _refuse_layout(cfg, args.checkpoint, e)
+        raise
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -244,6 +288,8 @@ def cmd_serve(args) -> int:
     for i, res in enumerate(engine.infer_stream(frames(),
                                                 inflight=args.inflight)):
         np.save(out_dir / f"{i:05d}_depth.npy", res["depth"])
+        if "seg" in res:
+            np.save(out_dir / f"{i:05d}_seg.npy", res["seg"])
         n += 1
         if args.limit and n >= args.limit:
             break
@@ -297,6 +343,7 @@ def main(argv=None) -> int:
                    help="write best-val checkpoints on a background thread")
     p.add_argument("--compute-dtype", default=None,
                    choices=["bfloat16", "float32"])
+    _add_tpu_decoder_flag(p)
     p.add_argument("--set", action="append", dest="set_overrides",
                    default=None, metavar="SECTION.FIELD=VALUE",
                    help="override a config field by dotted path (sections "

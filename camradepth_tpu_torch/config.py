@@ -68,8 +68,10 @@ class ModelConfig:
     remat_decoder: bool = False
     remat_encoder: bool = False
     remat_decoder_small: bool = False
-    # An option that a later slice of the port brings: the model raises
-    # NotImplementedError when it is set.
+    # The documented architecture variant whose half- and full-resolution
+    # decoder stages and final depth head convolve at their input
+    # resolution and upsample by depth-to-space (``--tpu-decoder``); not
+    # weight-compatible with reference checkpoints.
     tpu_decoder: bool = False
 
     def __post_init__(self):

@@ -3,7 +3,8 @@
 The package's own copy of the dense path of
 ``camradepth_tpu/evaluation/harness.py``: per-frame metrics at both caps,
 the rain (edge) / sunny RMSE split by file name, and the time per frame
-(runner.py:394-519), batched. The device computes a whole batch's
+(runner.py:394-519), and the seg IoU of a supervised seg branch, batched.
+The device computes a whole batch's
 per-frame metric rows under ``torch.inference_mode``, and only [B] vectors
 cross to the host. Batches are copied to the device ahead of use on a
 worker thread (pinned memory, non-blocking), so host artifact reads overlap
@@ -37,8 +38,9 @@ TIMING_KEYS = (
 def make_test_step(cfg: ExperimentConfig, model):
     """Returns ``test_step(batch) -> per-frame metric rows [B]``, ``batch``
     holding device tensors ``features`` [B, H, W, C] and ``gt_depth``
-    [B, H, W]. The IoU row of a supervised seg branch comes with the seg
-    presets (ROADMAP queue 1 item 4)."""
+    [B, H, W], and for a supervised seg branch ``seg`` [B, H, W], the
+    labels its ``iou`` row scores
+    (``camradepth_tpu/evaluation/harness.py:36-63``)."""
 
     def test_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
@@ -50,6 +52,10 @@ def make_test_step(cfg: ExperimentConfig, model):
             )
             rows.update(M.depth_metrics_true(depth, batch["gt_depth"],
                                              cfg.data.max_depth))
+            if cfg.model.supervised_seg:
+                rows["iou"] = M.jaccard_index(pred["seg"]["final_seg"],
+                                              batch["seg"],
+                                              cfg.model.num_classes)
         return rows
 
     return test_step
@@ -69,9 +75,12 @@ def evaluate(
     dev = resolve_device(device)
     test_step = make_test_step(cfg, model)
 
+    keys = ("features", "gt_depth") + (
+        ("seg",) if cfg.model.supervised_seg else ())
+
     def _prepare(batch):
         out = {}
-        for k in ("features", "gt_depth"):
+        for k in keys:
             t = torch.from_numpy(np.ascontiguousarray(batch[k]))
             if dev.type == "cuda":
                 t = t.pin_memory().to(dev, non_blocking=True)

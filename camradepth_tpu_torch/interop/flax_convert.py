@@ -14,6 +14,9 @@ with the tree walked by hand, so that JAX is not needed:
   Dense kernel [I,O]                   conv1d 1x1 weight [O,I,1]
   GroupNorm scale/bias                 weight/bias
   */conv + */norm in a ConvLayer       *.model.0 / *.model.1
+  depth_upsample_3/conv_0/conv         depth_upsample.3.conv_0.model.0
+    (a ``tpu_decoder`` TPUDecoder stage: no reference counterpart; the
+    port's own layout, models/camradepth.py)
 """
 
 from __future__ import annotations
@@ -67,8 +70,8 @@ def _flax_path_to_torch_key(keys) -> str:
     keys = list(keys)
     leaf = keys.pop()
     # ConvLayer context: path ends (..., <convlayer>, 'conv'|'norm') where
-    # <convlayer> is from_encoder_* or layers_*. Bare seg heads end
-    # (<seg_head>, 'conv').
+    # <convlayer> is from_encoder_*, layers_* or a TPUDecoder's conv_*.
+    # Bare seg heads end (<seg_head>, 'conv').
     parts = []
     for idx, k in enumerate(keys):
         m = re.fullmatch(r"block(\d)_(\d+)", k)
@@ -90,6 +93,7 @@ def _flax_path_to_torch_key(keys) -> str:
         in_convlayer = bool(
             re.fullmatch(r"layers_\d+", prev)
             or re.fullmatch(r"from_encoder_\d", prev)
+            or re.fullmatch(r"conv_\d+", prev)
         )
         if k == "conv" and prev in _SEG_HEADS:
             continue  # bare Conv2d: drop the wrapper level

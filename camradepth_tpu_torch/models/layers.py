@@ -266,3 +266,95 @@ class DepthActivation(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv_2.product(sigmoid_for_dtype(self.conv_1(x)))
         return y.float() + cast_to(self.conv_2.bias, x.dtype).float()
+
+
+def space_to_depth(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """NHWC [B, H, W, C] -> [B, H/r, W/r, r*r*C], the channel blocks
+    ordered (row, col, C) as ``camradepth_tpu/models/layers.py:218-224``
+    orders them (``torch.pixel_unshuffle`` orders them (C, row, col))."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // r, r, w // r, r, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // r, w // r, r * r * c)
+
+
+def depth_to_space(x: torch.Tensor, r: int = 2) -> torch.Tensor:
+    """NHWC [B, H, W, r*r*C] -> [B, r*H, r*W, C], the inverse of
+    :func:`space_to_depth` (``layers.py:227-233``)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h, w, r, r, c // (r * r)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * r, w * r, c // (r * r))
+
+
+class TPUDecoder(nn.Module):
+    """The decoder stage of the ``tpu_decoder`` variant (``layers.py:
+    236-274``): three 128-wide ConvLayers, densely concatenated, at the
+    input's resolution; a skip at twice that resolution is folded in by
+    :func:`space_to_depth`, and with ``upsample_out`` the last layer emits
+    ``4 * features`` channels that :func:`depth_to_space` turns into the x2
+    upsample. No bicubic. Children are ``conv_0`` .. ``conv_2``."""
+
+    def __init__(self, in_ch: int, features: int, skip_ch: int = 0,
+                 upsample_out: bool = True, width: int = 128):
+        super().__init__()
+        self.has_skip = skip_ch > 0
+        self.upsample_out = upsample_out
+        ch = in_ch + 4 * skip_ch
+        self.conv_0 = ConvLayer(ch, width)
+        self.conv_1 = ConvLayer(ch + width, width)
+        self.conv_2 = ConvLayer(ch + 2 * width,
+                                4 * features if upsample_out else features)
+
+    def forward(self, x: torch.Tensor,
+                skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.has_skip:
+            if skip is None:
+                raise ValueError("this decoder stage needs a skip input")
+            x = torch.cat([x, space_to_depth(skip.to(x.dtype))], dim=-1)
+        x = torch.cat([x, self.conv_0(x)], dim=-1)
+        x = torch.cat([x, self.conv_1(x)], dim=-1)
+        y = self.conv_2(x)
+        return depth_to_space(y) if self.upsample_out else y
+
+
+class SubpixelDepthActivation(nn.Module):
+    """The final depth head of the ``tpu_decoder`` variant (``layers.py:
+    277-315``): conv (128 wide) -> sigmoid -> conv to 4 channels at half
+    resolution, then :func:`depth_to_space`. It rounds as
+    :class:`DepthActivation` but for the last add: the depth-to-space lies
+    between that add and the model's cast to fp32, and XLA keeps the add's
+    bf16 rounding there (the JAX bf16 forward's final depth is all bf16
+    values), so the head returns conv_2's output in the compute dtype."""
+
+    def __init__(self, in_ch: int, features: int = 1,
+                 iter_channels: int = 128):
+        super().__init__()
+        self.conv_1 = Conv2d(in_ch, iter_channels, 3, padding=1)
+        self.conv_2 = Conv2d(iter_channels, 4 * features, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return depth_to_space(self.conv_2(sigmoid_for_dtype(self.conv_1(x))))
+
+
+class SegConv(Conv2d):
+    """A seg logits head: one 3x3 conv with bias and torch's default init
+    (``layers.py:328-348``; the reference keys are the bare conv's). Like
+    the depth heads it returns fp32: the product rounded to the compute
+    dtype plus the bias, the add not rounded again, as XLA compiles the
+    head where the model casts its output to fp32 right after it. Where
+    the logits go on in the compute dtype (the argmax, the depth-to-space
+    of the ``tpu_decoder`` variant), the caller rounds them."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__(in_ch, features, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.product(x).float() + cast_to(self.bias, x.dtype).float()
+
+
+def seg_block(seg_logits: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """The guidance map of seg logits (``layers.py:318-325``): the argmax
+    over the class axis (the first index on ties), as fp32 divided by
+    ``num_classes``, in the logits' dtype, [B, H, W, 1]. No gradient flows
+    through it, as through the argmax of the JAX package."""
+    idx = torch.argmax(seg_logits, dim=-1, keepdim=True)
+    return (idx.float() / num_classes).to(seg_logits.dtype)

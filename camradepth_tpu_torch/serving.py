@@ -10,7 +10,8 @@ Counterpart of the dense path of ``camradepth_tpu/serving.py``:
 - frames go host -> device from pinned memory with ``non_blocking=True``;
   results come back in ``_materialize``, the only point that blocks;
 - depth is returned decoded to metres (inverse encoding,
-  dataloader.py:243-245);
+  dataloader.py:243-245), and a supervised seg branch's labels as the
+  argmax of its final logits;
 - per-batch latency and throughput counters.
 
 The mesh, compact-wire and exported-artifact arguments of the JAX engine
@@ -35,16 +36,23 @@ from camradepth_tpu_torch.models.camradepth import create_model
 
 
 def make_serving_forward(cfg: ExperimentConfig, model):
-    """The serving forward ``fwd(x) -> {"depth": [B, H, W]}``: final depth
-    clipped to [0, 1] and decoded to metres as ``max_depth * (1 - d)``
+    """The serving forward ``fwd(x) -> {"depth": [B, H, W], "seg": [B, H,
+    W] | None}``: final depth clipped to [0, 1] and decoded to metres as
+    ``max_depth * (1 - d)``, and the argmax labels of the final seg logits
+    of a supervised seg branch, uint8 when ``num_classes <= 255``
     (``camradepth_tpu/serving.py:33-56``)."""
 
-    def fwd(x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def fwd(x: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
         with torch.inference_mode():
             out = model(x)
             depth = out["depth"]["final_depth"][..., 0].clamp(0.0, 1.0)
             depth = cfg.data.max_depth * (1.0 - depth)
-        return {"depth": depth}
+            seg = out["seg"]["final_seg"]
+            if seg is not None:
+                seg = seg.argmax(dim=-1)
+                if cfg.model.num_classes <= 255:
+                    seg = seg.to(torch.uint8)
+        return {"depth": depth, "seg": seg}
 
     return fwd
 
@@ -116,6 +124,8 @@ class DepthEngine:
         materialization."""
         out, n, t0 = handle
         result = {"depth": out["depth"][:n].cpu().numpy()}
+        if out["seg"] is not None:
+            result["seg"] = out["seg"][:n].cpu().numpy()
         self._batch_times.append(time.perf_counter() - t0)
         self.frames_served += n
         self.batches_served += 1

@@ -46,7 +46,20 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       update_interval 3, one epoch of 4 optimizer steps on a 32-frame
       synthetic corpus split 24/8, with eval and a best checkpoint that
       load_engine serves, the launches of every kernel per microbatch, and
-      steps/s, peak memory and one profiled step's device idle share.
+      steps/s, peak memory and one profiled step's device idle share;
+  (i) the seg presets and the tpu_decoder variant: (i1) the fp32 forwards
+      of sup_unsup_seg and of base + tpu_decoder at 128x256 (TF32 off)
+      against tests/goldens/flagship_seg_128x256.npz and
+      tpu_decoder_128x256.npz, with the JAX tests' limits; (i2) a bf16
+      DepthEngine stream of sup_unsup_seg at batch 8, 416x800 (uint8
+      labels, 34 attention, 7 bicubic and 59 GELU launches per forward,
+      depth and labels against the fp32 forward, busy and idle shares);
+      (i3) cli test --preset sup_unsup_seg, fp32 on the card against the
+      CPU over 4 frames (iou included), and bf16; (i4) cli train --preset
+      sup_unsup_seg as in (h), its best checkpoint serving depth and
+      labels, and one profiled step; (i5) the bf16 batch-8 forward of
+      base and of base + tpu_decoder in turns (3 bicubic launches per
+      forward for the variant) and 2 steps of cli train --tpu-decoder.
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -1160,15 +1173,23 @@ def one_key_attention_backward(key=123):
 
 
 def step_inputs(cfg, b, seed, device):
-    """A microbatch of random features and sparse inverse-depth GT."""
+    """A microbatch of random features and sparse inverse-depth GT, and
+    for a supervised seg branch random labels (5 % ignored)."""
     h, w = cfg.model.img_size
     rng = np.random.default_rng(seed)
     feats = rng.standard_normal((b, h, w, cfg.model.input_channels),
                                 dtype=np.float32)
     gt = rng.uniform(0.01, 1.0, (b, h, w)).astype(np.float32)
     gt *= rng.uniform(size=(b, h, w)) < 0.25
-    return {"features": torch.from_numpy(feats).to(device),
-            "gt_depth": torch.from_numpy(gt).to(device)}
+    out = {"features": torch.from_numpy(feats).to(device),
+           "gt_depth": torch.from_numpy(gt).to(device)}
+    if cfg.model.supervised_seg:
+        for key, (hh, ww) in (("seg", (h, w)), ("seg_inter", (h // 2,
+                                                              w // 2))):
+            lab = rng.integers(0, cfg.model.num_classes, (b, hh, ww))
+            lab[rng.uniform(size=lab.shape) < 0.05] = 255
+            out[key] = torch.from_numpy(lab.astype(np.int32)).to(device)
+    return out
 
 
 def phase_h_step_parity(cfg):
@@ -1291,7 +1312,7 @@ def phase_h_train(cfg, counters, reset_counters):
     return launches
 
 
-def profile_train_step(cfg, accum):
+def profile_train_step(cfg, accum, tag="(h)"):
     """One bf16 optimizer step (batch 2 x 3) timed without the profiler,
     and one under it: device busy, the idle share, and the largest
     kernels."""
@@ -1329,7 +1350,7 @@ def profile_train_step(cfg, accum):
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"(h) one bf16 optimizer step (batch {TRAIN_BATCH} x {accum}): "
+    print(f"{tag} one bf16 optimizer step (batch {TRAIN_BATCH} x {accum}): "
           f"{wall_ms:.2f} ms wall without the profiler, device busy "
           f"{busy_ms:.2f} ms under it, {sum(e.count for e in kernels)} kernel "
           f"launches; device idle share {100 * (1 - busy_ms / wall_ms):.1f} %;"
@@ -1337,17 +1358,455 @@ def profile_train_step(cfg, accum):
           f"forward")
     for e in kernels[:14]:
         ms = e.self_device_time_total / 1e3
-        print(f"(h)   {ms:8.3f} ms {100 * ms / busy_ms:5.1f} % x{e.count:<5d} "
+        print(f"{tag}   {ms:8.3f} ms {100 * ms / busy_ms:5.1f} % x{e.count:<5d} "
               f"{e.key[:100]}")
     for name in ("scores_", "gather_partial_kernel", "dk_sum_kernel",
                  "upsample_kernel", "adjoint_kernel", "gelu_bf16_kernel",
                  "gelu_bf16_bwd"):
         sel = [e for e in kernels if name in e.key]
         ms = sum(e.self_device_time_total for e in sel) / 1e3
-        print(f"(h) {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of device"
+        print(f"{tag} {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of device"
               f" time), x{sum(e.count for e in sel)}")
     del model, opt, micro
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase (i)
+# sup_unsup_seg golden at 128x256 (tests/test_flagship_golden.py:118-154):
+# a flipped near-tie guidance pixel moves depth near it, so depth is held
+# by the share of pixels within tolerance, its median and its maximum
+SEG_GOLDEN_HW = (128, 256)
+SEG_LOGIT_TOL = dict(rtol=2e-3, atol=1e-3)
+SEG_FLIPS_MAX = 0.005
+SEG_UNSUP_AGREE_MIN = 0.995
+SEG_DEPTH_SHARE_MIN = 0.995
+# tpu_decoder golden at 128x256 (tests/test_tpu_decoder_golden.py:76-79)
+TPU_GOLDEN_TOL = dict(rtol=5e-4, atol=5e-6)
+# the report keys of cli test for a supervised seg preset
+SEG_METRIC_KEYS = METRIC_KEYS + ("iou",)
+
+
+# launches of one forward (attention, bicubic, bf16 GELU) of each variant
+# chip_smoke drives, fixed from the architecture and not read from the
+# model under test: 34 encoder blocks (depths 3/10/16/5); a bicubic in each
+# parity Decoder stage, 5 in the depth decoder, 2 more in the seg branch,
+# none in the TPUDecoder stages that replace depth_upsample_3/4 (and the
+# seg branch's); a GELU in each MixFFN and each decoder ConvLayer (bf16
+# only), 6 more ConvLayers in the seg branch
+FORWARD_LAUNCHES = {
+    (False, False): (34, 5, 53),  # base
+    (True, False): (34, 7, 59),  # the seg presets
+    (False, True): (34, 3, 53),  # base + tpu_decoder
+}
+
+
+def variant_counts(model_cfg):
+    """(attention, bicubic, bf16 GELU) launches of one forward of the model
+    for ``model_cfg`` (FORWARD_LAUNCHES; no GELU kernel in fp32)."""
+    use_seg = model_cfg.supervised_seg or model_cfg.unsupervised_seg
+    n_attn, n_up, n_gelu = FORWARD_LAUNCHES[use_seg, model_cfg.tpu_decoder]
+    return n_attn, n_up, (n_gelu if model_cfg.compute_dtype == "bfloat16"
+                          else 0)
+
+
+def load_golden(name):
+    from camradepth_tpu_torch.interop.golden import shapes_from_json
+
+    with np.load(ROOT / "tests" / "goldens" / name) as z:
+        golden = {k: z[k] for k in z.files if k != "shapes_json"}
+        shapes = shapes_from_json(bytes(z["shapes_json"]).decode())
+    return golden, shapes
+
+
+def golden_forward(model_cfg, state_dict, counters, reset_counters, tag):
+    """The fp32 forward at 128x256 on the golden input; checks its
+    launches."""
+    from camradepth_tpu_torch.interop.golden import golden_input
+    from camradepth_tpu_torch.models.camradepth import create_model
+
+    model = create_model(model_cfg, device="cuda", state_dict=state_dict)
+    x = torch.from_numpy(golden_input(model_cfg.img_size,
+                                      model_cfg.input_channels)).cuda()
+    reset_counters()
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    launches = counters()
+    n_attn, n_up, _ = variant_counts(model_cfg)
+    want = (n_attn, n_up, 0, 0)
+    print(f"(i1) {tag} fp32 forward at {model_cfg.img_size[0]}x"
+          f"{model_cfg.img_size[1]}: launches (attention, upsample, conv, "
+          f"gelu) {launches} (expected {want})")
+    require(launches == want, (tag, launches, want))
+    return out
+
+
+def phase_i1(counters, reset_counters):
+    """The two committed goldens of this slice's variants, fp32, TF32
+    off."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.interop.flax_convert import (
+        state_dict_from_flax,
+    )
+    from camradepth_tpu_torch.interop.golden import (
+        synth_flax_params,
+        synth_state_values,
+    )
+
+    golden, shapes = load_golden("flagship_seg_128x256.npz")
+    mcfg = dataclasses.replace(preset("sup_unsup_seg").model,
+                               img_size=SEG_GOLDEN_HW,
+                               compute_dtype="float32")
+    out = golden_forward(mcfg, synth_state_values(shapes), counters,
+                         reset_counters, "sup_unsup_seg")
+    seg = out["seg"]["final_seg"].cpu().numpy()
+    cy, cx = golden["crop_yx"]
+    crop = seg[:, cy:cy + 32, cx:cx + 64]
+    err = np.abs(crop - golden["final_seg_crop"]).max()
+    np.testing.assert_allclose(crop, golden["final_seg_crop"],
+                               **SEG_LOGIT_TOL, err_msg="final_seg_crop")
+    flips = float((seg.argmax(-1) != golden["final_seg_argmax"]).mean())
+    unsup = float((out["seg"]["unsup_map"].cpu().numpy()
+                   == golden["unsup_map"]).mean())
+    got = out["depth"]["final_depth"].cpu().numpy()[0, ..., 0]
+    want = golden["final_depth"][0, ..., 0]
+    derr = np.abs(got - want)
+    share = float((derr <= 5e-4 + 2e-3 * np.abs(want)).mean())
+    print(f"(i1) sup_unsup_seg vs flagship_seg_128x256.npz: logit crop "
+          f"max_abs_err={err:.3g} ({SEG_LOGIT_TOL}); argmax flips "
+          f"{100 * flips:.3f} % (< {100 * SEG_FLIPS_MAX} %); unsup_map "
+          f"agreement {unsup:.5f} (> {SEG_UNSUP_AGREE_MIN}); depth within "
+          f"5e-4 + 2e-3|want| on {100 * share:.3f} % of pixels (> "
+          f"{100 * SEG_DEPTH_SHARE_MIN} %), median error "
+          f"{np.median(derr):.3g} (< 2e-4), max {derr.max():.3g} (< 0.2)")
+    require(flips < SEG_FLIPS_MAX, ("seg argmax flips", flips))
+    require(unsup > SEG_UNSUP_AGREE_MIN, ("unsup_map agreement", unsup))
+    require(share > SEG_DEPTH_SHARE_MIN and np.median(derr) < 2e-4
+            and derr.max() < 0.2, ("seg golden depth", share,
+                                   np.median(derr), derr.max()))
+
+    golden, shapes = load_golden("tpu_decoder_128x256.npz")
+    mcfg = dataclasses.replace(preset("base").model, img_size=SEG_GOLDEN_HW,
+                               compute_dtype="float32", tpu_decoder=True)
+    out = golden_forward(mcfg, state_dict_from_flax(synth_flax_params(
+        shapes)), counters, reset_counters, "base + tpu_decoder")
+    d = out["depth"]
+    for key, got in (("final_depth", d["final_depth"]),
+                     ("inter_depth_3", d["intermediate_depths"][2]),
+                     ("inter_depth_4", d["intermediate_depths"][3])):
+        got = got.cpu().numpy()
+        print(f"(i1) tpu_decoder {key} vs tpu_decoder_128x256.npz: "
+              f"max_abs_err={np.abs(got - golden[key]).max():.3g} "
+              f"({TPU_GOLDEN_TOL})")
+        np.testing.assert_allclose(got, golden[key], **TPU_GOLDEN_TOL,
+                                   err_msg=key)
+    torch.cuda.empty_cache()
+
+
+def forward_busy(model, x):
+    """Device busy ms and kernel launches of one forward (torch.profiler,
+    after one forward outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def stream(engine, frames, n_batches):
+    """frames/s and ms per batch of ``n_batches`` batches streamed through
+    ``engine`` (no profiler)."""
+    engine.reset_stats()
+    results = list(engine.infer_stream(
+        frames[i % len(frames)] for i in range(n_batches * BATCH)))
+    stats = engine.stats()
+    return results, stats, 1e3 * stats["elapsed_s"] / stats["batches"]
+
+
+def phase_i2(seg_cfg, pth, counters, reset_counters):
+    """bf16 serving of sup_unsup_seg at batch 8: labels, launches per
+    forward, agreement with the fp32 forward, busy and idle shares."""
+    from camradepth_tpu_torch.interop.flax_convert import (
+        load_reference_checkpoint,
+    )
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.serving import load_engine
+
+    m = seg_cfg.model
+    h, w = m.img_size
+    n_batches = 4
+    frames = np.random.default_rng(12).standard_normal(
+        (n_batches * BATCH, h, w, m.input_channels), dtype=np.float32)
+    engine = load_engine(seg_cfg, str(pth), batch_size=BATCH, device="cuda")
+    reset_counters()
+    results, stats, batch_ms = stream(engine, frames, n_batches)
+    launches = counters()
+    n_attn, n_up, n_gelu = variant_counts(m)
+    per = tuple(v / n_batches for v in launches)
+    print(f"(i2) sup_unsup_seg bf16 engine, {len(results)} frames in "
+          f"{n_batches} batches of {BATCH}: launches per forward "
+          f"(attention, upsample, conv, gelu) {per} (expected "
+          f"{(n_attn, n_up, 0, n_gelu)})")
+    require(launches == (n_batches * n_attn, n_batches * n_up, 0,
+                         n_batches * n_gelu), launches)
+    for r in results:
+        s = r["seg"]
+        require(s.dtype == np.uint8 and s.shape == (h, w)
+                and int(s.max()) < m.num_classes, (s.dtype, s.shape))
+        require(np.isfinite(r["depth"]).all() and r["depth"].shape == (h, w),
+                r["depth"].shape)
+    # bf16 against the fp32 forward on the same weights, three frames
+    picks = [0, len(frames) // 2, len(frames) - 1]
+    ref = create_model(dataclasses.replace(m, compute_dtype="float32"),
+                       device="cuda",
+                       state_dict=load_reference_checkpoint(str(pth)))
+    with torch.inference_mode():
+        out = ref(torch.from_numpy(frames[picks]).cuda())
+        depth = (seg_cfg.data.max_depth * (1.0 - out["depth"]["final_depth"]
+                 [..., 0].clamp(0.0, 1.0))).cpu().numpy()
+        labels = out["seg"]["final_seg"].argmax(-1).cpu().numpy()
+    del ref, out
+    for j, i in enumerate(picks):
+        own = float(np.abs(results[i]["depth"] - depth[j]).mean())
+        agree = float((results[i]["seg"] == labels[j]).mean())
+        print(f"(i2) frame {i}: mean |bf16 - fp32| depth = {own:.4f} m "
+              f"(tol {SERVE_MEAN_ABS_M}); bf16 labels agree with fp32 on "
+              f"{100 * agree:.2f} % of pixels")
+        require(own <= SERVE_MEAN_ABS_M, (i, own))
+    busy_ms, n_kernels = forward_busy(engine.model,
+                                      torch.from_numpy(frames[:BATCH]).cuda())
+    print(f"(i2) profiled sup_unsup_seg bf16 batch-{BATCH} forward: device "
+          f"busy {busy_ms:.2f} ms, {n_kernels} kernel launches; steady "
+          f"stream {batch_ms:.2f} ms per batch, {stats['frames_per_sec']:.2f}"
+          f" frames/s; device idle share "
+          f"{100 * (1 - busy_ms / batch_ms):.1f} %")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def phase_i3(seg_cfg, split, head, pth, counters, reset_counters):
+    """cli test --preset sup_unsup_seg: fp32 on the card against the CPU
+    over 4 frames (iou included), and bf16 frames/s."""
+    common = ["--preset", "sup_unsup_seg", "--set", "data.mini_dataset=1",
+              "--checkpoint", str(pth)]
+    f32 = ["--set", "model.compute_dtype=float32", "--test-batch", "2"]
+    reports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, extra, device, split_path in (
+                ("bf16", ["--test-batch", str(BATCH)], "cuda", split),
+                ("fp32_head", f32, "cuda", head),
+                ("cpu_fp32_head", f32, "cpu", head)):
+            path = Path(tmp) / f"{name}.json"
+            reset_counters()
+            rc, out = run_cli(["test", "--split", str(split_path),
+                               "--report-json", str(path), "--device",
+                               device] + common + extra)
+            torch.cuda.synchronize()
+            launches = counters()
+            require(rc == 0, (name, rc, out[-2000:]))
+            report = json.loads(path.read_text())
+            require(set(SEG_METRIC_KEYS) <= set(report)
+                    and "IoU:" in out, (name, sorted(report)))
+            require(all(np.isfinite(report[k]) for k in SEG_METRIC_KEYS),
+                    (name, report))
+            reports[name] = report
+            print(f"(i3) cli test sup_unsup_seg {name}: frames="
+                  f"{report['frames']:.0f} rmse_100="
+                  f"{report['rmse_100']:.4f} iou={report['iou']:.5f} "
+                  f"frames_per_sec_steady="
+                  f"{report.get('frames_per_sec_steady', float('nan')):.2f}"
+                  f"; launches {launches}")
+            if name == "bf16":
+                n_fwd = int(report["frames"]) // BATCH
+                n_attn, n_up, n_gelu = variant_counts(seg_cfg.model)
+                want = (n_fwd * n_attn, n_fwd * n_up, 0, n_fwd * n_gelu)
+                require(launches == want, (launches, want))
+    card, cpu = reports["fp32_head"], reports["cpu_fp32_head"]
+    for k in SEG_METRIC_KEYS:
+        require(abs(card[k] - cpu[k]) <= REPORT_RTOL * abs(cpu[k]),
+                (k, card[k], cpu[k]))
+    print(f"(i3) cli test sup_unsup_seg fp32 on the card = on the CPU over "
+          f"{int(cpu['frames'])} frames, every metric and iou within rtol "
+          f"{REPORT_RTOL} (iou {card['iou']:.6f} vs {cpu['iou']:.6f})")
+
+
+def train_losses(run_dir):
+    rows = [json.loads(line) for line in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    return {tag: [r["value"] for r in rows if r["tag"] == tag]
+            for tag in {r["tag"] for r in rows}}
+
+
+def phase_i4(seg_cfg, split, all_counters, reset_counters):
+    """cli train --preset sup_unsup_seg at 416x800 bf16, batch 2 x 3, one
+    epoch of 4 steps on the 24/8 split; the best checkpoint serves depth
+    and seg; one profiled step."""
+    from camradepth_tpu_torch.serving import load_engine
+    from camradepth_tpu_torch.utils.checkpoint import best_checkpoint
+
+    h, w = seg_cfg.model.img_size
+    n_train, n_val, accum = 24, 8, 3
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = Path(tmp) / "run"
+        argv = ["train", "--preset", "sup_unsup_seg", "--split", str(split),
+                "--train-val-split", f"{n_train},{n_val}", "--run-dir",
+                str(run_dir), "--save-model", "--batch-size",
+                str(TRAIN_BATCH), "--desired-batch-size",
+                str(TRAIN_BATCH * accum), "--num-epochs", "1", "--set",
+                "train.log_every=1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_counters()
+        require(rc == 0, (rc, out[-2000:]))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        steps = n_train // (TRAIN_BATCH * accum)
+        micro, fwd = steps * accum, steps * accum + -(-n_val // TRAIN_BATCH)
+        n_attn, n_up, n_gelu = variant_counts(seg_cfg.model)
+        want = (fwd * n_attn, fwd * n_up, 0, fwd * n_gelu, micro * n_attn,
+                micro * n_up, micro * n_gelu)
+        print(f"(i4) cli train sup_unsup_seg 416x800 bf16 batch "
+              f"{TRAIN_BATCH} x {accum}: {steps} optimizer steps + eval of "
+              f"{n_val} frames in {wall:.1f} s; launches {launches} "
+              f"(expected {want}: {n_attn} + {n_attn}, {n_up} + {n_up}, "
+              f"{n_gelu} + {n_gelu} per microbatch, forwards only for eval)")
+        require(launches == want, (launches, want))
+        logs = train_losses(run_dir)
+        losses = {k: v for k, v in logs.items()
+                  if k.startswith("train/loss")}
+        require(len(logs["train/loss"]) == steps
+                and len(logs["val/loss"]) == 1, logs.get("train/loss"))
+        require(all(np.isfinite(v) for vs in losses.values() for v in vs)
+                and np.isfinite(logs["val/loss"][0]), losses)
+        require(min(logs["train/loss_seg_final"]) > 0,
+                logs["train/loss_seg_final"])
+        best = best_checkpoint(run_dir)
+        require(best is not None, "no best checkpoint written")
+        print(f"(i4) train loss {[round(v, 6) for v in logs['train/loss']]},"
+              f" loss_seg_final "
+              f"{[round(v, 6) for v in logs['train/loss_seg_final']]}, val "
+              f"loss {logs['val/loss'][0]:.6f}; steps_per_sec="
+              f"{logs['train/steps_per_sec'][-1]:.3f}; peak memory "
+              f"{peak_gb:.2f} GiB")
+        engine = load_engine(seg_cfg, str(best), batch_size=TRAIN_BATCH,
+                             device="cuda")
+        res = engine.infer_batch(np.random.default_rng(6).standard_normal(
+            (TRAIN_BATCH, h, w, seg_cfg.model.input_channels),
+            dtype=np.float32))
+        require(res["depth"].shape == (TRAIN_BATCH, h, w)
+                and np.isfinite(res["depth"]).all(), res["depth"].shape)
+        require(res["seg"].dtype == np.uint8
+                and res["seg"].shape == (TRAIN_BATCH, h, w), res["seg"].shape)
+        print(f"(i4) load_engine served {TRAIN_BATCH} frames from "
+              f"{best.name}: depth and uint8 labels "
+              f"{int(res['seg'].min())}..{int(res['seg'].max())}")
+        del engine
+    profile_train_step(seg_cfg, accum, tag="(i4)")
+
+
+def phase_i5(split, counters, reset_counters):
+    """base vs base + tpu_decoder, bf16 batch-8 forward at 416x800 in turns
+    (parity, variant, variant, parity); then 2 cli train --tpu-decoder
+    steps."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.serving import DepthEngine
+
+    cfg = preset("base")
+    variants = {"parity": cfg, "tpu_decoder": cfg.replace(
+        model=dataclasses.replace(cfg.model, tpu_decoder=True))}
+    h, w = cfg.model.img_size
+    n_batches = 4
+    frames = np.random.default_rng(13).standard_normal(
+        (n_batches * BATCH, h, w, 7), dtype=np.float32)
+    engines = {k: DepthEngine(c, create_model(c.model, device="cuda",
+                                              seed=0), batch_size=BATCH,
+                              device="cuda")
+               for k, c in variants.items()}
+    x = torch.from_numpy(frames[:BATCH]).cuda()
+    for name in ("parity", "tpu_decoder", "tpu_decoder", "parity"):
+        engine = engines[name]
+        engine.warmup()
+        reset_counters()
+        _, stats, batch_ms = stream(engine, frames, n_batches)
+        launches = counters()
+        n_attn, n_up, n_gelu = variant_counts(variants[name].model)
+        require(launches == (n_batches * n_attn, n_batches * n_up, 0,
+                             n_batches * n_gelu), (name, launches))
+        busy_ms, n_kernels = forward_busy(engine.model, x)
+        print(f"(i5) {name}: bf16 batch-{BATCH} forward device busy "
+              f"{busy_ms:.2f} ms ({n_kernels} kernels), steady stream "
+              f"{batch_ms:.2f} ms per batch, {stats['frames_per_sec']:.2f} "
+              f"frames/s; launches per forward (attention, upsample, conv, "
+              f"gelu) {tuple(v // n_batches for v in launches)}")
+    del engines, engine, x
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = Path(tmp) / "run"
+        rc, out = run_cli(["train", "--preset", "base", "--tpu-decoder",
+                           "--split", str(split), "--train-val-split",
+                           "12,2", "--run-dir", str(run_dir),
+                           "--batch-size", str(TRAIN_BATCH),
+                           "--desired-batch-size", str(3 * TRAIN_BATCH),
+                           "--num-epochs", "1", "--set",
+                           "train.log_every=1"])
+        require(rc == 0, (rc, out[-2000:]))
+        logs = train_losses(run_dir)
+        losses = logs["train/loss"]
+        require(len(losses) == 2 and all(np.isfinite(losses))
+                and np.isfinite(logs["val/loss"][0]), logs.get("train/loss"))
+        print(f"(i5) cli train --tpu-decoder, 2 bf16 steps: losses "
+              f"{[round(v, 6) for v in losses]}, val loss "
+              f"{logs['val/loss'][0]:.6f}")
+
+
+def phase_i(counters, all_counters, reset_counters):
+    """This slice's paths: the seg presets and the tpu_decoder variant."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.data import synthetic
+    from camradepth_tpu_torch.data.split import save_split
+    from camradepth_tpu_torch.interop.golden import synth_state_values
+
+    times = [time.perf_counter()]
+    phase_i1(counters, reset_counters)
+    times.append(time.perf_counter())
+    seg_cfg = preset("sup_unsup_seg")
+    h, w = seg_cfg.model.img_size
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _, shapes = load_golden("flagship_seg_128x256.npz")
+        pth = tmp / "seg_synth.pth"
+        torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in
+                                   synth_state_values(shapes).items()}}, pth)
+        split = synthetic.generate(tmp / "data", num_frames=32, hw=(h, w),
+                                   seed=0, rain_every=4)
+        rows = np.load(split)
+        head = save_split(rows[:4], tmp / "head_split.npy")
+        test16 = save_split(rows[:16], tmp / "test16_split.npy")
+        print(f"(i) 32-frame {h}x{w} corpus and the seg .pth written in "
+              f"{time.perf_counter() - times[-1]:.1f} s")
+        phase_i2(seg_cfg, pth, counters, reset_counters)
+        times.append(time.perf_counter())
+        phase_i3(seg_cfg, test16, head, pth, counters, reset_counters)
+        times.append(time.perf_counter())
+        phase_i4(seg_cfg, split, all_counters, reset_counters)
+        times.append(time.perf_counter())
+        phase_i5(split, counters, reset_counters)
+        times.append(time.perf_counter())
+    print("(i) phase seconds: " + ", ".join(
+        f"(i{j + 1}) {b - a:.1f}" for j, (a, b) in
+        enumerate(zip(times, times[1:]))))
 
 
 def main() -> None:
@@ -1404,9 +1863,11 @@ def main() -> None:
     phase_h_step_parity(cfg)
     train_launches = phase_h_train(cfg, all_counters, reset_counters)
     t7 = time.perf_counter()
+    phase_i(counters, all_counters, reset_counters)
+    t8 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
-          f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}")
+          f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

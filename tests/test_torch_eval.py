@@ -11,12 +11,18 @@ the CPU.
   test --device cpu`` on one 6-frame corpus and one reference .pth at the
   ``tiny_test_config`` widths in fp32; every non-timing report key agrees
   to rtol 1e-3, atol 1e-4 (the two forwards agree to ~1e-5 in fp32,
-  tests/test_torch_model.py; metrics are means over a few thousand pixels).
+  tests/test_torch_model.py; metrics are means over a few thousand pixels),
+  and the same for ``--preset sup_unsup_seg``, the ``iou`` key included;
+  its ``cli serve`` labels against the JAX engine's by agreement >= 0.995
+  (argmax maps: near-tie pixels may flip between frameworks,
+  tests/test_flagship_golden.py:131-140).
 """
 
+import dataclasses
 import json
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +36,7 @@ from camradepth_tpu.evaluation import metrics as JM
 from camradepth_tpu.evaluation.harness import TIMING_KEYS as JAX_TIMING_KEYS
 from camradepth_tpu_torch import cli
 from camradepth_tpu_torch.config import DataConfig, tiny_test_config
+from camradepth_tpu_torch.config import preset as preset_config
 from camradepth_tpu_torch.data import channels, pipeline, synthetic
 from camradepth_tpu_torch.evaluation import metrics as M
 from camradepth_tpu_torch.evaluation.harness import TIMING_KEYS
@@ -55,15 +62,24 @@ def corpus(tmp_path_factory):
     so the predictions spread over the metric range."""
     tmp = tmp_path_factory.mktemp("corpus")
     split = synthetic.generate(tmp / "data", num_frames=6, hw=HW, seed=0)
-    model = create_model(tiny_test_config().model, device="cpu")
+    return tmp, split, _tiny_pth(tmp / "weights.pth")
+
+
+def _tiny_pth(path, preset="base", **kw):
+    """A reference .pth of synthesized weights for the tiny widths of
+    ``preset``, the final depth head biased to the middle of [0, 1]."""
+    cfg = tiny_test_config().model
+    flags = {k: getattr(preset_config(preset).model, k)
+             for k in ("supervised_seg", "unsupervised_seg")}
+    model = create_model(dataclasses.replace(cfg, **flags, **kw),
+                         device="cpu")
     sd = synth_state_values({k: tuple(v.shape)
                              for k, v in model.state_dict().items()})
     sd["depth_activation_5.conv_2.bias"] = sd[
         "depth_activation_5.conv_2.bias"] + np.float32(0.5)
-    pth = tmp / "weights.pth"
     torch.save({"state_dict": {k: torch.from_numpy(v)
-                               for k, v in sd.items()}}, pth)
-    return tmp, split, pth
+                               for k, v in sd.items()}}, path)
+    return path
 
 
 def _metric_inputs(seed=0):
@@ -174,6 +190,28 @@ def test_loader_refuses_the_wire_format(corpus):
         pipeline.make_loaders(cfg, batch_size=2, split_path=split)
 
 
+def _jax_engine(pth, split):
+    """The JAX engine's forward (``camradepth_tpu.serving.
+    make_serving_forward``) of the tiny sup_unsup_seg ``pth`` on the
+    corpus's 6 frames."""
+    from camradepth_tpu.config import tiny_test_config as jax_tiny
+    from camradepth_tpu.interop.torch_convert import convert_state_dict
+    from camradepth_tpu.models.camradepth import CamRaDepth as JaxCamRaDepth
+    from camradepth_tpu.serving import make_serving_forward
+
+    jcfg = jax_tiny()
+    jcfg = jcfg.replace(model=dataclasses.replace(
+        jcfg.model, supervised_seg=True, unsupervised_seg=True))
+    params = convert_state_dict({k: v.numpy() for k, v in torch.load(
+        pth, weights_only=True)["state_dict"].items()})
+    frames = next(iter(pipeline.make_loaders(
+        DataConfig(image_dimension=HW, mini_dataset=True), batch_size=6,
+        split_path=split)["test"]))["features"]
+    fwd = make_serving_forward(jcfg, JaxCamRaDepth(jcfg.model))
+    return {k: np.asarray(v) for k, v in jax.jit(fwd)(
+        params, jnp.asarray(frames)).items()}
+
+
 @pytest.fixture(scope="module")
 def reports(corpus):
     tmp, split, pth = corpus
@@ -225,6 +263,67 @@ def test_cli_serve_writes_one_depth_map_per_frame(corpus, tmp_path,
         d = np.load(p)
         assert d.shape == HW and np.isfinite(d).all()
         assert 0.0 <= d.min() and d.max() <= 100.0
+
+
+@pytest.fixture(scope="module")
+def seg_runs(corpus):
+    """``cli test`` of the JAX package and of the port on the 6-frame
+    corpus at --preset sup_unsup_seg, tiny widths, fp32; the port's ``cli
+    serve`` of the same, and the JAX engine's forward on those frames."""
+    tmp, split, _ = corpus
+    pth = _tiny_pth(tmp / "seg_weights.pth", "sup_unsup_seg")
+    common = ["--preset", "sup_unsup_seg", "--split", str(split),
+              "--checkpoint", str(pth)] + TINY_FLAGS
+    test = ["test", "--test-batch", "4"] + common
+    assert jax_cli.main(test + ["--report-json", str(tmp / "jseg.json")]) == 0
+    assert cli.main(test + ["--report-json", str(tmp / "seg.json"),
+                            "--device", "cpu"]) == 0
+    assert cli.main(["serve", "--serve-batch", "4", "--out",
+                     str(tmp / "served"), "--device", "cpu"] + common) == 0
+    return (json.loads((tmp / "jseg.json").read_text()),
+            json.loads((tmp / "seg.json").read_text()),
+            _jax_engine(pth, split), tmp / "served")
+
+
+def test_cli_test_seg_report_matches_jax(seg_runs, capsys):
+    want, got, _, _ = seg_runs
+    assert got.keys() == want.keys() and "iou" in got
+    compared = [k for k in want if k not in TIMING_KEYS]
+    assert len(compared) == 19 and got["frames"] == 6.0
+    for k in compared:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4,
+                                   err_msg=k)
+    assert 0.0 < got["iou"] < 1.0
+
+
+def test_cli_serve_writes_seg_labels_of_the_jax_engine(seg_runs):
+    """One uint8 label map per frame beside its depth map, agreeing with
+    the JAX engine's labels; depth within 1e-3 at >= 99 % of the pixels
+    (a flipped near-tie guidance pixel moves the depth near it,
+    tests/test_torch_model.py)."""
+    _, _, engine, port_dir = seg_runs
+    names = sorted(p.name for p in port_dir.glob("*_seg.npy"))
+    assert names == [f"{i:05d}_seg.npy" for i in range(6)]
+    got = np.stack([np.load(port_dir / n) for n in names])
+    assert got.dtype == engine["seg"].dtype == np.uint8
+    assert got.shape == (6,) + HW and got.max() < 21
+    agree = float(np.mean(got == engine["seg"]))
+    assert agree >= 0.995, agree
+    depth = np.stack([np.load(port_dir / f"{i:05d}_depth.npy")
+                      for i in range(6)])
+    err = np.abs(depth - engine["depth"])
+    assert (err <= 1e-3 + 1e-3 * np.abs(engine["depth"])).mean() >= 0.99
+
+
+def test_cli_tpu_decoder_refuses_a_reference_checkpoint(corpus, capsys):
+    _, split, pth = corpus
+    for command in ("test", "serve"):
+        rc = cli.main([command, "--tpu-decoder", "--split", str(split),
+                       "--checkpoint", str(pth), "--device", "cpu"]
+                      + TINY_FLAGS)
+        err = capsys.readouterr().err.strip()
+        assert rc == 2 and "tpu_decoder variant" in err, err
+        assert err.startswith("error:") and "\n" not in err
 
 
 @pytest.mark.parametrize("extra,item", [

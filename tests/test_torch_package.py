@@ -84,13 +84,31 @@ def test_entry_points_default_to_cuda():
         Trainer(cfg)
 
 
+@pytest.mark.parametrize("tpu_decoder", [False, True])
 @pytest.mark.parametrize("name", ["supervised_seg", "unsupervised_seg",
-                                  "tpu_decoder"])
-def test_later_options_raise(name):
-    from camradepth_tpu_torch.models.camradepth import CamRaDepth
+                                  "sup_unsup_seg", "sup_unsup_seg_rgb"])
+def test_seg_presets_build_with_either_decoder(name, tpu_decoder):
+    """Each seg preset at its full widths builds (on the meta device: the
+    structure, no weights), with its seg heads, and with the tpu_decoder
+    stages in place of the parity ones when asked."""
+    import dataclasses
 
-    with pytest.raises(NotImplementedError, match=name):
-        CamRaDepth(ModelConfig(**{name: True}))
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.models.camradepth import CamRaDepth
+    from camradepth_tpu_torch.models.layers import Decoder, TPUDecoder
+
+    cfg = dataclasses.replace(preset(name).model, tpu_decoder=tpu_decoder)
+    with torch.device("meta"):
+        model = CamRaDepth(cfg)
+    keys = model.state_dict().keys()
+    stage = TPUDecoder if tpu_decoder else Decoder
+    assert all(isinstance(m, stage) for m in (
+        model.depth_upsample[3], model.depth_upsample[4],
+        *model.seg_upsample))
+    assert ("seg_conv_final.weight" in keys) == cfg.supervised_seg
+    assert ("unsup_final.weight" in keys) == cfg.unsupervised_seg
+    assert model.dest_encoder.patch_embed1.proj.in_channels == (
+        cfg.input_channels)
 
 
 def test_config_maps_field_for_field_from_jax_config():

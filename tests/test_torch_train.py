@@ -37,6 +37,17 @@ compiles (~13 s each) run side by side on two threads. Tolerances:
   parameters after the step: none past 2 * lr (0.9994 * lr: the sign-like
   step flips wherever the two gradients' signs differ), at most 20 % of
   the elements past 1e-3 * lr (10.1 %).
+The seg step: sup_unsup_seg in fp32 with the stage-4 seg loss on, its
+JAX step compiled on a third thread beside the two above. The argmax
+guidance maps that feed the depth heads (stage-4 and final, supervised and
+unsupervised) must first agree pixel for pixel with the JAX forward's: a
+near-tie pixel that flipped would change the step, not the code under
+test. So the step's microbatches are seeded (SEG_SEED, the first seed from
+2 that qualifies) so that no guidance pixel's two largest logits lie
+within twice the two frameworks' largest logit difference, which the test
+asserts before the maps (at seed 2 one unsup_final pixel lay 1.7e-6 from
+a tie, and it flipped). Then the fp32 limits above, and rtol 1e-5 for
+loss_seg_final and loss_seg_inter.
 Remat: the gradients with each ``remat_*`` option equal those without it
 bit for bit, with dropout on (drop path 0.1, Dropout2d 0.2) drawn from one
 generator seed.
@@ -96,30 +107,63 @@ def _flax_params(model, x, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def _microbatches(seed):
+# the seg step's model and train options
+SEG = dict(supervised_seg=True, unsupervised_seg=True)
+SEG_TRAIN = dict(seg_inter_loss=True)
+# the seg step's microbatch seed (see the module docstring)
+SEG_SEED = 5
+# the guidance maps' heads, whose argmax feeds the depth heads
+GUIDANCE_HEADS = ("seg_conv_stage_4", "unsup_stage_4", "seg_conv_final",
+                  "unsup_final")
+
+
+def _microbatches(seed, seg=False):
     rng = np.random.default_rng(seed)
     h, w = HW
     feats = rng.standard_normal((ACCUM, 2, h, w, 7)).astype(np.float32)
     gt = rng.uniform(0.01, 1.0, (ACCUM, 2, h, w)).astype(np.float32)
     gt *= (rng.uniform(size=gt.shape) < 0.3)
-    return {"features": feats, "gt_depth": gt}
+    out = {"features": feats, "gt_depth": gt}
+    if seg:
+        # 21 classes and a 255 (ignored) share
+        for key, shape in (("seg", (h, w)), ("seg_inter", (h // 2, w // 2))):
+            lab = rng.integers(0, 21, (ACCUM, 2) + shape).astype(np.int32)
+            lab[rng.uniform(size=lab.shape) < 0.1] = 255
+            out[key] = lab
+    return out
 
 
-def _jax_cfg(dtype):
+def _jax_cfg(dtype, **model_kw):
     jcfg = jax_tiny_config()
-    return jcfg.replace(model=dataclasses.replace(
-        jcfg.model, img_size=HW, compute_dtype=dtype, dropout_rate=0.0))
+    return jcfg.replace(
+        model=dataclasses.replace(jcfg.model, img_size=HW,
+                                  compute_dtype=dtype, dropout_rate=0.0,
+                                  **model_kw),
+        train=dataclasses.replace(jcfg.train,
+                                  **(SEG_TRAIN if model_kw else {})))
 
 
-def _port_step(dtype, params, micro, lr):
-    """The port's step from the same parameters and microbatches:
-    (metrics, gradients, parameters after the step)."""
+def _port_cfg(dtype, **model_kw):
     cfg = tiny_test_config()
-    cfg = cfg.replace(model=dataclasses.replace(
-        cfg.model, img_size=HW, compute_dtype=dtype, dropout_rate=0.0))
-    model = create_model(cfg.model, device="cpu", train=True, state_dict={
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, img_size=HW,
+                                  compute_dtype=dtype, dropout_rate=0.0,
+                                  **model_kw),
+        train=dataclasses.replace(cfg.train,
+                                  **(SEG_TRAIN if model_kw else {})))
+
+
+def _port_model(cfg, params):
+    return create_model(cfg.model, device="cpu", train=True, state_dict={
         k: np.ascontiguousarray(v)
         for k, v in state_dict_from_flax(params).items()})
+
+
+def _port_step(dtype, params, micro, lr, **model_kw):
+    """The port's step from the same parameters and microbatches:
+    (metrics, gradients, parameters after the step)."""
+    cfg = _port_cfg(dtype, **model_kw)
+    model = _port_model(cfg, params)
     opt = DiffGradNorm(model.parameters(), lr=lr)
     tmicro = [{k: torch.from_numpy(v[i]) for k, v in micro.items()}
               for i in range(ACCUM)]
@@ -130,6 +174,18 @@ def _port_step(dtype, params, micro, lr):
              for k, p in model.named_parameters()})
 
 
+def _port_guidance(params, features):
+    """The logits of the port's guidance heads on ``features``."""
+    model = _port_model(_port_cfg("float32", **SEG), params)
+    seen = {}
+    for name in GUIDANCE_HEADS:
+        getattr(model, name).register_forward_hook(
+            lambda mod, args, y, name=name: seen.__setitem__(name, y))
+    with torch.no_grad():
+        model(torch.from_numpy(features))
+    return {k: v.numpy() for k, v in seen.items()}
+
+
 @pytest.fixture(scope="module")
 def steps():
     """{dtype: (JAX step: metrics, grads, params after; port step: the
@@ -137,42 +193,66 @@ def steps():
     on a thread of its own as soon as it is traced (XLA's compile releases
     the interpreter lock), so the next trace and the port's steps run
     meanwhile."""
-    dtypes = ("bfloat16", "float32")  # the longer compile first
-    models = {dt: JaxCamRaDepth(_jax_cfg(dt).model) for dt in dtypes}
-    params = _flax_params(models["float32"], jnp.zeros((1, *HW, 7)), seed=1)
+    # the longer compiles first; "seg" is sup_unsup_seg in fp32
+    cases = {"bfloat16": ("bfloat16", {}), "seg": ("float32", SEG),
+             "float32": ("float32", {})}
+    cfgs = {c: _jax_cfg(dt, **kw) for c, (dt, kw) in cases.items()}
+    models = {c: JaxCamRaDepth(cfgs[c].model) for c in cases}
+    x0 = jnp.zeros((1, *HW, 7))
+    params = {c: _flax_params(models[c], x0, seed=1)
+              for c in ("float32", "seg")}
+    params["bfloat16"] = params["float32"]
     tx = diffgrad_norm(jax_onecycle(LR, total_steps=TOTAL, div_factor=2.0))
-    state = TrainState(jax.tree.map(jnp.asarray, params),
-                       jax.jit(tx.init)(params), jnp.zeros([], jnp.int32))
-    micro = _microbatches(2)
-    jmicro = {k: jnp.asarray(v) for k, v in micro.items()}
+    micro = {c: _microbatches(SEG_SEED, seg=True) if c == "seg"
+             else _microbatches(2) for c in cases}
     rng = jax.random.PRNGKey(3)
     lr = onecycle(LR, TOTAL, div_factor=2.0)(0)
-    with concurrent.futures.ThreadPoolExecutor(len(dtypes)) as pool:
-        compiling = {}
-        for dt in dtypes:
-            lowered = jax.jit(make_train_step(_jax_cfg(dt), models[dt], tx)
-                              ).lower(state, jmicro, rng)
-            compiling[dt] = pool.submit(lowered.compile)
-        port = {dt: _port_step(dt, params, micro, lr) for dt in dtypes}
+    with concurrent.futures.ThreadPoolExecutor(len(cases) + 1) as pool:
+        compiling, states, jmicro = {}, {}, {}
+        for c in cases:
+            states[c] = TrainState(jax.tree.map(jnp.asarray, params[c]),
+                                   jax.jit(tx.init)(params[c]),
+                                   jnp.zeros([], jnp.int32))
+            jmicro[c] = {k: jnp.asarray(v) for k, v in micro[c].items()}
+            lowered = jax.jit(make_train_step(cfgs[c], models[c], tx)
+                              ).lower(states[c], jmicro[c], rng)
+            compiling[c] = pool.submit(lowered.compile)
+        # the JAX forward of the seg step's microbatches, with the stage-4
+        # unsupervised logits, which the outputs do not hold
+        feats = micro["seg"]["features"].reshape(-1, *HW, 7)
+        guidance = pool.submit(jax.jit(lambda p, v: models["seg"].apply(
+            {"params": p}, v, capture_intermediates=lambda mod, _: (
+                mod.name in GUIDANCE_HEADS))).lower(
+                    params["seg"], jnp.asarray(feats)).compile)
+        port = {c: _port_step(dt, params[c], micro[c], lr, **kw)
+                for c, (dt, kw) in cases.items()}
+        port_guidance = _port_guidance(params["seg"], feats)
         out = {}
-        for dt in dtypes:
-            new, metrics = compiling[dt].result()(state, jmicro, rng)
+        for c in cases:
+            new, metrics = compiling[c].result()(states[c], jmicro[c], rng)
             jax_out = ({k: float(v) for k, v in metrics.items()},
                        state_dict_from_flax(new.opt_state[0].previous_grad),
                        state_dict_from_flax(new.params))
-            out[dt] = (jax_out, port[dt], lr)
+            out[c] = (jax_out, port[c], lr)
+        _, inter = guidance.result()(params["seg"], jnp.asarray(feats))
+        out["guidance"] = (
+            {k: np.asarray(v["__call__"][0])
+             for k, v in inter["intermediates"].items()}, port_guidance)
     return out
 
 
-def check_step(step, loss_rtol, norm_rtol, grad_rel, global_rel, share):
-    """Hold the port's step to the JAX step: the loss terms, grad_norm,
-    each parameter's gradient (relative L2), all gradients together
-    (relative L2) and the parameters after the step (at most ``share`` of
-    the elements past 1e-3 * lr, none past 2 * lr)."""
+def check_step(step, loss_rtol, norm_rtol, grad_rel, global_rel, share,
+               extra_terms=()):
+    """Hold the port's step to the JAX step: the loss terms (and
+    ``extra_terms``), grad_norm, each parameter's gradient (relative L2),
+    all gradients together (relative L2) and the parameters after the step
+    (at most ``share`` of the elements past 1e-3 * lr, none past 2 *
+    lr)."""
     (jm, jg, jp), (tm, tg, tp), lr = step
     terms = {k: abs(tm[k] - jm[k]) / abs(jm[k])
              for k in ("loss", "loss_depth_final", "loss_depth_stage4",
-                       "loss_depth_stage3", "rmse_m", "grad_norm")}
+                       "loss_depth_stage3", "rmse_m", "grad_norm")
+             + tuple(extra_terms)}
     assert sorted(tg) == sorted(jg)
     rels = {k: np.linalg.norm(tg[k] - np.asarray(want, np.float64))
             / max(np.linalg.norm(want), 1e-30) for k, want in jg.items()}
@@ -201,6 +281,26 @@ def check_step(step, loss_rtol, norm_rtol, grad_rel, global_rel, share):
 
 def test_fp32_step_matches_jax_make_train_step(steps):
     check_step(steps["float32"], 1e-5, 1e-5, 1e-4, 1e-4, 1e-3)
+
+
+def test_seg_step_matches_jax_make_train_step(steps):
+    """sup_unsup_seg, fp32: the guidance maps agree, then the step."""
+    want, got = steps["guidance"]
+    assert sorted(got) == sorted(want) == sorted(GUIDANCE_HEADS)
+    for name in GUIDANCE_HEADS:
+        assert got[name].shape == want[name].shape, name
+        top2 = np.sort(want[name], axis=-1)[..., -2:]
+        gap = float((top2[..., 1] - top2[..., 0]).min())
+        diff = float(np.abs(got[name] - want[name]).max())
+        print(f"{name}: nearest tie {gap:.3g}, largest logit difference "
+              f"{diff:.3g}")
+        assert gap > 2 * diff, (name, gap, diff)
+        np.testing.assert_array_equal(got[name].argmax(-1),
+                                      want[name].argmax(-1), err_msg=name)
+    (jm, _, _), (tm, _, _), _ = steps["seg"]
+    assert jm["loss_seg_final"] > 0 and jm["loss_seg_inter"] > 0
+    check_step(steps["seg"], 1e-5, 1e-5, 1e-4, 1e-4, 1e-3,
+               extra_terms=("loss_seg_final", "loss_seg_inter"))
 
 
 def test_bf16_step_matches_jax_make_train_step(steps):
@@ -332,6 +432,43 @@ def test_remat_gives_the_gradients_of_no_remat(option):
     assert m2["loss"] != m0["loss"]
 
 
+def test_remat_decoder_covers_the_seg_and_tpu_decoder_stages():
+    """sup_unsup_seg with tpu_decoder: remat_decoder recomputes the seg
+    and TPUDecoder stages too, and gives the gradients of no remat bit for
+    bit, with dropout drawn from one generator seed."""
+    micro = {k: torch.from_numpy(v[0])
+             for k, v in _microbatches(11, seg=True).items()}
+    cfg = _tiny_train_cfg(drop_path_rate=0.1, dropout_rate=0.2,
+                          tpu_decoder=True, **SEG)
+    runs = []
+    for remat_decoder in (False, True):
+        model = create_model(dataclasses.replace(
+            cfg.model, remat_decoder=remat_decoder), device="cpu", seed=5,
+            train=True)
+        calls = []
+        for stage in (*model.depth_upsample, *model.seg_upsample):
+            # counted in forward itself: the recompute fires no hooks
+            def counted(*args, stage=stage, forward=stage.forward):
+                calls.append(type(stage).__name__)
+                return forward(*args)
+
+            stage.forward = counted
+        gen = torch.Generator().manual_seed(7)
+        metrics = train_step(cfg, model, DiffGradNorm(model.parameters(),
+                                                      lr=0.0),
+                             [micro], [gen], 0.0)
+        runs.append((metrics, {k: p.grad.clone()
+                               for k, p in model.named_parameters()},
+                     sorted(calls)))
+    (m0, g0, c0), (m1, g1, c1) = runs
+    # each of the 7 stages runs once, and again in the backward with remat
+    assert c0 == sorted(["Decoder"] * 3 + ["TPUDecoder"] * 4)
+    assert c1 == sorted(c0 * 2)
+    assert m0["loss"] == m1["loss"] and float(m0["loss_seg_final"]) > 0
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+
+
 def test_padded_microbatch_gives_the_unpadded_gradients():
     micro = {k: torch.from_numpy(v[0]) for k, v in _microbatches(9).items()}
     cfg = _tiny_train_cfg(dropout_rate=0.0)
@@ -347,3 +484,22 @@ def test_padded_microbatch_gives_the_unpadded_gradients():
                         "seg": torch.zeros(2, 4, dtype=torch.int32)}, 3)
     assert p["gt_depth"].shape[0] == 3 and not p["gt_depth"][2].any()
     assert (p["seg"][2] == 255).all()
+
+
+def test_padded_seg_microbatch_gives_the_unpadded_gradients():
+    """sup_unsup_seg with the stage-4 seg loss: the padded rows' seg and
+    seg_inter labels are 255, which the focal loss ignores."""
+    micro = {k: torch.from_numpy(v[0])
+             for k, v in _microbatches(10, seg=True).items()}
+    cfg = _tiny_train_cfg(dropout_rate=0.0, **SEG)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **SEG_TRAIN))
+    m0, g0 = _grads(cfg, micro, 0)
+    padded = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                   pad_microbatch_to=3))
+    m1, g1 = _grads(padded, micro, 0)
+    assert float(m0["loss_seg_final"]) > 0 and float(m0["loss_seg_inter"]) > 0
+    for k in ("loss", "loss_seg_final", "loss_seg_inter"):
+        np.testing.assert_allclose(float(m1[k]), float(m0[k]), rtol=1e-6,
+                                   err_msg=k)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=1e-4, atol=1e-7)

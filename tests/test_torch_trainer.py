@@ -1,6 +1,6 @@
 """The port's single-device trainer and ``cli train`` on the CPU, at tiny
 widths on a synthetic corpus: train, eval, the best checkpoint and
-``load_engine`` on it; auto-resume after an epoch and a SIGTERM mid-epoch
+``load_engine`` on it (also for a seg preset and the tpu_decoder variant); auto-resume after an epoch and a SIGTERM mid-epoch
 followed by a resume, each giving the parameters of an uninterrupted run
 bit for bit; eval frames counted once; the checkpoint rules of the JAX
 package (``tests/test_preemption.py:52-81``).
@@ -28,6 +28,7 @@ from camradepth_tpu_torch.config import (
     num_epochs_for_steps,
     tiny_test_config,
 )
+from camradepth_tpu_torch.config import preset as preset_config
 from camradepth_tpu_torch.data import synthetic
 from camradepth_tpu_torch.serving import load_engine
 from camradepth_tpu_torch.train.step import eval_step
@@ -233,6 +234,45 @@ def test_cli_train_on_the_cpu(corpus, tmp_path, capsys):
                    "--checkpoint", str(best), "--device", "cpu",
                    "--test-batch", "4"] + TINY_FLAGS)
     assert rc == 0
+
+
+def test_cli_train_then_serve_the_seg_tpu_decoder_variant(corpus, tmp_path,
+                                                          capsys):
+    """sup_unsup_seg with the tpu_decoder variant trains through ``cli
+    train`` (the seg losses on); its best checkpoint loads into
+    ``load_engine``, which serves depth and uint8 labels, and into ``cli
+    test``, whose report has the IoU row."""
+    preset, extra = "sup_unsup_seg", ["--tpu-decoder"]
+    run_dir = tmp_path / "run"
+    rc = cli.main(["train", "--preset", preset, "--split", corpus,
+                   "--train-val-split", "8,3", "--device", "cpu",
+                   "--run-dir", str(run_dir), "--save-model",
+                   "--batch-size", "2", "--desired-batch-size", "4",
+                   "--num-epochs", "1", "--set", "data.num_workers=2",
+                   "--set", "train.log_every=1"] + TINY_FLAGS + extra)
+    assert rc == 0
+    rows = [json.loads(x) for x in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    seg = [r["value"] for r in rows if r["tag"] == "train/loss_seg_final"]
+    assert len(seg) == 2 and all(np.isfinite(seg)) and min(seg) > 0
+    best = ckpt_util.best_checkpoint(run_dir)
+    cfg = apply_overrides(preset_config(preset), TINY_FLAGS[1::2])
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, tpu_decoder=True))
+    engine = load_engine(cfg, str(best), batch_size=2, device="cpu")
+    out = engine.infer_batch(np.random.default_rng(0).standard_normal(
+        (2, *HW, 7)).astype(np.float32))
+    assert out["depth"].shape == (2, *HW) and np.isfinite(out["depth"]).all()
+    assert out["seg"].dtype == np.uint8 and out["seg"].shape == (2, *HW)
+    assert out["seg"].max() < cfg.model.num_classes
+    report = tmp_path / "report.json"
+    capsys.readouterr()
+    rc = cli.main(["test", "--preset", preset, "--split", corpus, "--set",
+                   "data.mini_dataset=1", "--checkpoint", str(best),
+                   "--device", "cpu", "--test-batch", "4", "--report-json",
+                   str(report)] + TINY_FLAGS + extra)
+    assert rc == 0
+    assert np.isfinite(json.loads(report.read_text())["iou"])
+    assert "IoU:" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--fsdp", "2"],
