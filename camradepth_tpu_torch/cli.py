@@ -1,35 +1,41 @@
-"""Command-line interface of the PyTorch/CUDA port: ``train``, ``test``
-and ``serve``.
+"""Command-line interface of the PyTorch/CUDA port: ``train``,
+``distill``, ``test`` and ``serve``.
 
   python -m camradepth_tpu_torch.cli train --preset base --split S.npy \\
       [--run-dir R] [--save-model] [--set train.num_epochs=1] [--device ..]
+  python -m camradepth_tpu_torch.cli distill --tpu-decoder --split S.npy \\
+      --teacher-checkpoint T.pth [--alpha 0.7] [--run-dir R] [--save-model]
   python -m camradepth_tpu_torch.cli test  --preset base --split S.npy \\
       --checkpoint W.pth [--report-json R.json] [--device cuda|cpu]
   python -m camradepth_tpu_torch.cli serve --preset base --split S.npy \\
       --checkpoint W.pth --out served/ [--limit N] [--device cuda|cpu]
 
 The counterparts of ``camradepth_tpu.cli``'s single-device ``cmd_train``
-(``camradepth_tpu/cli.py:314-349``), ``cmd_test`` (``:402-462``) and the
-dense, single-device split-streaming part of ``cmd_serve``
+(``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
+``cmd_test`` (``:402-462``) and the split-streaming part of ``cmd_serve``
 (``:655-852``), with the same flags where they apply. ``train`` runs
 :class:`train.trainer.Trainer` and prints the best validation loss; its
-checkpoints are ``.pth`` files that ``test`` and ``serve`` load. ``test``
-prints the reference metric report and writes the same report JSON keys
-as ``camradepth_tpu.cli test --report-json`` (with ``iou`` for a
-supervised seg preset); ``serve`` streams the split through
+checkpoints are ``.pth`` files that ``test`` and ``serve`` load.
+``distill`` trains a student (usually ``--tpu-decoder``) against a frozen
+parity teacher (:class:`train.distill.DistillTrainer`) from a reference
+``.pth``, a port trainer checkpoint or a run directory (its best
+checkpoint). ``test`` prints the reference metric report and writes the
+same report JSON keys as ``camradepth_tpu.cli test --report-json`` (with
+``iou`` for a supervised seg preset); ``serve`` streams the split through
 :class:`serving.DepthEngine`, writes ``NNNNN_depth.npy`` per frame (and
 ``NNNNN_seg.npy``, uint8 labels, for a supervised seg preset) and prints
 the same stats line. ``--tpu-decoder`` selects the ``tpu_decoder``
 variant; its checkpoints are the port's own layout, so a reference-format
-``.pth`` is refused for it.
+``.pth`` is refused for it. ``--wire auto|on`` (or ``--set
+data.wire_format=...``) ships compact wire batches (``data/wire.py``),
+decoded on the device, on all four commands.
 
 ``--checkpoint`` is a reference-format ``.pth``, loaded strictly (for
 ``train``: a warm start, shape-matching, or a full trainer checkpoint).
 One flag is new: ``--device`` (default ``cuda``, which raises without a
 card). The options of slices still to come are refused with the ROADMAP
-item that brings them: wire loaders (queue 1 item 5), mesh and HTTP
-serving (item 8), StableHLO artifacts (item 9), multi-device training
-(item 10).
+item that brings them: mesh and HTTP serving and Orbax checkpoints (queue
+1 item 8), StableHLO artifacts (item 9), multi-device training (item 10).
 """
 
 from __future__ import annotations
@@ -51,7 +57,6 @@ class UserError(ValueError):
 # Options of the JAX CLI that the port does not take yet, with the ROADMAP
 # queue-1 item that brings each.
 _LATER_FLAGS = {
-    "wire": "item 5 (wire decode on device)",
     "http_port": "item 8 (the rest of serving: HTTP)",
     "data_parallel": "item 8 (the rest of serving: mesh) and item 10",
     "spatial_parallel": "item 8 (the rest of serving: mesh) and item 10",
@@ -86,6 +91,15 @@ def _refuse_layout(cfg, checkpoint, e: RuntimeError) -> None:
             "give a checkpoint of a tpu_decoder run") from e
 
 
+def _add_wire_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--wire", default=None, choices=["auto", "on", "off"],
+                   help="compact wire batches (uint8 image + sparse radar "
+                        "and GT, decoded on the device, bit for bit with "
+                        "the dense stack): auto falls back to dense where "
+                        "the codec does not cover the config, on refuses "
+                        "(sets data.wire_format)")
+
+
 def _add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default="base",
                    choices=["base", "base_rgb", "supervised_seg",
@@ -109,8 +123,7 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="torch device to run on (default cuda; cpu runs "
                         "the kernels' plain versions)")
     _add_tpu_decoder_flag(p)
-    p.add_argument("--wire", default=None, choices=["auto", "on", "off"],
-                   help=argparse.SUPPRESS)
+    _add_wire_flag(p)
 
 
 def _build_config(args):
@@ -124,6 +137,8 @@ def _build_config(args):
         if args.max_distances:
             data_kw["max_distances"] = tuple(
                 float(v) for v in args.max_distances.split(","))
+        if args.wire is not None:
+            data_kw["wire_format"] = args.wire
         if data_kw:
             cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
         cfg = _with_tpu_decoder(cfg, args)
@@ -153,6 +168,8 @@ def _build_train_config(args):
         if args.train_val_split:
             n_tr, n_va = (int(v) for v in args.train_val_split.split(","))
             data_kw["train_val_split"] = (n_tr, n_va)
+        if args.wire is not None:
+            data_kw["wire_format"] = args.wire
         if data_kw:
             cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
         train_kw = {}
@@ -205,6 +222,95 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _teacher_state(teacher_cfg, path: str, strict: bool):
+    """The teacher's fp32 state_dict from a reference ``.pth``, a port
+    trainer checkpoint, or a run directory (its best checkpoint, else its
+    newest), as ``camradepth_tpu/cli.py:197-255`` loads a teacher. Strict:
+    every tensor of the teacher's model must be there with its shape (a
+    teacher with random heads would poison the dense targets), else one
+    line names the mismatch. Not strict: the mismatched tensors keep a
+    fresh init."""
+    import torch
+
+    from camradepth_tpu_torch.interop.flax_convert import (
+        load_reference_checkpoint,
+    )
+    from camradepth_tpu_torch.models.camradepth import (
+        CamRaDepth,
+        create_model,
+    )
+    from camradepth_tpu_torch.utils import checkpoint as ckpt_util
+
+    p = Path(path)
+    if p.is_dir() and not p.name.startswith(("ckpt_epoch_",
+                                             "ckpt_preempt_epoch_")):
+        best = ckpt_util.best_checkpoint(p) or ckpt_util.latest_checkpoint(p)
+        if best is None:
+            raise UserError(f"{path} holds no ckpt_epoch_* / "
+                            "ckpt_preempt_epoch_* checkpoints")
+        print(f"using best checkpoint {best.name}")
+        p = best
+    if p.is_dir() or p.suffix != ".pth":
+        raise UserError(
+            f"{p}: the port loads .pth teachers only; Orbax checkpoints "
+            "come with ROADMAP queue 1 item 8")
+    saved = load_reference_checkpoint(str(p))
+    with torch.device("meta"):
+        own = CamRaDepth(teacher_cfg.model).state_dict()
+    bad = [k for k, v in own.items()
+           if k not in saved or tuple(saved[k].shape) != tuple(v.shape)]
+    if not bad:
+        return {k: saved[k] for k in own}
+    if strict:
+        variant = " + tpu_decoder" if teacher_cfg.model.tpu_decoder else ""
+        raise UserError(
+            f"{path} does not fit the teacher ({teacher_cfg.name}{variant}): "
+            f"{len(bad)} of {len(own)} tensors are missing or of another "
+            f"shape, e.g. {bad[0]}; pass the teacher's --preset and "
+            "--teacher-tpu-decoder, or --no-strict-teacher")
+    model = create_model(teacher_cfg.model, device="cpu", train=True)
+    ckpt_util.partial_restore(saved, model)
+    return model.state_dict()
+
+
+def cmd_distill(args) -> int:
+    """Distill a parity teacher into the (usually ``--tpu-decoder``)
+    student: dense per-pixel targets from the teacher, mixed with the
+    lidar GT loss by ``--alpha``."""
+    from camradepth_tpu_torch.train.distill import (
+        DistillTrainer,
+        check_pairing,
+    )
+
+    for flag in ("data_parallel", "fsdp", "spatial_parallel"):
+        if getattr(args, flag, None):
+            raise UserError(
+                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
+                "queue 1 item 10 (multi-device)): the port distills on one "
+                "device")
+    cfg = _build_train_config(args)
+    teacher_cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, tpu_decoder=args.teacher_tpu_decoder,
+        # remat changes only the backward; the teacher never trains
+        remat_encoder=False, remat_decoder=False,
+        remat_decoder_small=False))
+    try:
+        check_pairing(cfg, teacher_cfg, args.alpha)
+    except ValueError as e:
+        raise UserError(str(e)) from e
+    state = _teacher_state(teacher_cfg, args.teacher_checkpoint,
+                           strict=not args.no_strict_teacher)
+    trainer = DistillTrainer(
+        cfg, teacher_cfg, state, alpha=args.alpha,
+        temperature=args.temperature,
+        # a student --checkpoint (resume or continue) keeps its weights
+        init_from_teacher=not args.no_teacher_init and not args.checkpoint,
+        run_dir=args.run_dir, device=args.device)
+    best = trainer.train()
+    print(f"best val loss: {best:.6f}")
+    return 0
+
+
 def _check_args(args) -> None:
     for flag, item in _LATER_FLAGS.items():
         if getattr(args, flag, None) is not None:
@@ -225,6 +331,7 @@ def _check_args(args) -> None:
 def cmd_test(args) -> int:
     from camradepth_tpu_torch import resolve_device
     from camradepth_tpu_torch.data.pipeline import make_loaders
+    from camradepth_tpu_torch.data.wire import resolve_wire_ship
     from camradepth_tpu_torch.evaluation.harness import (
         evaluate,
         format_report,
@@ -237,7 +344,11 @@ def cmd_test(args) -> int:
     _check_args(args)
     cfg = _build_config(args)
     dev = resolve_device(args.device)
-    loader = make_loaders(cfg.data, batch_size=args.test_batch)["test"]
+    # a wire test loader ships only the seg plane the IoU reads
+    wire = cfg.data.wire_format != "off"
+    loader = make_loaders(resolve_wire_ship(cfg) if wire else cfg.data,
+                          batch_size=args.test_batch,
+                          wire_eval=wire)["test"]
     if loader is None:
         raise UserError("the split has no test frames")
     try:
@@ -259,20 +370,28 @@ def cmd_test(args) -> int:
 
 def cmd_serve(args) -> int:
     from camradepth_tpu_torch.data.pipeline import make_loaders
-    from camradepth_tpu_torch.serving import load_engine
+    from camradepth_tpu_torch.data.wire import is_wire_micro
+    from camradepth_tpu_torch.serving import SERVE_WIRE_KEYS, load_engine
 
     _check_args(args)
     cfg = _build_config(args)
-    loaders = make_loaders(cfg.data, batch_size=args.serve_batch)
+    # compact wire requests (camradepth_tpu/cli.py:703-783), decoded on
+    # the device by the engine; "auto" stays dense where the codec does not
+    # suit the data (the loaders' plan is None)
+    loaders = make_loaders(cfg.data, batch_size=args.serve_batch,
+                           wire_eval=cfg.data.wire_format != "off")
     loader = loaders["test"] or loaders["val"]
     if loader is None:
         raise UserError("the split has no test/val frames")
     try:
         engine = load_engine(cfg, args.checkpoint,
-                             batch_size=args.serve_batch, device=args.device)
+                             batch_size=args.serve_batch, device=args.device,
+                             wire_plan=loader.frames.wire_plan)
     except RuntimeError as e:
         _refuse_layout(cfg, args.checkpoint, e)
         raise
+    except ValueError as e:  # a wire plan of other channels than the model's
+        raise UserError(str(e)) from e
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -280,8 +399,13 @@ def cmd_serve(args) -> int:
         # whole batches pass through infer_stream without a restack; the
         # loader pads and masks the tail, so only valid rows go on
         for batch in loader:
-            feats = batch["features"][..., : cfg.model.input_channels]
             valid = batch["valid"].astype(bool)
+            if is_wire_micro(batch):
+                item = {k: batch[k] for k in SERVE_WIRE_KEYS}
+                yield item if valid.all() else {k: v[valid]
+                                                for k, v in item.items()}
+                continue
+            feats = batch["features"][..., : cfg.model.input_channels]
             yield feats if valid.all() else feats[valid]
 
     n = 0
@@ -301,14 +425,8 @@ def cmd_serve(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
-        prog="camradepth_tpu_torch",
-        description="CamRaDepth on PyTorch/CUDA: train, test and serve",
-    )
-    sub = parser.add_subparsers(dest="command", required=True)
-
-    p = sub.add_parser("train", help="train a model variant on one device")
+def _add_train_flags(p: argparse.ArgumentParser) -> None:
+    """The flags of ``train``, which ``distill`` shares."""
     p.add_argument("--preset", default="base",
                    choices=["base", "base_rgb", "supervised_seg",
                             "unsupervised_seg", "sup_unsup_seg",
@@ -344,6 +462,7 @@ def main(argv=None) -> int:
     p.add_argument("--compute-dtype", default=None,
                    choices=["bfloat16", "float32"])
     _add_tpu_decoder_flag(p)
+    _add_wire_flag(p)
     p.add_argument("--set", action="append", dest="set_overrides",
                    default=None, metavar="SECTION.FIELD=VALUE",
                    help="override a config field by dotted path (sections "
@@ -353,9 +472,48 @@ def main(argv=None) -> int:
                         "the kernels' plain versions)")
     for flag in ("--data-parallel", "--fsdp", "--spatial-parallel"):
         p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+
+
+def main(argv=None) -> int:
+    from camradepth_tpu_torch.config import ConfigError
+
+    parser = argparse.ArgumentParser(
+        prog="camradepth_tpu_torch",
+        description="CamRaDepth on PyTorch/CUDA: train, distill, test and "
+                    "serve",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="train a model variant on one device")
+    _add_train_flags(p)
     p.add_argument("--multihost", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser(
+        "distill",
+        help="distill a parity teacher checkpoint into the --tpu-decoder "
+             "variant (dense per-pixel teacher targets)")
+    _add_train_flags(p)
+    p.add_argument("--teacher-checkpoint", required=True,
+                   help="teacher weights: a reference .pth, a trainer "
+                        "checkpoint, or a run dir (its best checkpoint)")
+    p.add_argument("--teacher-tpu-decoder", action="store_true",
+                   help="the teacher itself is a tpu_decoder model")
+    p.add_argument("--no-strict-teacher", action="store_true",
+                   help="allow a partly matching teacher checkpoint (its "
+                        "mismatched tensors keep a fresh init)")
+    p.add_argument("--alpha", type=float, default=0.7,
+                   help="objective mix: alpha * distill + (1 - alpha) * GT "
+                        "multitask loss (default 0.7; 1.0 = distillation "
+                        "alone)")
+    p.add_argument("--temperature", type=float, default=1.0,
+                   help="softmax temperature of the seg-logit KL terms")
+    p.add_argument("--no-teacher-init", action="store_true",
+                   help="skip the shape-matching warm start of the student "
+                        "from the teacher (skipped anyway when --checkpoint "
+                        "gives a student)")
+    p.set_defaults(fn=cmd_distill)
 
     p = sub.add_parser("test", help="test-split metric report")
     p.add_argument("--report-json", default=None, metavar="PATH",
@@ -381,7 +539,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     try:
         return args.fn(args)
-    except (UserError, NotImplementedError) as e:
+    except (UserError, ConfigError, NotImplementedError) as e:
+        # ConfigError: a configuration the library refuses;
         # NotImplementedError: an option of a slice still to come, raised
         # by the library with its ROADMAP item
         print(f"error: {e}", file=sys.stderr)

@@ -22,6 +22,13 @@ from typing import Mapping, Optional, Tuple
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
+
+class ConfigError(ValueError):
+    """A configuration the port refuses (a bad value or an unsupported
+    combination found at construction time); the CLI prints it as one
+    line and exits 2, as it does its own user errors."""
+
+
 MODEL_VARIANTS = (
     "base (rgb)",
     "base",
@@ -120,9 +127,26 @@ class DataConfig:
     # always assembles frames with numpy (data/channels.py): the C++
     # assembler is not ported yet (ROADMAP queue 1 item 12).
     native_assemble: bool = True
-    # The compact wire format is not ported yet (ROADMAP queue 1 item 5):
-    # the port's loaders raise unless this is "off", the JAX default.
+    # The compact wire format (data/wire.py): the loaders ship the uint8
+    # image and the radar and GT points, decoded on the device into the
+    # dense feature stack, bit for bit. "auto" takes it where the codec
+    # covers the channel config and falls back to dense batches; "on"
+    # raises there; "off" keeps the dense path everywhere.
     wire_format: str = "off"
+    wire_radar_cap: int = 0  # points per frame; 0 = probe the dataset
+    wire_gt_cap: int = 0  # points per frame; 0 = probe (dense if larger)
+    # Ship the seg label planes. batch["seg"] feeds only the supervised
+    # seg loss and the IoU, batch["seg_inter"] only train.seg_inter_loss
+    # on top of it; data/wire.resolve_wire_ship narrows both to what a
+    # config reads (and refuses an explicit False that a config needs).
+    wire_ship_seg: bool = True
+    wire_ship_seg_inter: bool = True
+
+    def __post_init__(self):
+        if self.wire_format not in ("off", "auto", "on"):
+            raise ConfigError(
+                f"data.wire_format must be off|auto|on, got "
+                f"{self.wire_format!r}")
 
     @property
     def effective_train_val_split(self) -> Tuple[int, int]:

@@ -1,15 +1,15 @@
 """Input pipeline: threaded host loader -> fixed-shape numpy batches.
 
-The package's own copy of the dense path of
-``camradepth_tpu/data/pipeline.py``: a thread pool decodes jpgs (cv2),
-loads the .npy artifacts and assembles the reference channel stack
-(``data/channels.py``); batches are fixed-shape numpy, and an eval batch
-pads its ragged tail by repeating the last frame and marks it in
-``batch["valid"]``. The caller copies batches to the device.
+The package's own copy of ``camradepth_tpu/data/pipeline.py``: a thread
+pool decodes jpgs (cv2), loads the .npy artifacts and assembles the
+reference channel stack (``data/channels.py``), or with a wire plan the
+compact wire example (``data/wire.py``), which the consumer decodes on the
+device; batches are fixed-shape numpy, and an eval batch pads its ragged
+tail by repeating the last frame and marks it in ``batch["valid"]``. The
+caller copies batches to the device.
 
-Not ported yet: the compact wire format (``wire=True``, ``wire_eval=True``
-or ``data.wire_format != "off"`` raise; ROADMAP queue 1 item 5) and the
-multi-process row sharding of the train loader (queue 1 item 10).
+Not ported yet: the multi-process row sharding of the train loader
+(ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -21,8 +21,9 @@ from typing import Dict, Iterator, Sequence
 
 import numpy as np
 
-from camradepth_tpu_torch.config import DataConfig
+from camradepth_tpu_torch.config import ConfigError, DataConfig
 from camradepth_tpu_torch.data import channels as ch
+from camradepth_tpu_torch.data import wire as wire_codec
 from camradepth_tpu_torch.data.split import load_split, split_ranges
 
 try:
@@ -75,11 +76,15 @@ def load_frame_arrays(row: Sequence[str], cfg: DataConfig
 
 class NuscenesFrames:
     """Random-access frame store over a split table (reference
-    NuscenesDataset, dataloader.py:197-336)."""
+    NuscenesDataset, dataloader.py:197-336). With ``wire_plan`` set its
+    items are compact wire examples (``data/wire.py``) in place of the
+    dense feature stack."""
 
-    def __init__(self, rows: np.ndarray, cfg: DataConfig, seed: int = 0):
+    def __init__(self, rows: np.ndarray, cfg: DataConfig, seed: int = 0,
+                 wire_plan=None):
         self.rows = rows
         self.cfg = cfg
+        self.wire_plan = wire_plan
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -91,7 +96,11 @@ class NuscenesFrames:
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         arrays = load_frame_arrays(self.rows[index], self.cfg)
-        out = ch.assemble_frame(arrays, self.cfg, rng=self._rng)
+        if self.wire_plan is not None:
+            out = wire_codec.encode_frame_wire(arrays, self.cfg,
+                                               self.wire_plan)
+        else:
+            out = ch.assemble_frame(arrays, self.cfg, rng=self._rng)
         out["index"] = np.int32(index)
         return out
 
@@ -183,21 +192,34 @@ def make_loaders(cfg: DataConfig, batch_size: int, split_path=None,
     """Train/val/test loaders over a split file (reference
     make_dataloaders, dataloader.py:22-50): train = the first rows,
     shuffled; val = the next ones; test = the remainder. A split with no
-    rows for a part gives None for it."""
-    if wire or wire_eval or cfg.wire_format != "off":
-        raise NotImplementedError(
-            "the compact wire format is not ported yet (ROADMAP queue 1 "
-            "item 5): use data.wire_format=off"
-        )
+    rows for a part gives None for it.
+
+    ``wire`` makes the train loader's items compact wire examples,
+    ``wire_eval`` those of val and test (``camradepth_tpu/data/
+    pipeline.py:204-275``). All of them share one plan, probed once from
+    the head of the split, so every loader has the same shapes. Where the
+    codec does not suit the config or the data, the loaders stay dense,
+    or with ``data.wire_format=on`` this raises :class:`ConfigError`."""
     rows = load_split(split_path or cfg.split_path)
     tr, va, te = split_ranges(len(rows), cfg.effective_train_val_split)
+    plan = None
+    if (wire or wire_eval) and len(rows):
+        plan = wire_codec.plan_wire(rows, cfg)
+        if plan is None and cfg.wire_format == "on":
+            raise ConfigError(
+                "data.wire_format=on, but the wire codec does not cover "
+                "this channel config or dataset (sparse_lidar, im_uv, "
+                "images that are not uint8, or radar too dense); use "
+                "wire_format=auto or off")
 
-    def mk(r, shuffle):
+    def mk(r, shuffle, wire_loader):
         if len(r) == 0:
             return None
-        return BatchLoader(NuscenesFrames(rows[list(r)], cfg), batch_size,
-                           shuffle=shuffle, num_workers=cfg.num_workers,
+        frames = NuscenesFrames(rows[list(r)], cfg,
+                                wire_plan=plan if wire_loader else None)
+        return BatchLoader(frames, batch_size, shuffle=shuffle,
+                           num_workers=cfg.num_workers,
                            prefetch=cfg.prefetch)
 
-    return {"train": mk(tr, True), "val": mk(va, False),
-            "test": mk(te, False)}
+    return {"train": mk(tr, True, wire), "val": mk(va, False, wire_eval),
+            "test": mk(te, False, wire_eval)}

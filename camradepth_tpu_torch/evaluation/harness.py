@@ -8,8 +8,10 @@ The device computes a whole batch's
 per-frame metric rows under ``torch.inference_mode``, and only [B] vectors
 cross to the host. Batches are copied to the device ahead of use on a
 worker thread (pinned memory, non-blocking), so host artifact reads overlap
-device compute. The StableHLO-artifact branch (``make_artifact_test_step``)
-comes with the export slice (ROADMAP queue 1 item 9).
+device compute. Compact wire batches (``data/wire.py``) are decoded on
+the device inside the test step. The StableHLO-artifact branch
+(``make_artifact_test_step``) comes with the export slice (ROADMAP queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from camradepth_tpu_torch import resolve_device
 from camradepth_tpu_torch.config import ExperimentConfig
+from camradepth_tpu_torch.data import wire
 from camradepth_tpu_torch.evaluation import metrics as M
 from camradepth_tpu_torch.utils.prefetch import prefetch_iter
 
@@ -39,11 +42,14 @@ def make_test_step(cfg: ExperimentConfig, model):
     """Returns ``test_step(batch) -> per-frame metric rows [B]``, ``batch``
     holding device tensors ``features`` [B, H, W, C] and ``gt_depth``
     [B, H, W], and for a supervised seg branch ``seg`` [B, H, W], the
-    labels its ``iou`` row scores
-    (``camradepth_tpu/evaluation/harness.py:36-63``)."""
+    labels its ``iou`` row scores, or the keys of a compact wire batch,
+    which it decodes first (``camradepth_tpu/evaluation/harness.py:
+    36-63``)."""
 
     def test_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
+            if wire.is_wire_micro(batch):
+                batch = wire.decode_wire_micro(batch)
             pred = model(batch["features"])
             depth = pred["depth"]["final_depth"][..., 0]
             rows = M.depth_metrics_inverse(
@@ -75,12 +81,14 @@ def evaluate(
     dev = resolve_device(device)
     test_step = make_test_step(cfg, model)
 
-    keys = ("features", "gt_depth") + (
+    keys = ("features", "gt_depth") + wire.WIRE_KEYS + (
         ("seg",) if cfg.model.supervised_seg else ())
 
     def _prepare(batch):
         out = {}
         for k in keys:
+            if k not in batch:
+                continue
             t = torch.from_numpy(np.ascontiguousarray(batch[k]))
             if dev.type == "cuda":
                 t = t.pin_memory().to(dev, non_blocking=True)

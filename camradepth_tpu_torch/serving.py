@@ -12,10 +12,14 @@ Counterpart of the dense path of ``camradepth_tpu/serving.py``:
 - depth is returned decoded to metres (inverse encoding,
   dataloader.py:243-245), and a supervised seg branch's labels as the
   argmax of its final logits;
-- per-batch latency and throughput counters.
+- per-batch latency and throughput counters;
+- with a wire plan, requests are compact wire dicts (``image_u8``,
+  ``radar_idx``, ``radar_val``; ``data/wire.py``), decoded on the device
+  into the dense feature stack, bit for bit, before the forward
+  (``:59-95``, ``:141-183``).
 
-The mesh, compact-wire and exported-artifact arguments of the JAX engine
-are not ported yet.
+The mesh and exported-artifact arguments of the JAX engine are not ported
+yet (ROADMAP queue 1 items 8 and 9).
 """
 
 from __future__ import annotations
@@ -24,13 +28,14 @@ import queue
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
 from camradepth_tpu_torch import resolve_device
 from camradepth_tpu_torch.config import ExperimentConfig
+from camradepth_tpu_torch.data import wire as wire_codec
 from camradepth_tpu_torch.interop.flax_convert import load_reference_checkpoint
 from camradepth_tpu_torch.models.camradepth import create_model
 
@@ -57,6 +62,48 @@ def make_serving_forward(cfg: ExperimentConfig, model):
     return fwd
 
 
+# the wire keys a serving request needs (the GT never ships)
+SERVE_WIRE_KEYS = ("image_u8", "radar_idx", "radar_val")
+
+# a stream item: a dense feature stack, or a compact wire request
+Item = Union[np.ndarray, Dict[str, np.ndarray]]
+
+
+def make_serving_forward_wire(cfg: ExperimentConfig, model):
+    """The serving forward over compact wire requests: ``fwd({image_u8,
+    radar_idx, radar_val}) -> {depth, seg}``, the request decoded on the
+    device into the dense features the dense forward takes, so both serve
+    the same outputs."""
+    dense = make_serving_forward(cfg, model)
+
+    def fwd(req: Dict[str, torch.Tensor]
+            ) -> Dict[str, Optional[torch.Tensor]]:
+        feats = wire_codec.decode_wire_micro(
+            {k: req[k] for k in SERVE_WIRE_KEYS})["features"]
+        return dense(feats)
+
+    return fwd
+
+
+def item_arr(x: Item) -> np.ndarray:
+    """The array of a stream item that carries its leading dims (the
+    dense stack, or a wire request's image)."""
+    return x["image_u8"] if isinstance(x, dict) else x
+
+
+def _item_rows(x: Item) -> list:
+    if isinstance(x, dict):
+        return [{k: v[i] for k, v in x.items()}
+                for i in range(item_arr(x).shape[0])]
+    return list(x)
+
+
+def _item_stack(rows: list) -> Item:
+    if isinstance(rows[0], dict):
+        return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+    return np.stack(rows)
+
+
 class DepthEngine:
     def __init__(
         self,
@@ -64,44 +111,79 @@ class DepthEngine:
         model,
         batch_size: int = 8,
         device="cuda",
+        wire_plan=None,
     ):
         """Serve ``model`` (a port ``CamRaDepth``, moved to ``device``) at
-        a fixed ``batch_size``. Raises when ``device`` is CUDA and no card
-        is there."""
+        a fixed ``batch_size``. With ``wire_plan`` (a ``data/wire.py``
+        WirePlan) the requests are compact wire dicts, whose channels must
+        be the model's. Raises when ``device`` is CUDA and no card is
+        there."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = model.to(self.device).eval()
         self.batch_size = batch_size
+        self.wire_plan = wire_plan
         h, w = cfg.model.img_size
         self._in_shape = (batch_size, h, w, cfg.model.input_channels)
-        self._fwd = make_serving_forward(cfg, self.model)
+        if wire_plan is not None:
+            if 3 + wire_plan.n_radar_ch != cfg.model.input_channels:
+                raise ValueError(
+                    f"wire plan carries 3+{wire_plan.n_radar_ch} channels "
+                    f"but the model expects {cfg.model.input_channels}")
+            self._fwd = make_serving_forward_wire(cfg, self.model)
+        else:
+            self._fwd = make_serving_forward(cfg, self.model)
         self.frames_served = 0
         self.batches_served = 0
         self._warmed = False
         self._t_start: Optional[float] = None
         self._batch_times: list = []
 
+    def _warm_input(self) -> Item:
+        if self.wire_plan is None:
+            return np.zeros(self._in_shape, np.float32)
+        b, p = self.batch_size, self.wire_plan
+        h, w = self.cfg.model.img_size
+        return {"image_u8": np.zeros((b, h, w, 3), np.uint8),
+                "radar_idx": np.zeros((b, p.radar_cap), np.int32),
+                "radar_val": np.zeros((b, p.radar_cap, p.n_radar_ch),
+                                      np.float32)}
+
     def warmup(self) -> None:
         """One forward on zeros, outside the serving timers; on the card
         it also builds the kernels."""
-        x = torch.zeros(self._in_shape, dtype=torch.float32,
-                        device=self.device)
-        self._fwd(x)["depth"].cpu()
+        self._fwd(self._to_device(self._warm_input()))["depth"].cpu()
         self._warmed = True
 
-    def _to_device(self, features: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(np.ascontiguousarray(features, np.float32))
+    def _copy(self, a: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(a)
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
         return x
 
-    def _dispatch(self, features: np.ndarray):
+    def _to_device(self, features: Item):
+        """A dense stack as the fp32 input of the forward, a wire
+        request's arrays in their own dtypes."""
+        if isinstance(features, dict):
+            return {k: self._copy(np.ascontiguousarray(v))
+                    for k, v in features.items()}
+        return self._copy(np.ascontiguousarray(features, np.float32))
+
+    def _dispatch(self, features: Item):
         """Pad, copy to the device and enqueue the forward without waiting
-        for it: the returned handle is work in flight."""
+        for it: the returned handle is work in flight. ``features`` is a
+        dense [b, H, W, C] stack, or a wire request dict (wire engines
+        only)."""
         if not self._warmed:
             # a cold first request must not pollute the serving stats
             self.warmup()
-        n = features.shape[0]
+        if isinstance(features, dict):
+            if self.wire_plan is None:
+                raise ValueError(
+                    "this engine was built without a wire plan; wire "
+                    "requests need a wire engine")
+            features = {k: np.asarray(features[k]) for k in SERVE_WIRE_KEYS}
+        n = item_arr(features).shape[0]
         if n > self.batch_size:
             raise ValueError(
                 f"batch of {n} frames exceeds the engine batch "
@@ -109,9 +191,13 @@ class DepthEngine:
             )
         if n < self.batch_size:
             k = self.batch_size - n
-            features = np.concatenate(
-                [features, np.repeat(features[-1:], k, axis=0)], axis=0
-            )
+
+            def pad(v):
+                return np.concatenate([v, np.repeat(v[-1:], k, axis=0)],
+                                      axis=0)
+
+            features = ({key: pad(v) for key, v in features.items()}
+                        if isinstance(features, dict) else pad(features))
         if self._t_start is None:
             self._t_start = time.perf_counter()
         t0 = time.perf_counter()
@@ -131,19 +217,24 @@ class DepthEngine:
         self.batches_served += 1
         return result
 
-    def infer_batch(self, features: np.ndarray) -> Dict[str, np.ndarray]:
-        """features: [b <= batch_size, H, W, C]; pads the tail inside."""
-        return self._materialize(self._dispatch(np.asarray(features)))
+    def infer_batch(self, features: Item) -> Dict[str, np.ndarray]:
+        """features: [b <= batch_size, H, W, C], or a wire request dict of
+        [b, ...] arrays; pads the tail inside."""
+        if not isinstance(features, dict):
+            features = np.asarray(features)
+        return self._materialize(self._dispatch(features))
 
     def infer_stream(
         self,
-        frames: Iterable[np.ndarray],
+        frames: Iterable[Item],
         prefetch: int = 2,
         inflight: int = 2,
     ) -> Iterator[Dict[str, np.ndarray]]:
-        """Stream feature stacks; yields per-frame results in order. Items
-        are single frames [H, W, C] or batches [b, H, W, C]; a batch of
-        exactly ``batch_size`` passes through, any other is re-chunked."""
+        """Stream feature stacks or wire requests; yields per-frame
+        results in order. Items are single frames ([H, W, C], or a dict of
+        one frame's wire arrays) or batches ([b, H, W, C], or a dict of
+        [b, ...] arrays); a batch of exactly ``batch_size`` passes
+        through, any other is re-chunked."""
         q_in: queue.Queue = queue.Queue(maxsize=prefetch)
         sentinel = object()
 
@@ -153,20 +244,25 @@ class DepthEngine:
             try:
                 buf = []
                 for f in frames:
-                    f = np.asarray(f)
-                    if f.ndim == 4:
-                        if not buf and f.shape[0] in (self.batch_size, 0):
-                            if f.shape[0]:
+                    if isinstance(f, dict):
+                        f = {k: np.asarray(v) for k, v in f.items()
+                             if k in SERVE_WIRE_KEYS}
+                    else:
+                        f = np.asarray(f)
+                    if item_arr(f).ndim == 4:
+                        nb = item_arr(f).shape[0]
+                        if not buf and nb in (self.batch_size, 0):
+                            if nb:
                                 q_in.put(f)
                             continue
-                        buf.extend(list(f))
+                        buf.extend(_item_rows(f))
                     else:
                         buf.append(f)
                     while len(buf) >= self.batch_size:
-                        q_in.put(np.stack(buf[: self.batch_size]))
+                        q_in.put(_item_stack(buf[: self.batch_size]))
                         buf = buf[self.batch_size:]
                 if buf:
-                    q_in.put(np.stack(buf))
+                    q_in.put(_item_stack(buf))
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 q_in.put(e)
             else:
@@ -231,11 +327,14 @@ def load_engine(
     checkpoint: str,
     batch_size: int = 8,
     device="cuda",
+    wire_plan=None,
 ) -> DepthEngine:
-    """A warmed-up engine serving a reference ``.pth`` checkpoint."""
+    """A warmed-up engine serving a reference ``.pth`` checkpoint, dense or
+    (with ``wire_plan``) over compact wire requests."""
     dev = resolve_device(device)
     state = load_reference_checkpoint(checkpoint)
     model = create_model(cfg.model, device=dev, state_dict=state)
-    engine = DepthEngine(cfg, model, batch_size=batch_size, device=dev)
+    engine = DepthEngine(cfg, model, batch_size=batch_size, device=dev,
+                         wire_plan=wire_plan)
     engine.warmup()
     return engine

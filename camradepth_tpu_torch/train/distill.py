@@ -1,0 +1,198 @@
+"""Teacher -> student distillation: reference weights into the
+``tpu_decoder`` variant.
+
+Counterpart of ``camradepth_tpu/train/distill.py``. The ``tpu_decoder``
+variant is not weight-compatible with reference checkpoints: only the
+encoder and the low-resolution decoder carry over by shape. A user with
+a trained reference ``.pth`` gets the variant by
+
+1. a shape-matching warm start of the student from the teacher's weights
+   (the subpixel stages keep their init), then
+2. a short dense distillation: the student trains against the parity
+   teacher's per-pixel predictions, mixed with the sparse lidar GT loss
+   as ``alpha * distill + (1 - alpha) * multitask GT``.
+
+Each microbatch is padded (``train.pad_microbatch_to``), decoded if it
+came as a compact wire batch, and run through the teacher under
+``torch.no_grad()`` in eval mode, then through the student. The GT terms
+mask the padded rows themselves; the dense distill terms, which a padded
+row would pollute, are weighted by a per-row valid mask. The teacher
+holds its weights in the compute dtype, cast once (the same bits a cast at
+each use gives), and its activations never enter autograd. The optimizer
+step is :func:`train.step.train_step`'s, with this objective.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from camradepth_tpu_torch.config import ExperimentConfig
+from camradepth_tpu_torch.models.camradepth import create_model
+from camradepth_tpu_torch.train.losses import multitask_loss
+from camradepth_tpu_torch.train.step import (
+    build_gt,
+    prepare_microbatch,
+    train_step,
+)
+from camradepth_tpu_torch.train.trainer import Trainer
+from camradepth_tpu_torch.utils import checkpoint as ckpt_util
+
+
+def _per_sample_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
+                          beta: float = 1.0) -> torch.Tensor:
+    """Dense SmoothL1, the mean over all pixels of each sample -> [B]: the
+    teacher's prediction is a target at every pixel."""
+    diff = torch.abs(target - pred)
+    loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
+                       diff - 0.5 * beta)
+    return loss.mean(dim=tuple(range(1, loss.ndim)))
+
+
+def _per_sample_kl(student_logits: torch.Tensor,
+                   teacher_logits: torch.Tensor,
+                   temperature: float) -> torch.Tensor:
+    """KL(teacher || student) over the class axis (last, NHWC) of the
+    logits divided by ``temperature``, times T^2 (Hinton et al. 2015), the
+    mean over pixels of each sample -> [B]; in fp32."""
+    t = float(temperature)
+    t_logits = teacher_logits.float() / t
+    p_t = F.softmax(t_logits, dim=-1)
+    log_t = F.log_softmax(t_logits, dim=-1)
+    log_s = F.log_softmax(student_logits.float() / t, dim=-1)
+    kl = torch.sum(p_t * (log_t - log_s), dim=-1) * (t * t)
+    return kl.mean(dim=tuple(range(1, kl.ndim)))
+
+
+def distill_terms(student_pred: Mapping, teacher_pred: Mapping,
+                  cfg: ExperimentConfig, temperature: float = 1.0
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The per-sample distillation objective [B] and its scalar terms
+    (``camradepth_tpu/train/distill.py:86-129``). The heads are weighted
+    as in the GT multitask loss (``train.loss_weights``, normalized by
+    their sum): the depth heads by dense SmoothL1, the seg heads by the
+    temperature-scaled KL, zero where either side has no such head. The
+    argmax ``unsup_map`` is not distilled."""
+    w = cfg.train.loss_weights
+    s_d, t_d = student_pred["depth"], teacher_pred["depth"]
+    l_final = _per_sample_smooth_l1(s_d["final_depth"][..., 0],
+                                    t_d["final_depth"][..., 0])
+    l_d4 = _per_sample_smooth_l1(s_d["intermediate_depths"][3][..., 0],
+                                 t_d["intermediate_depths"][3][..., 0])
+    l_d3 = _per_sample_smooth_l1(s_d["intermediate_depths"][2][..., 0],
+                                 t_d["intermediate_depths"][2][..., 0])
+    zeros = torch.zeros_like(l_final)
+    s_seg, t_seg = student_pred["seg"], teacher_pred["seg"]
+
+    def kl(key):
+        if s_seg[key] is None or t_seg[key] is None:
+            return zeros
+        return _per_sample_kl(s_seg[key], t_seg[key], temperature)
+
+    l_seg, l_seg_i = kl("final_seg"), kl("intermediate_seg")
+    total = (w[0] * l_final + w[1] * l_d4 + w[2] * l_d3 + w[3] * l_seg
+             + w[4] * l_seg_i) / sum(w)
+    terms = {
+        "distill_depth_final": l_final.mean(),
+        "distill_depth_stage4": l_d4.mean(),
+        "distill_depth_stage3": l_d3.mean(),
+        "distill_seg_final": l_seg.mean(),
+        "distill_seg_inter": l_seg_i.mean(),
+    }
+    return total, terms
+
+
+def distill_loss(cfg: ExperimentConfig, model, micro: Dict,
+                 generator: Optional[torch.Generator], *, teacher,
+                 alpha: float, temperature: float):
+    """(loss, metrics) of one distillation microbatch: the microbatch loss
+    that ``train_step`` takes as ``loss_fn`` (``camradepth_tpu/train/
+    distill.py:146-210``)."""
+    orig_b = (micro["features"] if "features" in micro
+              else micro["image_u8"]).shape[0]
+    # teacher and student both read the padded, decoded features
+    micro = prepare_microbatch(cfg, micro)
+    x = micro["features"]
+    b = x.shape[0]
+    valid = (torch.arange(b, device=x.device) < orig_b).float()
+    with torch.no_grad():
+        teacher_pred = teacher(x)
+    model.set_generator(generator)
+    pred = model(x)
+    per_sample, terms = distill_terms(pred, teacher_pred, cfg, temperature)
+    del teacher_pred
+    l_distill = torch.sum(per_sample * valid) / torch.clamp(valid.sum(),
+                                                            min=1.0)
+    l_gt, gt_metrics = multitask_loss(pred, build_gt(micro), cfg)
+    total = alpha * l_distill + (1.0 - alpha) * l_gt
+    metrics = {"loss": total, "loss_distill": l_distill, "loss_gt": l_gt,
+               "rmse_m": gt_metrics["rmse_m"], **terms}
+    return total, metrics
+
+
+def check_pairing(cfg: ExperimentConfig, teacher_cfg: ExperimentConfig,
+                  alpha: float) -> None:
+    """The checks of ``camradepth_tpu/train/distill.py:253-278``: alpha in
+    [0, 1]; teacher and student share the input size and channels and the
+    seg heads (a seg mismatch would zero the seg KL terms silently)."""
+    if not 0.0 <= float(alpha) <= 1.0:
+        raise ValueError(f"alpha must be in [0, 1], got {alpha}")
+    t, s = teacher_cfg.model, cfg.model
+    if tuple(t.img_size) != tuple(s.img_size):
+        raise ValueError("teacher and student must share img_size "
+                         f"({t.img_size} vs {s.img_size})")
+    if t.input_channels != s.input_channels:
+        raise ValueError("teacher and student must share input_channels "
+                         f"({t.input_channels} vs {s.input_channels})")
+    for f in ("supervised_seg", "unsupervised_seg", "num_classes"):
+        tv, sv = getattr(t, f), getattr(s, f)
+        if tv != sv:
+            raise ValueError(
+                f"teacher and student must share model.{f} ({tv} vs {sv})"
+                " - a mismatch drops the seg distillation terms silently")
+
+
+class DistillTrainer(Trainer):
+    """A Trainer whose objective distills a frozen teacher into the
+    (usually ``tpu_decoder``) student (``camradepth_tpu/train/distill.py:
+    231-309``). ``teacher_state`` is the teacher's fp32 state_dict in the
+    port's layout, complete for ``teacher_cfg.model``. Validation stays
+    GT-based: the val loss and RMSE measure the student against lidar, so
+    best-checkpoint selection and early stopping mean what they mean in a
+    normal run."""
+
+    def __init__(self, cfg: ExperimentConfig, teacher_cfg: ExperimentConfig,
+                 teacher_state: Mapping[str, torch.Tensor],
+                 alpha: float = 0.5, temperature: float = 1.0,
+                 init_from_teacher: bool = True, **kwargs):
+        check_pairing(cfg, teacher_cfg, alpha)
+        self._alpha = float(alpha)
+        self._temperature = float(temperature)
+        super().__init__(cfg, **kwargs)
+        self.teacher = create_model(teacher_cfg.model, device=self.device,
+                                    state_dict=teacher_state)
+        for p in self.teacher.parameters():
+            p.requires_grad_(False)
+        # a restored state keeps its parameters: they belong with the
+        # restored optimizer moments (an auto-resume, or a --checkpoint)
+        restored = self.training_steps > 0 or bool(
+            cfg.train.checkpoint and cfg.train.load_ckpt)
+        if init_from_teacher and restored:
+            print("#### teacher warm start SKIPPED: a checkpoint was "
+                  "restored (resume takes precedence)")
+        if init_from_teacher and not restored:
+            # from the fp32 weights, not the teacher's compute-dtype copy
+            done = ckpt_util.partial_restore(dict(teacher_state), self.model,
+                                             verbose=False)
+            print(f"#### teacher warm start: {len(done.transferred)}/"
+                  f"{done.total} param tensors transferred")
+
+    def _train_step(self, micro, gens, lr):
+        loss_fn = functools.partial(distill_loss, teacher=self.teacher,
+                                    alpha=self._alpha,
+                                    temperature=self._temperature)
+        return train_step(self.cfg, self.model, self.optimizer, micro, gens,
+                          lr, loss_fn=loss_fn)

@@ -7,15 +7,17 @@ the count, its global L2 norm is taken, and diffGradNorm takes one step.
 Activations are in the compute dtype; the params, their gradients, the
 optimizer state, the norms and the losses are fp32. The GT min-pool
 pyramid is built on the device, so only the full-resolution inverse-depth
-map comes from the host.
+map comes from the host. A compact wire microbatch (``data/wire.py``) is
+decoded on the device after its padding, before the forward.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from camradepth_tpu_torch.data.wire import decode_wire_micro, is_wire_micro
 from camradepth_tpu_torch.ops.pooling import minpool_sparse
 from camradepth_tpu_torch.train.losses import multitask_loss
 
@@ -52,12 +54,22 @@ def build_gt(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     }
 
 
+def prepare_microbatch(cfg, micro: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """A microbatch padded to ``train.pad_microbatch_to`` and, if it came
+    as a compact wire batch, decoded on its device."""
+    if cfg.train.pad_microbatch_to:
+        micro = pad_microbatch(micro, cfg.train.pad_microbatch_to)
+    if is_wire_micro(micro):
+        micro = decode_wire_micro(micro)
+    return micro
+
+
 def microbatch_loss(cfg, model, micro: Dict[str, torch.Tensor],
                     generator: Optional[torch.Generator] = None):
     """(loss, metrics) of one microbatch in train mode, its dropout drawn
     from ``generator``."""
-    if cfg.train.pad_microbatch_to:
-        micro = pad_microbatch(micro, cfg.train.pad_microbatch_to)
+    micro = prepare_microbatch(cfg, micro)
     model.set_generator(generator)
     pred = model(micro["features"])
     return multitask_loss(pred, build_gt(micro), cfg)
@@ -71,18 +83,21 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def train_step(cfg, model, optimizer, microbatches: List[Dict],
                generators: Sequence[Optional[torch.Generator]],
-               lr: float) -> Dict[str, torch.Tensor]:
+               lr: float, loss_fn: Callable = microbatch_loss
+               ) -> Dict[str, torch.Tensor]:
     """One optimizer step over ``microbatches`` (``update_interval`` dicts
     of device tensors), microbatch i's dropout drawn from
-    ``generators[i]``, at learning rate ``lr``. Returns the metrics, each
-    the mean over the microbatches, and ``grad_norm``, the global L2 norm
-    of the averaged gradients (0-d device tensors: reading one waits for
-    the step)."""
+    ``generators[i]``, at learning rate ``lr``. ``loss_fn(cfg, model,
+    micro, generator) -> (loss, metrics)`` is the objective of one
+    microbatch (the distillation step passes its own). Returns the
+    metrics, each the mean over the microbatches, and ``grad_norm``, the
+    global L2 norm of the averaged gradients (0-d device tensors: reading
+    one waits for the step)."""
     params = [p for p in model.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
     per_micro = []
     for micro, gen in zip(microbatches, generators):
-        loss, metrics = microbatch_loss(cfg, model, micro, gen)
+        loss, metrics = loss_fn(cfg, model, micro, gen)
         loss.backward()
         per_micro.append({k: v.detach() for k, v in metrics.items()})
     accum = len(per_micro)
@@ -109,6 +124,8 @@ def eval_step(cfg, model, batch: Dict[str, torch.Tensor]
     (``camradepth_tpu/train/step.py:152-179``): the loss terms of each
     frame alone, so the caller can drop the loader's padded tail frames
     and weight the aggregate by frame."""
+    if is_wire_micro(batch):
+        batch = decode_wire_micro(batch)
     pred = model(batch["features"])
     gt = build_gt(batch)
     n = batch["features"].shape[0]

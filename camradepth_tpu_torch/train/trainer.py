@@ -13,7 +13,11 @@ mesh and multi-host branches (ROADMAP queue 1 item 10):
   resumed run draws what an uninterrupted one draws;
 - microbatches are assembled and copied to the device ahead of the step
   on a worker thread (``utils/prefetch.py``), features in
-  ``train.transfer_dtype``;
+  ``train.transfer_dtype``; with ``data.wire_format`` auto or on (one
+  process: both take the wire where the codec covers the config) every
+  loader ships compact wire batches (``data/wire.py``), decoded on the
+  device inside the step, and a bf16 transfer rounds their ``radar_val``,
+  the one feature payload the wire ships in floats;
 - validation runs in eval mode under ``torch.no_grad()``, per frame, with
   the loader's padded tail frames (``batch["valid"]``) and non-finite
   frames dropped from the means;
@@ -42,6 +46,7 @@ import torch
 from camradepth_tpu_torch import resolve_device
 from camradepth_tpu_torch.config import ExperimentConfig, num_epochs_for_steps
 from camradepth_tpu_torch.data.pipeline import make_loaders
+from camradepth_tpu_torch.data.wire import WIRE_KEYS, resolve_wire_ship
 from camradepth_tpu_torch.models.camradepth import create_model
 from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
 from camradepth_tpu_torch.train.schedule import onecycle
@@ -50,8 +55,9 @@ from camradepth_tpu_torch.utils import checkpoint as ckpt_util
 from camradepth_tpu_torch.utils.logging import MetricWriter, create_run_dir
 from camradepth_tpu_torch.utils.prefetch import prefetch_iter
 
-# the batch keys a step reads (the seg labels only with a seg branch)
-_BATCH_KEYS = ("features", "gt_depth")
+# the batch keys a step reads (the seg labels only with a seg branch), of
+# dense and of wire batches
+_BATCH_KEYS = ("features", "gt_depth") + WIRE_KEYS
 _SEG_KEYS = ("seg", "seg_inter")
 
 
@@ -91,8 +97,12 @@ class Trainer:
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.loaders = loaders or make_loaders(cfg.data,
-                                               cfg.train.batch_size)
+        # the compact wire format (camradepth_tpu/train/trainer.py:248-
+        # 287): single-process, so "auto" and "on" both take it
+        wire = cfg.data.wire_format != "off"
+        self.loaders = loaders or make_loaders(
+            resolve_wire_ship(cfg) if wire else cfg.data,
+            cfg.train.batch_size, wire=wire, wire_eval=wire)
         if self.loaders.get("train") is None:
             raise ValueError(
                 "training requires a non-empty train split; the current "
@@ -180,17 +190,21 @@ class Trainer:
                          f"bfloat16, got {td!r}")
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        """One host batch's arrays on the device (features in the transfer
-        dtype: bf16 is exact when the model computes in bf16, as its first
-        operation casts the input)."""
+        """One host batch's arrays on the device, the features in the
+        transfer dtype: bf16 is exact when the model computes in bf16, as
+        its first operation casts the input. A wire batch ships its image
+        as bytes, so only its ``radar_val`` takes the transfer dtype
+        (``camradepth_tpu/train/trainer.py:478-499``): the same bits the
+        dense bf16 stack carries for those channels."""
         tdt = self._transfer_dtype()
+        cast = "features" if "features" in batch else "radar_val"
         out = {}
         keys = _BATCH_KEYS + (_SEG_KEYS if self.cfg.model.supervised_seg
                               else ())
         for k in keys:
             if k in batch and batch[k] is not None:
                 t = torch.from_numpy(np.ascontiguousarray(batch[k]))
-                if k == "features" and tdt is not None:
+                if k == cast and tdt is not None:
                     t = t.to(tdt)
                 out[k] = t.to(self.device, non_blocking=True)
         return out
@@ -267,7 +281,7 @@ class Trainer:
         try:
             for batch in self.loaders["val"]:
                 dev = self._to_device(batch)
-                bsz = int(dev["features"].shape[0])
+                bsz = int(next(iter(dev.values())).shape[0])
                 valid = np.asarray(batch.get("valid", np.ones(bsz)),
                                    np.float64)
                 metrics = eval_step(self.cfg, self.model, dev)

@@ -26,7 +26,7 @@ import os
 import re
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -174,12 +174,28 @@ def restore_checkpoint(path) -> Dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+class Restored(NamedTuple):
+    """What :func:`partial_restore` did: the keys it copied and the
+    (key, reason) pairs it left at their values."""
+
+    transferred: List[str]
+    skipped: List[Tuple[str, str]]
+
+    @property
+    def total(self) -> int:
+        return len(self.transferred) + len(self.skipped)
+
+
 def partial_restore(saved: Dict[str, torch.Tensor], model: torch.nn.Module,
-                    verbose: bool = True) -> List[Tuple[str, str]]:
+                    verbose: bool = True) -> Restored:
     """Shape-matching partial load into ``model`` (reference
     load_checkpoint_with_shape_match, utils.py:352-370): the keys of
-    ``saved`` with the model's shapes are copied, every other parameter
-    keeps its value. Returns the (key, reason) pairs that were skipped."""
+    ``saved`` with the model's shapes are copied into the model's own
+    tensors, every other tensor keeps its value. ``len(transferred)`` of
+    ``total`` is the count the JAX warm start prints. The model never
+    holds a tensor of ``saved``: ``load_state_dict`` copies values into
+    the model's storage (the JAX package once warm-started a student
+    whose arrays aliased its teacher's)."""
     saved = {k.removeprefix("module."): v for k, v in saved.items()}
     own = model.state_dict()
     take, skipped = {}, []
@@ -195,4 +211,4 @@ def partial_restore(saved: Dict[str, torch.Tensor], model: torch.nn.Module,
     if verbose:
         for key, reason in skipped:
             print(f"#### partial restore: keeping init for {key} ({reason})")
-    return skipped
+    return Restored(sorted(take), skipped)

@@ -59,7 +59,19 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       sup_unsup_seg as in (h), its best checkpoint serving depth and
       labels, and one profiled step; (i5) the bf16 batch-8 forward of
       base and of base + tpu_decoder in turns (3 bicubic launches per
-      forward for the variant) and 2 steps of cli train --tpu-decoder.
+      forward for the variant) and 2 steps of cli train --tpu-decoder;
+  (j) cli distill and the compact wire format: (j1) cli distill from a
+      `base` teacher (the golden's weights as a .pth) into a `base` +
+      tpu_decoder student, bf16, batch 2 x 3, one epoch of 4 steps on the
+      24/8 split, with the warm start's count, 34 + 34 + 34 attention,
+      5 + 3 + 3 bicubic and 53 + 53 + 53 GELU launches per microbatch
+      (teacher forward, student forward and backward), a best checkpoint
+      that load_engine serves, and one profiled distill step; (j2) each
+      wire path against its dense run: a wire batch decoded on the card
+      against the dense batch bit for bit, cli test --wire on (fp32, TF32
+      off) against dense cli test, rtol 1e-6 per metric, cli serve --wire
+      on against dense cli serve (bf16) bit for bit, and one bf16 cli
+      train --wire on step's loss against the dense step's.
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -901,6 +913,10 @@ ARGMAX_TIE = 1e-4
 STEP_RTOL = 1e-3
 STEP_GRAD_REL_L2 = 1e-3
 TRAIN_BATCH = 2
+# the teacher warm start of cli distill, base into base + tpu_decoder:
+# tensors transferred, of the student's; tests/test_torch_distill.py
+# derives it from the JAX package's partial_restore_params
+DISTILL_WARM_START = (859, 881)
 
 
 def argmax_near_ties(q, k, heads, amax):
@@ -1312,18 +1328,28 @@ def phase_h_train(cfg, counters, reset_counters):
     return launches
 
 
-def profile_train_step(cfg, accum, tag="(h)"):
+def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None):
     """One bf16 optimizer step (batch 2 x 3) timed without the profiler,
-    and one under it: device busy, the idle share, and the largest
-    kernels."""
+    and one under it: device busy, the idle share, peak memory and the
+    largest kernels. With ``teacher_cfg``, a distill step (alpha 0.7,
+    temperature 1) against a teacher of that config."""
+    import functools
+
     from torch.profiler import ProfilerActivity, profile
 
     from camradepth_tpu_torch.models.camradepth import create_model
     from camradepth_tpu_torch.models.layers import GroupNorm
     from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
-    from camradepth_tpu_torch.train.step import train_step
+    from camradepth_tpu_torch.train.distill import distill_loss
+    from camradepth_tpu_torch.train.step import microbatch_loss, train_step
     from camradepth_tpu_torch.train.trainer import step_generator
 
+    loss_fn, kind = microbatch_loss, "optimizer"
+    if teacher_cfg is not None:
+        teacher = create_model(teacher_cfg.model, device="cuda", seed=1)
+        loss_fn = functools.partial(distill_loss, teacher=teacher, alpha=0.7,
+                                    temperature=1.0)
+        kind = "distill"
     model = create_model(cfg.model, device="cuda", seed=0, train=True)
     casts = sum(1 for mod in model.modules() if not isinstance(mod, GroupNorm)
                 for _ in mod.parameters(recurse=False))
@@ -1336,26 +1362,29 @@ def profile_train_step(cfg, accum, tag="(h)"):
 
     def step(i):
         gens = [step_generator(dev, 0, 0, i, j) for j in range(accum)]
-        return train_step(cfg, model, opt, micro, gens, 1e-5)
+        return train_step(cfg, model, opt, micro, gens, 1e-5,
+                          loss_fn=loss_fn)
 
     step(0)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     step(1)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(2)
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"{tag} one bf16 optimizer step (batch {TRAIN_BATCH} x {accum}): "
+    print(f"{tag} one bf16 {kind} step (batch {TRAIN_BATCH} x {accum}): "
           f"{wall_ms:.2f} ms wall without the profiler, device busy "
           f"{busy_ms:.2f} ms under it, {sum(e.count for e in kernels)} kernel "
           f"launches; device idle share {100 * (1 - busy_ms / wall_ms):.1f} %;"
-          f" fp32 weights cast at use: {casts} tensors per microbatch "
-          f"forward")
+          f" peak memory {peak_gb:.2f} GiB; fp32 weights cast at use: "
+          f"{casts} tensors per microbatch forward")
     for e in kernels[:14]:
         ms = e.self_device_time_total / 1e3
         print(f"{tag}   {ms:8.3f} ms {100 * ms / busy_ms:5.1f} % x{e.count:<5d} "
@@ -1367,7 +1396,7 @@ def profile_train_step(cfg, accum, tag="(h)"):
         ms = sum(e.self_device_time_total for e in sel) / 1e3
         print(f"{tag} {name}: {ms:.3f} ms ({100 * ms / busy_ms:.1f} % of device"
               f" time), x{sum(e.count for e in sel)}")
-    del model, opt, micro
+    del model, opt, micro, loss_fn
     torch.cuda.empty_cache()
 
 
@@ -1809,6 +1838,219 @@ def phase_i(counters, all_counters, reset_counters):
         enumerate(zip(times, times[1:]))))
 
 
+# ---------------------------------------------------------------- phase (j)
+# cli test --wire on against dense cli test, both fp32 with TF32 off: the
+# decoded batches are the dense ones, so the reports agree to roundoff
+WIRE_REPORT_RTOL = 1e-6
+
+
+def phase_j1(cfg, split, pth, all_counters, reset_counters):
+    """cli distill at 416x800 bf16: teacher base from the golden's
+    weights, student base + tpu_decoder, batch 2 x 3, one epoch of 4 steps
+    on the 24/8 split; its best checkpoint served; one profiled step."""
+    from camradepth_tpu_torch.serving import load_engine
+    from camradepth_tpu_torch.utils.checkpoint import best_checkpoint
+
+    h, w = cfg.model.img_size
+    n_train, n_val, accum = 24, 8, 3
+    student_cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                        tpu_decoder=True))
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = Path(tmp) / "run"
+        argv = ["distill", "--preset", "base", "--tpu-decoder",
+                "--teacher-checkpoint", str(pth), "--split", str(split),
+                "--train-val-split", f"{n_train},{n_val}", "--run-dir",
+                str(run_dir), "--save-model", "--batch-size",
+                str(TRAIN_BATCH), "--desired-batch-size",
+                str(TRAIN_BATCH * accum), "--num-epochs", "1", "--set",
+                "train.log_every=1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_counters()
+        require(rc == 0, (rc, out[-2000:]))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        n, m = DISTILL_WARM_START
+        line = f"#### teacher warm start: {n}/{m} param tensors transferred"
+        require(line in out, out[:2000])
+        steps = n_train // (TRAIN_BATCH * accum)
+        micro, evals = steps * accum, -(-n_val // TRAIN_BATCH)
+        t_attn, t_up, t_gelu = variant_counts(cfg.model)
+        s_attn, s_up, s_gelu = variant_counts(student_cfg.model)
+        # per microbatch the teacher's forward, the student's forward and
+        # its backward; eval runs the student's forward alone
+        want = (micro * (t_attn + s_attn) + evals * s_attn,
+                micro * (t_up + s_up) + evals * s_up, 0,
+                micro * (t_gelu + s_gelu) + evals * s_gelu,
+                micro * s_attn, micro * s_up, micro * s_gelu)
+        print(f"(j1) cli distill base -> base + tpu_decoder 416x800 bf16 "
+              f"batch {TRAIN_BATCH} x {accum}: {steps} optimizer steps + "
+              f"eval of {n_val} frames in {wall:.1f} s; {line[5:]}; "
+              f"launches {launches} (expected {want}: {t_attn} + {s_attn} + "
+              f"{s_attn}, {t_up} + {s_up} + {s_up}, {t_gelu} + {s_gelu} + "
+              f"{s_gelu} per microbatch, the student's forward only for "
+              f"eval)")
+        require(launches == want, (launches, want))
+        logs = train_losses(run_dir)
+        keys = ("train/loss", "train/loss_distill", "train/loss_gt")
+        require(all(len(logs[k]) == steps for k in keys)
+                and len(logs["val/loss"]) == 1, logs.get("train/loss"))
+        require(all(np.isfinite(v) for k in keys for v in logs[k])
+                and np.isfinite(logs["val/loss"][0]), logs)
+        best = best_checkpoint(run_dir)
+        require(best is not None, "no best checkpoint written")
+        print(f"(j1) loss {[round(v, 6) for v in logs['train/loss']]}, "
+              f"loss_distill "
+              f"{[round(v, 6) for v in logs['train/loss_distill']]}, val "
+              f"loss {logs['val/loss'][0]:.6f}; steps_per_sec="
+              f"{logs['train/steps_per_sec'][-1]:.3f} (epoch, loader "
+              f"included); peak memory {peak_gb:.2f} GiB")
+        engine = load_engine(student_cfg, str(best), batch_size=TRAIN_BATCH,
+                             device="cuda")
+        res = engine.infer_batch(np.random.default_rng(7).standard_normal(
+            (TRAIN_BATCH, h, w, 7), dtype=np.float32))
+        require(res["depth"].shape == (TRAIN_BATCH, h, w)
+                and np.isfinite(res["depth"]).all(), res["depth"].shape)
+        print(f"(j1) load_engine --tpu-decoder served {TRAIN_BATCH} frames "
+              f"from {best.name}: depth {res['depth'].min():.3f} .. "
+              f"{res['depth'].max():.3f} m")
+        del engine
+    profile_train_step(student_cfg, accum, tag="(j1)", teacher_cfg=cfg)
+    return launches
+
+
+def phase_j2(cfg, split, head, pth, counters, reset_counters):
+    """The wire paths, each against its dense run: the decoded batch, cli
+    test (fp32), cli serve (bf16) and one bf16 cli train step."""
+    from camradepth_tpu_torch.config import DataConfig
+    from camradepth_tpu_torch.data.pipeline import make_loaders
+    from camradepth_tpu_torch.data.wire import decode_wire_micro
+
+    h, w = cfg.model.img_size
+    data_cfg = DataConfig(image_dimension=(h, w), mini_dataset=True)
+    # the first test batch of the head split, wire and dense
+    packed, dense = (next(iter(make_loaders(
+        data_cfg, BATCH, split_path=head, wire_eval=wire)["test"]))
+        for wire in (True, False))
+    sent = sum(v.nbytes for k, v in packed.items() if k != "index")
+    dense_bytes = sum(dense[k].nbytes for k in ("features", "gt_depth",
+                                                "seg", "seg_inter"))
+    got = decode_wire_micro({k: torch.from_numpy(v).cuda()
+                             for k, v in packed.items()})
+    torch.cuda.synchronize()
+    for k in ("features", "gt_depth", "seg", "seg_inter"):
+        want = torch.from_numpy(dense[k])
+        if want.is_floating_point():
+            want = want + 0.0  # the codec's one canonicalization: -0 -> +0
+        g = got[k].cpu()
+        require(g.dtype == want.dtype and g.shape == want.shape, k)
+        require(torch.equal(g.view(torch.int32), want.view(torch.int32)), k)
+    print(f"(j2) wire batch of {BATCH} frames decoded on the card = the "
+          f"dense batch bit for bit (features, gt_depth, seg, seg_inter; "
+          f"-0.0 read as +0.0); {sent / BATCH / 2**20:.2f} MiB a frame on "
+          f"the wire against {dense_bytes / BATCH / 2**20:.2f} dense "
+          f"(gt {'sparse' if 'gt_val' in packed else 'dense'})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        common = ["--preset", "base", "--set", "data.mini_dataset=1",
+                  "--checkpoint", str(pth), "--split", str(head)]
+        reports = {}
+        for mode in ("off", "on"):
+            path = tmp / f"test_{mode}.json"
+            reset_counters()
+            rc, out = run_cli(["test", "--wire", mode, "--report-json",
+                               str(path), "--test-batch", str(BATCH),
+                               "--set", "model.compute_dtype=float32"]
+                              + common)
+            require(rc == 0, (mode, rc, out[-2000:]))
+            reports[mode] = json.loads(path.read_text())
+        for k in METRIC_KEYS:
+            a, b = reports["on"][k], reports["off"][k]
+            require(abs(a - b) <= WIRE_REPORT_RTOL * abs(b), (k, a, b))
+        print(f"(j2) cli test --wire on = dense cli test, fp32 over "
+              f"{reports['on']['frames']:.0f} frames, every metric within "
+              f"rtol {WIRE_REPORT_RTOL} (rmse_100 {reports['on']['rmse_100']}"
+              f" vs {reports['off']['rmse_100']}); frames/s steady "
+              f"{reports['on']['frames_per_sec_steady']:.2f} wire, "
+              f"{reports['off']['frames_per_sec_steady']:.2f} dense")
+
+        maps, fps = {}, {}
+        for mode in ("off", "on"):
+            out_dir = tmp / f"served_{mode}"
+            reset_counters()
+            rc, out = run_cli(["serve", "--wire", mode, "--out",
+                               str(out_dir), "--serve-batch", str(BATCH)]
+                              + common)
+            torch.cuda.synchronize()
+            launches = counters()
+            require(rc == 0, (mode, rc, out[-2000:]))
+            stats = json.loads(out.strip().splitlines()[-1])
+            paths = sorted(out_dir.glob("*_depth.npy"))
+            maps[mode] = np.stack([np.load(p) for p in paths])
+            fps[mode] = stats["frames_per_sec"]
+            want = per_forward(cfg, len(paths) // BATCH + 1)
+            require(launches == want, (mode, launches, want))
+        require(maps["on"].shape == maps["off"].shape
+                and np.isfinite(maps["on"]).all(), maps["on"].shape)
+        require(np.array_equal(maps["on"].view(np.int32),
+                               maps["off"].view(np.int32)), "serve maps")
+        print(f"(j2) cli serve --wire on = dense cli serve, bf16: "
+              f"{len(maps['on'])} depth maps bit for bit; frames/s "
+              f"{fps['on']:.2f} wire, {fps['off']:.2f} dense")
+
+        losses = {}
+        for mode in ("off", "on"):
+            run_dir = tmp / f"train_{mode}"
+            rc, out = run_cli(["train", "--preset", "base", "--wire", mode,
+                               "--split", str(split), "--train-val-split",
+                               "6,2", "--run-dir", str(run_dir),
+                               "--batch-size", str(TRAIN_BATCH),
+                               "--desired-batch-size", str(3 * TRAIN_BATCH),
+                               "--num-epochs", "1", "--set",
+                               "train.log_every=1"])
+            require(rc == 0, (mode, rc, out[-2000:]))
+            losses[mode] = train_losses(run_dir)["train/loss"]
+        require(len(losses["on"]) == 1 and losses["on"] == losses["off"]
+                and np.isfinite(losses["on"][0]), losses)
+        print(f"(j2) cli train --wire on, one bf16 step of batch "
+              f"{TRAIN_BATCH} x 3: loss {losses['on'][0]!r} = the dense "
+              f"step's {losses['off'][0]!r}")
+
+
+def phase_j(weights, all_counters, counters, reset_counters):
+    """This slice's paths: cli distill and the compact wire format."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.data import synthetic
+    from camradepth_tpu_torch.data.split import save_split
+
+    cfg = preset("base")
+    h, w = cfg.model.img_size
+    times = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        split = synthetic.generate(tmp / "data", num_frames=32, hw=(h, w),
+                                   seed=0, rain_every=4)
+        head = save_split(np.load(split)[:16], tmp / "head_split.npy")
+        pth = tmp / "base_synth.pth"
+        torch.save({"state_dict": {k: torch.from_numpy(v)
+                                   for k, v in weights.items()}}, pth)
+        print(f"(j) 32-frame {h}x{w} corpus and the teacher .pth written in "
+              f"{time.perf_counter() - times[-1]:.1f} s")
+        launches = phase_j1(cfg, split, pth, all_counters, reset_counters)
+        times.append(time.perf_counter())
+        phase_j2(cfg, split, head, pth, counters, reset_counters)
+        times.append(time.perf_counter())
+    print("(j) phase seconds: " + ", ".join(
+        f"(j{j + 1}) {b - a:.1f}" for j, (a, b) in
+        enumerate(zip(times, times[1:]))))
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
@@ -1865,9 +2107,12 @@ def main() -> None:
     t7 = time.perf_counter()
     phase_i(counters, all_counters, reset_counters)
     t8 = time.perf_counter()
+    phase_j(weights, all_counters, counters, reset_counters)
+    t9 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
-          f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}")
+          f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
+          f"(j) {t9 - t8:.1f}")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

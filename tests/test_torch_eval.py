@@ -184,10 +184,17 @@ def test_loader_batches_match_jax(corpus):
 
 
 def test_loader_refuses_the_wire_format(corpus):
+    """The wire format is ported (tests/test_torch_wire.py); with
+    wire_format=on the loader still refuses it where the codec does not
+    cover the channel config (im_uv, a dense flow image)."""
+    from camradepth_tpu_torch.config import ConfigError
+
     _, split, _ = corpus
-    cfg = DataConfig(image_dimension=HW, wire_format="auto")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        pipeline.make_loaders(cfg, batch_size=2, split_path=split)
+    cfg = DataConfig(image_dimension=HW, mini_dataset=True, im_uv=True,
+                     wire_format="on")
+    with pytest.raises(ConfigError, match="wire_format=on"):
+        pipeline.make_loaders(cfg, batch_size=2, split_path=split,
+                              wire_eval=True)
 
 
 def _jax_engine(pth, split):
@@ -327,10 +334,10 @@ def test_cli_tpu_decoder_refuses_a_reference_checkpoint(corpus, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--wire", "auto"], "item 5"),
+    (["--wire", "auto", "--http-port", "0"], "item 8"),
     (["--http-port", "0"], "item 8"),
     (["--data-parallel", "2"], "item 10"),
-    (["--set", "data.wire_format=on"], "item 5"),
+    (["--spatial-parallel", "2"], "item 10"),
     (["--set", "mesh.data_parallel=2"], "item 10"),
 ])
 def test_cli_refuses_options_of_later_slices(corpus, capsys, extra, item):

@@ -546,3 +546,104 @@ def test_remat_on_the_card_gives_the_gradients_of_no_remat(cuda, option):
     assert loss0 == loss1
     for k in g0:
         assert torch.equal(g0[k], g1[k]), k
+
+
+def _wire_batch(seed, b=2, h=64, w=128, points=300, gt_points=2000):
+    """A wire batch as the encoder writes it: unique pixel indices, then
+    padding rows (index 0, value 0); a real point at pixel 0 of frame 0
+    holds a -0.0 in one channel."""
+    rng = np.random.default_rng(seed)
+    out = {"image_u8": rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8),
+           "radar_idx": np.zeros((b, points + 64), np.int32),
+           "radar_val": np.zeros((b, points + 64, 4), np.float32),
+           "gt_idx": np.zeros((b, gt_points + 256), np.int32),
+           "gt_val": np.zeros((b, gt_points + 256), np.float32),
+           "seg": rng.integers(0, 256, (b, h, w), dtype=np.uint8)}
+    for i in range(b):
+        pts = np.sort(rng.choice(h * w, points, replace=False))
+        out["radar_idx"][i, :points] = pts
+        out["radar_val"][i, :points] = rng.standard_normal((points, 4))
+        gts = np.sort(rng.choice(h * w, gt_points, replace=False))
+        out["gt_idx"][i, :gt_points] = gts
+        out["gt_val"][i, :gt_points] = rng.uniform(0.01, 1.0, gt_points)
+    out["radar_idx"][0, 0] = 0
+    out["radar_val"][0, 0, 1] = -0.0
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_wire_decode_on_the_card_is_the_cpu_decode(cuda, dtype):
+    """decode_wire_micro on the card (index_add_ adds with atomics) gives
+    the CPU decode's bits: every real pixel appears once and the padding
+    rows add +0.0."""
+    from camradepth_tpu_torch.data.wire import decode_wire_micro
+
+    batch = {k: torch.from_numpy(v) for k, v in _wire_batch(40).items()}
+    batch["radar_val"] = batch["radar_val"].to(dtype)
+    want = decode_wire_micro(batch)
+    got = decode_wire_micro({k: v.to(cuda) for k, v in batch.items()})
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        g = got[k].cpu()
+        assert g.dtype == v.dtype and g.shape == v.shape, k
+        assert torch.equal(g.view(torch.int32), v.view(torch.int32)), k
+
+
+def test_distill_step_on_the_card_matches_the_cpu(cuda):
+    """One fp32 distill step (base + tpu_decoder student, parity teacher,
+    tiny widths at 128x256, alpha 0.5, temperature 2, microbatches padded
+    to 3, TF32 off) on the card and on the CPU from the same weights and
+    inputs: loss and grad_norm rtol 1e-3, each gradient relative L2 1e-3,
+    as chip_smoke's train-step check on the card."""
+    import dataclasses
+    import functools
+
+    from camradepth_tpu_torch.config import tiny_test_config
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+    from camradepth_tpu_torch.train.distill import distill_loss
+    from camradepth_tpu_torch.train.step import train_step
+
+    cfg = tiny_test_config()
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, img_size=(128, 256),
+                                  dropout_rate=0.0, tpu_decoder=True),
+        train=dataclasses.replace(cfg.train, pad_microbatch_to=3))
+    teacher_cfg = dataclasses.replace(cfg.model, tpu_decoder=False)
+    teacher_sd = create_model(teacher_cfg, device="cpu", seed=2,
+                              train=True).state_dict()
+    rng = np.random.default_rng(41)
+    micro = {"features": rng.standard_normal((2, 128, 256, 7),
+                                             dtype=np.float32),
+             "gt_depth": (rng.uniform(0.01, 1.0, (2, 128, 256))
+                          * (rng.uniform(size=(2, 128, 256)) < 0.25)
+                          ).astype(np.float32)}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    try:
+        for dev in (cuda, torch.device("cpu")):
+            model = create_model(cfg.model, device=dev, seed=3, train=True)
+            teacher = create_model(teacher_cfg, device=dev,
+                                   state_dict=teacher_sd)
+            loss_fn = functools.partial(distill_loss, teacher=teacher,
+                                        alpha=0.5, temperature=2.0)
+            m = train_step(cfg, model, DiffGradNorm(model.parameters(),
+                                                    lr=1e-4),
+                           [{k: torch.from_numpy(v).to(dev)
+                             for k, v in micro.items()}], [None], 1e-4,
+                           loss_fn=loss_fn)
+            results[dev.type] = ({k: float(v) for k, v in m.items()},
+                                 {k: p.grad.double().cpu()
+                                  for k, p in model.named_parameters()})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    (mc, gc), (mp, gp) = results["cuda"], results["cpu"]
+    for k in ("loss", "loss_distill", "loss_gt", "grad_norm"):
+        assert abs(mc[k] - mp[k]) <= 1e-3 * abs(mp[k]), (k, mc[k], mp[k])
+    for k, g in gp.items():
+        rel = ((gc[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-3, (k, rel)

@@ -241,18 +241,21 @@ def steps():
     return out
 
 
+# the metrics of a train step that check_step holds
+STEP_TERMS = ("loss", "loss_depth_final", "loss_depth_stage4",
+              "loss_depth_stage3", "rmse_m", "grad_norm")
+
+
 def check_step(step, loss_rtol, norm_rtol, grad_rel, global_rel, share,
-               extra_terms=()):
-    """Hold the port's step to the JAX step: the loss terms (and
-    ``extra_terms``), grad_norm, each parameter's gradient (relative L2),
-    all gradients together (relative L2) and the parameters after the step
-    (at most ``share`` of the elements past 1e-3 * lr, none past 2 *
-    lr)."""
+               extra_terms=(), step_terms=STEP_TERMS):
+    """Hold the port's step to the JAX step: the loss terms
+    (``step_terms`` and ``extra_terms``), grad_norm, each parameter's
+    gradient (relative L2), all gradients together (relative L2) and the
+    parameters after the step (at most ``share`` of the elements past
+    1e-3 * lr, none past 2 * lr)."""
     (jm, jg, jp), (tm, tg, tp), lr = step
     terms = {k: abs(tm[k] - jm[k]) / abs(jm[k])
-             for k in ("loss", "loss_depth_final", "loss_depth_stage4",
-                       "loss_depth_stage3", "rmse_m", "grad_norm")
-             + tuple(extra_terms)}
+             for k in tuple(step_terms) + tuple(extra_terms)}
     assert sorted(tg) == sorted(jg)
     rels = {k: np.linalg.norm(tg[k] - np.asarray(want, np.float64))
             / max(np.linalg.norm(want), 1e-30) for k, want in jg.items()}
