@@ -1,41 +1,55 @@
 """Command-line interface of the PyTorch/CUDA port: ``train``,
-``distill``, ``test`` and ``serve``.
+``distill``, ``test``, ``serve`` and ``export``.
 
   python -m camradepth_tpu_torch.cli train --preset base --split S.npy \\
       [--run-dir R] [--save-model] [--set train.num_epochs=1] [--device ..]
   python -m camradepth_tpu_torch.cli distill --tpu-decoder --split S.npy \\
       --teacher-checkpoint T.pth [--alpha 0.7] [--run-dir R] [--save-model]
   python -m camradepth_tpu_torch.cli test  --preset base --split S.npy \\
-      --checkpoint W.pth [--report-json R.json] [--device cuda|cpu]
+      --checkpoint W.pth|A.pt2 [--report-json R.json] [--device cuda|cpu]
   python -m camradepth_tpu_torch.cli serve --preset base --split S.npy \\
-      --checkpoint W.pth --out served/ [--limit N] [--device cuda|cpu]
+      --checkpoint W.pth|A.pt2 --out served/ [--limit N] [--device cuda|cpu]
+  python -m camradepth_tpu_torch.cli serve --preset base \\
+      --checkpoint W.pth|A.pt2 --http-port 8080 [--http-host H]
+  python -m camradepth_tpu_torch.cli export --preset base --checkpoint W.pth \\
+      --out A.pt2 --format artifact [--serve-batch 8] [--dynamic-batch] \\
+      [--artifact-dtype float32|bfloat16] [--device cuda|cpu]
 
 The counterparts of ``camradepth_tpu.cli``'s single-device ``cmd_train``
 (``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
-``cmd_test`` (``:402-462``) and the split-streaming part of ``cmd_serve``
-(``:655-852``), with the same flags where they apply. ``train`` runs
-:class:`train.trainer.Trainer` and prints the best validation loss; its
-checkpoints are ``.pth`` files that ``test`` and ``serve`` load.
-``distill`` trains a student (usually ``--tpu-decoder``) against a frozen
-parity teacher (:class:`train.distill.DistillTrainer`) from a reference
-``.pth``, a port trainer checkpoint or a run directory (its best
-checkpoint). ``test`` prints the reference metric report and writes the
-same report JSON keys as ``camradepth_tpu.cli test --report-json`` (with
-``iou`` for a supervised seg preset); ``serve`` streams the split through
+``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``) without its
+mesh flags, and ``cmd_export`` (``:514-565``), with the same flags where
+they apply. ``train`` runs :class:`train.trainer.Trainer` and prints the
+best validation loss; its checkpoints are ``.pth`` files that ``test``,
+``serve`` and ``export`` load. ``distill`` trains a student (usually
+``--tpu-decoder``) against a frozen parity teacher
+(:class:`train.distill.DistillTrainer`) from a reference ``.pth``, a port
+trainer checkpoint or a run directory (its best checkpoint). ``test``
+prints the reference metric report and writes the same report JSON keys
+as ``camradepth_tpu.cli test --report-json`` (with ``iou`` for a
+supervised seg preset); ``serve`` streams the split through
 :class:`serving.DepthEngine`, writes ``NNNNN_depth.npy`` per frame (and
 ``NNNNN_seg.npy``, uint8 labels, for a supervised seg preset) and prints
-the same stats line. ``--tpu-decoder`` selects the ``tpu_decoder``
-variant; its checkpoints are the port's own layout, so a reference-format
-``.pth`` is refused for it. ``--wire auto|on`` (or ``--set
-data.wire_format=...``) ships compact wire batches (``data/wire.py``),
-decoded on the device, on all four commands.
+the same stats line, or with ``--http-port`` serves the engine over HTTP
+(``serving_http.py``). ``export --format artifact`` writes a serving
+artifact (``interop/export.py``: ``torch.export`` with the weights
+inside, the kernels as operators) that ``test`` and ``serve`` take in
+place of a checkpoint; ``--format pth`` writes the reference layout.
+``--tpu-decoder`` selects the ``tpu_decoder`` variant; its checkpoints
+are the port's own layout, so a reference-format ``.pth`` is refused for
+it, and its deployment format is the artifact. ``--wire auto|on`` (or
+``--set data.wire_format=...``) ships compact wire batches
+(``data/wire.py``), decoded on the device, on all four commands but
+artifacts, which take dense batches.
 
 ``--checkpoint`` is a reference-format ``.pth``, loaded strictly (for
-``train``: a warm start, shape-matching, or a full trainer checkpoint).
-One flag is new: ``--device`` (default ``cuda``, which raises without a
-card). The options of slices still to come are refused with the ROADMAP
-item that brings them: mesh and HTTP serving and Orbax checkpoints (queue
-1 item 8), StableHLO artifacts (item 9), multi-device training (item 10).
+``train``: a warm start, shape-matching, or a full trainer checkpoint),
+or for ``test`` and ``serve`` a serving artifact. An Orbax checkpoint of
+the JAX package reaches the port as a ``.pth`` written by
+``camradepth_tpu.cli export --format pth``. One flag is new: ``--device``
+(default ``cuda``, which raises without a card). The options of slices
+still to come are refused with the ROADMAP item that brings them: mesh
+serving and multi-device training (queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -57,10 +71,13 @@ class UserError(ValueError):
 # Options of the JAX CLI that the port does not take yet, with the ROADMAP
 # queue-1 item that brings each.
 _LATER_FLAGS = {
-    "http_port": "item 8 (the rest of serving: HTTP)",
-    "data_parallel": "item 8 (the rest of serving: mesh) and item 10",
-    "spatial_parallel": "item 8 (the rest of serving: mesh) and item 10",
+    "data_parallel": "item 10 (multi-device: mesh serving)",
+    "spatial_parallel": "item 10 (multi-device: mesh serving)",
 }
+
+# How an Orbax checkpoint of the JAX package reaches the port.
+_ORBAX_ROUTE = ("an Orbax checkpoint of the JAX package comes across as a "
+                ".pth written by `camradepth_tpu.cli export --format pth`")
 
 
 def _add_tpu_decoder_flag(p: argparse.ArgumentParser) -> None:
@@ -108,7 +125,8 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="published experiment preset (args.py:72-122)")
     p.add_argument("--split", default=None, help="(N,7) split .npy path")
     p.add_argument("--checkpoint", default=None,
-                   help="reference-format .pth (loaded strictly)")
+                   help="reference-format .pth (loaded strictly), or for "
+                        "test and serve a serving artifact")
     p.add_argument("--max-distances", default=None,
                    help="comma list of metric caps in metres (default "
                         "100,50)")
@@ -251,9 +269,8 @@ def _teacher_state(teacher_cfg, path: str, strict: bool):
         print(f"using best checkpoint {best.name}")
         p = best
     if p.is_dir() or p.suffix != ".pth":
-        raise UserError(
-            f"{p}: the port loads .pth teachers only; Orbax checkpoints "
-            "come with ROADMAP queue 1 item 8")
+        raise UserError(f"{p}: the port loads .pth teachers only; "
+                        f"{_ORBAX_ROUTE}")
     saved = load_reference_checkpoint(str(p))
     with torch.device("meta"):
         own = CamRaDepth(teacher_cfg.model).state_dict()
@@ -311,7 +328,7 @@ def cmd_distill(args) -> int:
     return 0
 
 
-def _check_args(args) -> None:
+def _check_args(args, artifacts: bool = True) -> None:
     for flag, item in _LATER_FLAGS.items():
         if getattr(args, flag, None) is not None:
             raise UserError(
@@ -320,12 +337,56 @@ def _check_args(args) -> None:
             )
     if not args.checkpoint:
         raise UserError(f"--checkpoint required for {args.command}")
+    from camradepth_tpu_torch.interop.export import is_artifact
+
+    if artifacts and is_artifact(args.checkpoint):
+        return
     if Path(args.checkpoint).suffix != ".pth":
+        what = " or serving artifacts" if artifacts else ""
         raise UserError(
-            f"{args.checkpoint}: the port loads reference .pth checkpoints "
-            "only; StableHLO artifacts come with ROADMAP queue 1 item 9 and "
-            "Orbax checkpoints with item 8"
-        )
+            f"{args.checkpoint}: the port loads reference-format .pth "
+            f"checkpoints{what} only; {_ORBAX_ROUTE}")
+
+
+def _load_model(cfg, checkpoint: str, device, train: bool = False):
+    """The model of ``cfg`` with the ``.pth`` weights, loaded strictly; a
+    reference checkpoint given for the ``tpu_decoder`` variant is refused
+    in one line."""
+    from camradepth_tpu_torch.interop.flax_convert import (
+        load_reference_checkpoint,
+    )
+    from camradepth_tpu_torch.models.camradepth import create_model
+
+    try:
+        return create_model(cfg.model, device=device, train=train,
+                            state_dict=load_reference_checkpoint(checkpoint))
+    except RuntimeError as e:
+        _refuse_layout(cfg, checkpoint, e)
+        raise
+
+
+def _load_artifact(cfg, path: str, device):
+    """(call, header) of a serving artifact whose geometry is the
+    config's; a JAX artifact, a corrupt file or another geometry is a
+    user error."""
+    from camradepth_tpu_torch.interop.export import (
+        check_geometry,
+        load_serving_artifact,
+        read_header,
+    )
+
+    try:
+        check_geometry(read_header(path)[0], cfg)
+        return load_serving_artifact(path, device)
+    except (ValueError, OSError) as e:  # not an artifact of ours, or none
+        raise UserError(str(e)) from e
+
+
+def _refuse_wire_on(cfg) -> None:
+    if cfg.data.wire_format == "on":
+        raise UserError(
+            "data.wire_format=on is incompatible with artifact serving: "
+            "artifacts bake a dense input signature; use wire auto or off")
 
 
 def cmd_test(args) -> int:
@@ -335,30 +396,37 @@ def cmd_test(args) -> int:
     from camradepth_tpu_torch.evaluation.harness import (
         evaluate,
         format_report,
+        make_artifact_test_step,
     )
-    from camradepth_tpu_torch.interop.flax_convert import (
-        load_reference_checkpoint,
-    )
-    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.interop.export import is_artifact
 
     _check_args(args)
     cfg = _build_config(args)
     dev = resolve_device(args.device)
-    # a wire test loader ships only the seg plane the IoU reads
-    wire = cfg.data.wire_format != "off"
-    loader = make_loaders(resolve_wire_ship(cfg) if wire else cfg.data,
-                          batch_size=args.test_batch,
-                          wire_eval=wire)["test"]
-    if loader is None:
-        raise UserError("the split has no test frames")
-    try:
-        model = create_model(
-            cfg.model, device=dev,
-            state_dict=load_reference_checkpoint(args.checkpoint))
-    except RuntimeError as e:
-        _refuse_layout(cfg, args.checkpoint, e)
-        raise
-    report = evaluate(cfg, model, loader, device=dev)
+    if is_artifact(args.checkpoint):
+        # score the program that will serve, on dense batches
+        _refuse_wire_on(cfg)
+        call, header = _load_artifact(cfg, args.checkpoint, dev)
+        bs = header["batch_size"] or args.test_batch
+        if args.test_batch != bs:
+            print(f"note: artifact batch size is {bs}; overriding "
+                  f"--test-batch {args.test_batch}")
+        loader = make_loaders(cfg.data, batch_size=bs)["test"]
+        if loader is None:
+            raise UserError("the split has no test frames")
+        report = evaluate(cfg, None, loader, device=dev,
+                          test_step=make_artifact_test_step(cfg, call,
+                                                            header))
+    else:
+        # a wire test loader ships only the seg plane the IoU reads
+        wire = cfg.data.wire_format != "off"
+        loader = make_loaders(resolve_wire_ship(cfg) if wire else cfg.data,
+                              batch_size=args.test_batch,
+                              wire_eval=wire)["test"]
+        if loader is None:
+            raise UserError("the split has no test frames")
+        model = _load_model(cfg, args.checkpoint, dev)
+        report = evaluate(cfg, model, loader, device=dev)
     print(format_report(cfg, report))
     if args.report_json:
         Path(args.report_json).write_text(
@@ -368,30 +436,104 @@ def cmd_test(args) -> int:
     return 0
 
 
+def http_wire_plan(cfg):
+    """The wire plan of an HTTP engine, which has no dataset to probe for
+    point caps: from ``data.wire_radar_cap`` (``camradepth_tpu/cli.py:
+    724-770``); None serves dense requests (wire ``auto`` without a cap,
+    or a channel set the codec does not cover)."""
+    from camradepth_tpu_torch.data.wire import (
+        WirePlan,
+        radar_channel_count,
+        wire_supported,
+    )
+
+    on = cfg.data.wire_format == "on"
+    if not wire_supported(cfg.data):
+        if on:
+            raise UserError(
+                "data.wire_format=on is unsupported for this channel "
+                "config (im_uv / sparse_lidar need the dense request "
+                "format); use wire auto or off")
+        return None
+    if not cfg.data.wire_radar_cap:
+        if on:
+            raise UserError(
+                "HTTP wire serving needs an explicit request shape: pass "
+                "--set data.wire_radar_cap=N (no dataset to probe point "
+                "caps from)")
+        return None
+    n_radar_ch = radar_channel_count(cfg.data)
+    if cfg.model.input_channels <= 3:
+        raise UserError(
+            "data.wire_radar_cap set but the model takes no radar channels "
+            f"(input_channels={cfg.model.input_channels}): wire serving "
+            "needs a camera+radar preset")
+    if n_radar_ch != cfg.model.input_channels - 3:
+        raise UserError(
+            f"model/data channel mismatch: the data config carries "
+            f"{n_radar_ch} radar channels but the model expects "
+            f"{cfg.model.input_channels - 3} (input_channels="
+            f"{cfg.model.input_channels}); fix the preset/--set pairing "
+            "before wire serving")
+    return WirePlan(radar_cap=cfg.data.wire_radar_cap, gt_cap=0,
+                    n_radar_ch=n_radar_ch)
+
+
 def cmd_serve(args) -> int:
     from camradepth_tpu_torch.data.pipeline import make_loaders
     from camradepth_tpu_torch.data.wire import is_wire_micro
+    from camradepth_tpu_torch.interop.export import is_artifact
     from camradepth_tpu_torch.serving import SERVE_WIRE_KEYS, load_engine
 
     _check_args(args)
     cfg = _build_config(args)
+    artifact = is_artifact(args.checkpoint)
+    http = args.http_port is not None
+    if artifact:
+        _refuse_wire_on(cfg)
     # compact wire requests (camradepth_tpu/cli.py:703-783), decoded on
-    # the device by the engine; "auto" stays dense where the codec does not
-    # suit the data (the loaders' plan is None)
-    loaders = make_loaders(cfg.data, batch_size=args.serve_batch,
-                           wire_eval=cfg.data.wire_format != "off")
-    loader = loaders["test"] or loaders["val"]
-    if loader is None:
-        raise UserError("the split has no test/val frames")
+    # the device by the engine: over HTTP with data.wire_radar_cap's
+    # shape, over a split with the loaders' plan ("auto" stays dense where
+    # the codec does not suit the data: the plan is None)
+    wire = cfg.data.wire_format != "off" and not artifact
+    loader = wire_plan = None
+    if http:
+        wire_plan = http_wire_plan(cfg) if wire else None
+    elif wire:
+        loaders = make_loaders(cfg.data, batch_size=args.serve_batch,
+                               wire_eval=True)
+        loader = loaders["test"] or loaders["val"]
+        if loader is None:
+            raise UserError("the split has no test/val frames")
+        wire_plan = loader.frames.wire_plan
     try:
         engine = load_engine(cfg, args.checkpoint,
                              batch_size=args.serve_batch, device=args.device,
-                             wire_plan=loader.frames.wire_plan)
+                             wire_plan=wire_plan)
     except RuntimeError as e:
         _refuse_layout(cfg, args.checkpoint, e)
         raise
-    except ValueError as e:  # a wire plan of other channels than the model's
+    except ValueError as e:
+        # a wire plan of other channels than the model's; an artifact of
+        # another geometry, of the JAX package, or corrupt
         raise UserError(str(e)) from e
+    except OSError as e:  # no such artifact (a .pth goes to torch.load)
+        if not artifact:
+            raise
+        raise UserError(str(e)) from e
+    if http:
+        from camradepth_tpu_torch.serving_http import serve_forever
+
+        serve_forever(engine, cfg, args.http_host, args.http_port,
+                      batch_window_ms=args.http_batch_window_ms)
+        return 0
+    if loader is None:
+        # batched to the engine's size (a fixed-batch artifact serves its
+        # own), so whole batches pass through without a restack
+        loaders = make_loaders(cfg.data, batch_size=engine.batch_size)
+        loader = loaders["test"] or loaders["val"]
+        if loader is None:
+            raise UserError("the split has no test/val frames")
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
 
@@ -422,6 +564,47 @@ def cmd_serve(args) -> int:
     # own count stays available as frames_processed
     stats["frames_processed"] = stats.pop("frames", 0.0)
     print(json.dumps({**stats, "frames": n}))
+    return 0
+
+
+def cmd_export(args) -> int:
+    """Export a checkpoint: the reference-format ``.pth`` or a serving
+    artifact (``interop/export.py``: weights inside, runs with no model
+    code or config; the deployment format of the ``tpu_decoder`` variant,
+    which has no reference layout)."""
+    import torch
+
+    from camradepth_tpu_torch import resolve_device
+
+    _check_args(args, artifacts=False)
+    cfg = _build_config(args)
+    if args.format == "artifact":
+        from camradepth_tpu_torch.interop.export import (
+            export_serving_artifact,
+        )
+
+        model = _load_model(cfg, args.checkpoint,
+                            resolve_device(args.device))
+        header = export_serving_artifact(
+            cfg, model, args.out, batch_size=args.serve_batch,
+            artifact_dtype=args.artifact_dtype,
+            dynamic_batch=args.dynamic_batch)
+        print(f"wrote serving artifact to {args.out} (batch "
+              f"{header['batch_size'] or 'dynamic'}, traced on "
+              f"{header['platforms'][0]}, {header['artifact_dtype']} "
+              "weights)")
+        return 0
+    if cfg.model.tpu_decoder:
+        raise UserError(
+            "the TPU architecture variant (--tpu-decoder) has no "
+            "reference-format representation: its subpixel decoder stages "
+            "do not exist in the reference model. Use --format artifact "
+            "(its deployment path) or export a parity-architecture "
+            "checkpoint.")
+    model = _load_model(cfg, args.checkpoint, "cpu", train=True)
+    sd = {k: v.contiguous() for k, v in model.state_dict().items()}
+    torch.save({"state_dict": sd, "lr": cfg.train.learning_rate}, args.out)
+    print(f"wrote {len(sd)} tensors to {args.out}")
     return 0
 
 
@@ -479,8 +662,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(
         prog="camradepth_tpu_torch",
-        description="CamRaDepth on PyTorch/CUDA: train, distill, test and "
-                    "serve",
+        description="CamRaDepth on PyTorch/CUDA: train, distill, test, "
+                    "serve and export",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -532,9 +715,39 @@ def main(argv=None) -> int:
     p.add_argument("--inflight", type=int, default=2,
                    help="batches kept queued on the device so the copy "
                         "back overlaps the next batch's compute")
-    for flag in ("--http-port", "--data-parallel", "--spatial-parallel"):
+    p.add_argument("--http-port", type=int, default=None,
+                   help="serve the engine over HTTP on this port "
+                        "(serving_http.py) instead of streaming the split")
+    p.add_argument("--http-host", default="0.0.0.0")
+    p.add_argument("--http-batch-window-ms", type=float, default=3.0,
+                   help="how long a batch waits for concurrent requests to "
+                        "join it (0: serve each request alone)")
+    for flag in ("--data-parallel", "--spatial-parallel"):
         p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export",
+                       help="export a checkpoint: reference-format .pth or "
+                            "a self-contained serving artifact")
+    _add_common_flags(p)
+    p.add_argument("--out", required=True)
+    p.add_argument("--format", choices=("pth", "artifact"), default="pth",
+                   help="pth: the reference state dict; artifact: the "
+                        "torch.export serving forward with its weights, "
+                        "which test and serve take with no model code "
+                        "(the deployment path of --tpu-decoder)")
+    p.add_argument("--serve-batch", type=int, default=8,
+                   help="batch size of an artifact")
+    p.add_argument("--artifact-dtype", choices=("float32", "bfloat16"),
+                   default="float32",
+                   help="weight dtype of an artifact; bfloat16 halves the "
+                        "file and changes nothing on a bfloat16-compute "
+                        "config (the default presets)")
+    p.add_argument("--dynamic-batch", action="store_true",
+                   help="export an artifact with a symbolic batch "
+                        "dimension (serves any batch size) instead of "
+                        "--serve-batch")
+    p.set_defaults(fn=cmd_export)
 
     args = parser.parse_args(argv)
     try:

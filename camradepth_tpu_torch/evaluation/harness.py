@@ -9,9 +9,8 @@ per-frame metric rows under ``torch.inference_mode``, and only [B] vectors
 cross to the host. Batches are copied to the device ahead of use on a
 worker thread (pinned memory, non-blocking), so host artifact reads overlap
 device compute. Compact wire batches (``data/wire.py``) are decoded on
-the device inside the test step. The StableHLO-artifact branch
-(``make_artifact_test_step``) comes with the export slice (ROADMAP queue 1
-item 9).
+the device inside the test step. A serving artifact (``interop/export.py``)
+is scored through :func:`make_artifact_test_step`.
 """
 
 from __future__ import annotations
@@ -67,19 +66,53 @@ def make_test_step(cfg: ExperimentConfig, model):
     return test_step
 
 
+def make_artifact_test_step(cfg: ExperimentConfig, call, header):
+    """Metric rows from a serving artifact's outputs
+    (``camradepth_tpu/evaluation/harness.py:66-97``): the artifact gives
+    depth in metres (unless exported raw) and argmax seg labels, so the
+    depth is encoded back to the inverse space the reference metrics take
+    (the decode is affine) and the IoU scores the label maps. What is
+    scored is the program that will serve."""
+    max_depth = float(header["max_depth"])
+    decode = bool(header["decode_depth"])
+
+    def test_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        out = call(batch["features"])
+        with torch.inference_mode():
+            depth = out["depth"]
+            enc = (1.0 - depth / max_depth) if decode else depth
+            rows = M.depth_metrics_inverse(
+                enc, batch["gt_depth"], cfg.data.max_depth,
+                cfg.data.max_distances,
+            )
+            rows.update(M.depth_metrics_true(enc, batch["gt_depth"],
+                                             cfg.data.max_depth))
+            if (cfg.model.supervised_seg and out["seg"] is not None
+                    and "seg" in batch):
+                rows["iou"] = M.jaccard_index_labels(
+                    out["seg"], batch["seg"], cfg.model.num_classes)
+        return rows
+
+    return test_step
+
+
 def evaluate(
     cfg: ExperimentConfig,
     model,
     loader,
     device="cuda",
+    test_step=None,
 ) -> Dict[str, float]:
     """Run the full test split through ``model`` (a port ``CamRaDepth`` on
-    ``device``); returns the reference report plus the true-depth metrics
-    and throughput (``camradepth_tpu/evaluation/harness.py:100-181``).
-    Two batches are loaded and copied ahead. Raises when ``device`` is
-    CUDA and no card is there."""
+    ``device``), or through ``test_step`` when given (the artifact path,
+    :func:`make_artifact_test_step`; ``model`` is then None); returns the
+    reference report plus the true-depth metrics and throughput
+    (``camradepth_tpu/evaluation/harness.py:100-181``). Two batches are
+    loaded and copied ahead. Raises when ``device`` is CUDA and no card
+    is there."""
     dev = resolve_device(device)
-    test_step = make_test_step(cfg, model)
+    if test_step is None:
+        test_step = make_test_step(cfg, model)
 
     keys = ("features", "gt_depth") + wire.WIRE_KEYS + (
         ("seg",) if cfg.model.supervised_seg else ())

@@ -177,6 +177,24 @@ def launch(name: str, fn: str, device, *args) -> None:
     check(lib, err, name)
 
 
+def register_op(name: str, schema: str, cpu, cuda, fake):
+    """Define the operator ``torch.ops.camradepth.<name>`` with ``schema``,
+    ``cpu`` (the plain version) and ``cuda`` (the kernel) as its
+    implementations and ``fake`` giving its output's shape and dtype, and
+    return it. An operator of its own stays in a ``torch.export`` graph
+    (``interop/export.py``), so an artifact launches the kernel on the
+    card. ``torch.library.custom_op`` registers the same operator, but its
+    first call in a process imports ``torch._dynamo`` (some 2 s)."""
+    import torch
+
+    qualname = f"camradepth::{name}"
+    torch.library.define(qualname, schema)
+    torch.library.impl(qualname, "cpu", cpu)
+    torch.library.impl(qualname, "cuda", cuda)
+    torch.library.register_fake(qualname, fake)
+    return getattr(torch.ops.camradepth, name).default
+
+
 def needs_grad(*tensors) -> bool:
     """Whether gradients must flow through a call on ``tensors``."""
     import torch

@@ -7,7 +7,11 @@ max-pooled score s[b, n] times the channel mean vbar[b, c].
 
 :func:`maxpool_attention_scores` is the kernel's wrapper. On a CUDA tensor
 it launches the Hopper kernel ``csrc/maxpool_attention_scores.cu``; on a
-CPU tensor it runs the plain PyTorch version. When gradients must flow it
+CPU tensor it runs the plain PyTorch version. Without gradients it calls
+the operator ``torch.ops.camradepth.maxpool_attention_scores``
+(``scores_op``), whose CUDA implementation launches the kernel and
+counts it, so that an exported graph (``interop/export.py``) holds the
+kernel and not its plain version. When gradients must flow it
 goes through :class:`_Scores`, the port's form of the JAX custom VJP
 (``camradepth_tpu/ops/attention.py:51-97``): the forward also keeps the
 argmax [B, h, N] over the unscaled fp32 dots, and the backward is a gather
@@ -267,6 +271,22 @@ class _Scores(torch.autograd.Function):
         return dq, dk, None, None
 
 
+def _scores_op_cuda(q, k, num_heads, scale):
+    _check_cuda(q, k, num_heads)
+    return _scores_cuda(q.contiguous(), k.contiguous(), num_heads, scale,
+                        False)[0]
+
+
+# the no-grad forward as an operator of its own: the plain version on the
+# CPU, the kernel on a CUDA device (where it counts the launch)
+scores_op = _build.register_op(
+    "maxpool_attention_scores",
+    "(Tensor q, Tensor k, int num_heads, float scale) -> Tensor",
+    cpu=maxpool_attention_scores_reference, cuda=_scores_op_cuda,
+    fake=lambda q, k, num_heads, scale: q.new_empty(q.shape[:2],
+                                                    dtype=torch.float32))
+
+
 def maxpool_attention_scores(
     q: torch.Tensor, k: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
@@ -279,15 +299,14 @@ def maxpool_attention_scores(
         the card.
       scale: score scale, (C/h) ** -0.5 in the model.
     Returns:
-      fp32 [B, N]; differentiable in q and k.
+      fp32 [B, N]; differentiable in q and k (through :class:`_Scores`;
+      without gradients through ``scores_op``).
     """
     if _build.needs_grad(q, k):
         return _Scores.apply(q, k, num_heads, scale)
-    if q.device.type == "cpu" and k.device.type == "cpu":
-        return maxpool_attention_scores_reference(q, k, num_heads, scale)
-    _check_cuda(q, k, num_heads)
-    return _scores_cuda(q.contiguous(), k.contiguous(), num_heads, scale,
-                        False)[0]
+    if q.device.type != "cpu" or k.device.type != "cpu":
+        _check_cuda(q, k, num_heads)
+    return scores_op(q, k, num_heads, float(scale))
 
 
 maxpool_attention_scores.launches = 0

@@ -16,7 +16,10 @@ input above XLA's subnormal flush.
 
 :func:`gelu_bf16` is the kernel's wrapper: on a CUDA tensor it launches the
 elementwise kernel ``csrc/gelu_bf16.cu`` (one launch, where the plain
-version would be eight), on a CPU tensor it runs the plain version. When
+version would be eight), on a CPU tensor it runs the plain version, both
+through the operator ``torch.ops.camradepth.gelu_bf16`` (``gelu_op``;
+its CUDA implementation launches and counts), which an exported graph
+(``interop/export.py``) keeps. When
 gradients must flow it goes through :class:`_GeluBf16`, whose backward is
 the VJP as JAX evaluates it on bf16 (21 operations, each rounded; see
 :func:`gelu_bf16_backward_reference`), not torch's autograd of the eight
@@ -85,11 +88,11 @@ def _check_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"x must lie on the CPU or a CUDA device, got "
                          f"{x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the GELU kernels take bf16, got {x.dtype}")
 
 
-def _forward(x: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return gelu_bf16_reference(x)
+def _gelu_op_cuda(x):
     _check_cuda(x)
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -99,6 +102,20 @@ def _forward(x: torch.Tensor) -> torch.Tensor:
                   out.data_ptr(), x.numel())
     gelu_bf16.launches += 1
     return out
+
+
+# the forward outside autograd as an operator of its own: the plain
+# version on the CPU, the kernel on a CUDA device (where it counts the
+# launch)
+gelu_op = _build.register_op("gelu_bf16", "(Tensor x) -> Tensor",
+                             cpu=gelu_bf16_reference, cuda=_gelu_op_cuda,
+                             fake=torch.empty_like)
+
+
+def _forward(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type != "cpu":
+        _check_cuda(x)
+    return gelu_op(x)
 
 
 def gelu_bf16_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,9 @@ the input dtype between the axes.
 :func:`upsample_bicubic_x2` is the kernel's wrapper. On a CUDA tensor it
 launches the Hopper kernel ``csrc/upsample_bicubic_x2.cu``; on a CPU tensor
 it runs :func:`upsample_bicubic_x2_reference`, the plain PyTorch version.
+Both go through the operator ``torch.ops.camradepth.upsample_bicubic_x2``
+(``upsample_op``; its CUDA implementation launches and counts), which
+an exported graph (``interop/export.py``) keeps.
 :func:`upsample_plan` sizes the kernel's blocks. When gradients must flow,
 the call goes through :class:`_Upsample`, whose backward is the adjoint of
 the edge pad and two-phase filter, rounded where XLA rounds the transpose
@@ -248,10 +251,7 @@ def _check_cuda(x: torch.Tensor) -> None:
         raise ValueError(f"need NHWC [B,H,W,C], got {tuple(x.shape)}")
 
 
-def _forward(x: torch.Tensor) -> torch.Tensor:
-    """The forward on either device, outside autograd."""
-    if x.device.type == "cpu":
-        return upsample_bicubic_x2_reference(x)
+def _upsample_op_cuda(x):
     _check_cuda(x)
     b, h, w, c = x.shape
     x = x.contiguous()
@@ -264,6 +264,27 @@ def _forward(x: torch.Tensor) -> torch.Tensor:
                   x.data_ptr(), y.data_ptr(), b, h, w, c, plan.tw, plan.rows)
     upsample_bicubic_x2.launches += 1
     return y
+
+
+def _upsample_op_fake(x):
+    b, h, w, c = x.shape
+    return x.new_empty((b, 2 * h, 2 * w, c))
+
+
+# the forward outside autograd as an operator of its own: the plain
+# version on the CPU, the kernel on a CUDA device (where it counts the
+# launch)
+upsample_op = _build.register_op(
+    "upsample_bicubic_x2", "(Tensor x) -> Tensor",
+    cpu=upsample_bicubic_x2_reference, cuda=_upsample_op_cuda,
+    fake=_upsample_op_fake)
+
+
+def _forward(x: torch.Tensor) -> torch.Tensor:
+    """The forward on either device, outside autograd."""
+    if x.device.type != "cpu":
+        _check_cuda(x)
+    return upsample_op(x)
 
 
 def upsample_bicubic_x2_backward(gy: torch.Tensor) -> torch.Tensor:

@@ -16,10 +16,13 @@ Counterpart of the dense path of ``camradepth_tpu/serving.py``:
 - with a wire plan, requests are compact wire dicts (``image_u8``,
   ``radar_idx``, ``radar_val``; ``data/wire.py``), decoded on the device
   into the dense feature stack, bit for bit, before the forward
-  (``:59-95``, ``:141-183``).
+  (``:59-95``, ``:141-183``);
+- with ``forward_fn``, the engine serves a prebuilt forward, the
+  ``torch.export`` serving artifact of ``interop/export.py``
+  (``:99-176``, ``load_engine`` ``:428-442``).
 
-The mesh and exported-artifact arguments of the JAX engine are not ported
-yet (ROADMAP queue 1 items 8 and 9).
+The mesh arguments of the JAX engine are not ported yet (ROADMAP queue 1
+item 10).
 """
 
 from __future__ import annotations
@@ -40,24 +43,45 @@ from camradepth_tpu_torch.interop.flax_convert import load_reference_checkpoint
 from camradepth_tpu_torch.models.camradepth import create_model
 
 
-def make_serving_forward(cfg: ExperimentConfig, model):
-    """The serving forward ``fwd(x) -> {"depth": [B, H, W], "seg": [B, H,
-    W] | None}``: final depth clipped to [0, 1] and decoded to metres as
-    ``max_depth * (1 - d)``, and the argmax labels of the final seg logits
-    of a supervised seg branch, uint8 when ``num_classes <= 255``
-    (``camradepth_tpu/serving.py:33-56``)."""
+class ServingForward(torch.nn.Module):
+    """The serving forward as a module, ``x -> {"depth": [B, H, W], "seg":
+    [B, H, W] | None}``: final depth clipped to [0, 1] and, with
+    ``decode_depth``, decoded to metres as ``max_depth * (1 - d)``, and the
+    argmax labels of the final seg logits of a supervised seg branch,
+    uint8 when ``num_classes <= 255`` (``camradepth_tpu/serving.py:
+    33-56``). It sets no grad mode of its own, so that ``torch.export``
+    can trace it (under ``torch.no_grad()``)."""
+
+    def __init__(self, cfg: ExperimentConfig, model,
+                 decode_depth: bool = True):
+        super().__init__()
+        self.model = model
+        self.max_depth = float(cfg.data.max_depth)
+        self.decode_depth = decode_depth
+        self.uint8_labels = cfg.model.num_classes <= 255
+
+    def forward(self, x: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
+        out = self.model(x)
+        depth = out["depth"]["final_depth"][..., 0].clamp(0.0, 1.0)
+        if self.decode_depth:
+            depth = self.max_depth * (1.0 - depth)
+        seg = out["seg"]["final_seg"]
+        if seg is not None:
+            seg = seg.argmax(dim=-1)
+            if self.uint8_labels:
+                seg = seg.to(torch.uint8)
+        return {"depth": depth, "seg": seg}
+
+
+def make_serving_forward(cfg: ExperimentConfig, model,
+                         decode_depth: bool = True):
+    """The serving forward ``fwd(x) -> {"depth", "seg"}`` of
+    :class:`ServingForward`, under ``torch.inference_mode``."""
+    module = ServingForward(cfg, model, decode_depth)
 
     def fwd(x: torch.Tensor) -> Dict[str, Optional[torch.Tensor]]:
         with torch.inference_mode():
-            out = model(x)
-            depth = out["depth"]["final_depth"][..., 0].clamp(0.0, 1.0)
-            depth = cfg.data.max_depth * (1.0 - depth)
-            seg = out["seg"]["final_seg"]
-            if seg is not None:
-                seg = seg.argmax(dim=-1)
-                if cfg.model.num_classes <= 255:
-                    seg = seg.to(torch.uint8)
-        return {"depth": depth, "seg": seg}
+            return module(x)
 
     return fwd
 
@@ -69,12 +93,13 @@ SERVE_WIRE_KEYS = ("image_u8", "radar_idx", "radar_val")
 Item = Union[np.ndarray, Dict[str, np.ndarray]]
 
 
-def make_serving_forward_wire(cfg: ExperimentConfig, model):
+def make_serving_forward_wire(cfg: ExperimentConfig, model,
+                              decode_depth: bool = True):
     """The serving forward over compact wire requests: ``fwd({image_u8,
     radar_idx, radar_val}) -> {depth, seg}``, the request decoded on the
     device into the dense features the dense forward takes, so both serve
     the same outputs."""
-    dense = make_serving_forward(cfg, model)
+    dense = make_serving_forward(cfg, model, decode_depth)
 
     def fwd(req: Dict[str, torch.Tensor]
             ) -> Dict[str, Optional[torch.Tensor]]:
@@ -112,27 +137,46 @@ class DepthEngine:
         batch_size: int = 8,
         device="cuda",
         wire_plan=None,
+        decode_depth: bool = True,
+        forward_fn=None,
     ):
         """Serve ``model`` (a port ``CamRaDepth``, moved to ``device``) at
-        a fixed ``batch_size``. With ``wire_plan`` (a ``data/wire.py``
-        WirePlan) the requests are compact wire dicts, whose channels must
-        be the model's. Raises when ``device`` is CUDA and no card is
-        there."""
+        a fixed ``batch_size``, depth in metres, or with ``decode_depth``
+        False in the model's inverse encoding. With ``wire_plan`` (a
+        ``data/wire.py`` WirePlan) the requests are compact wire dicts,
+        whose channels must be the model's. ``forward_fn`` replaces the
+        model's forward with a prebuilt ``fwd(x) -> {depth, seg}`` on
+        ``device`` (a serving artifact, whose weights and ``decode_depth``
+        are baked in; ``model`` may then be None); it takes no wire plan,
+        as an artifact bakes a dense input signature. Raises when
+        ``device`` is CUDA and no card is there."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.model = model.to(self.device).eval()
         self.batch_size = batch_size
+        self.decode_depth = decode_depth
         self.wire_plan = wire_plan
         h, w = cfg.model.img_size
         self._in_shape = (batch_size, h, w, cfg.model.input_channels)
         if wire_plan is not None:
+            if forward_fn is not None:
+                raise ValueError(
+                    "wire_plan and forward_fn (deployment artifact) are "
+                    "mutually exclusive: artifacts bake a dense-features "
+                    "input signature at export time")
             if 3 + wire_plan.n_radar_ch != cfg.model.input_channels:
                 raise ValueError(
                     f"wire plan carries 3+{wire_plan.n_radar_ch} channels "
                     f"but the model expects {cfg.model.input_channels}")
-            self._fwd = make_serving_forward_wire(cfg, self.model)
+        self.model = None if model is None else model.to(self.device).eval()
+        if forward_fn is not None:
+            self._fwd = forward_fn
+        elif self.model is None:
+            raise ValueError("DepthEngine needs a model or a forward_fn")
+        elif wire_plan is not None:
+            self._fwd = make_serving_forward_wire(cfg, self.model,
+                                                  decode_depth)
         else:
-            self._fwd = make_serving_forward(cfg, self.model)
+            self._fwd = make_serving_forward(cfg, self.model, decode_depth)
         self.frames_served = 0
         self.batches_served = 0
         self._warmed = False
@@ -330,11 +374,26 @@ def load_engine(
     wire_plan=None,
 ) -> DepthEngine:
     """A warmed-up engine serving a reference ``.pth`` checkpoint, dense or
-    (with ``wire_plan``) over compact wire requests."""
+    (with ``wire_plan``) over compact wire requests, or a serving artifact
+    of ``cli export --format artifact`` (``interop/export.py``), dense
+    only: its input signature is fixed at export time."""
+    from camradepth_tpu_torch.interop.export import (
+        artifact_engine,
+        is_artifact,
+    )
+
     dev = resolve_device(device)
-    state = load_reference_checkpoint(checkpoint)
-    model = create_model(cfg.model, device=dev, state_dict=state)
-    engine = DepthEngine(cfg, model, batch_size=batch_size, device=dev,
-                         wire_plan=wire_plan)
+    if is_artifact(checkpoint):
+        if wire_plan is not None:
+            raise ValueError(
+                "serving artifacts bake a dense input signature: wire "
+                "serving needs a .pth checkpoint")
+        engine = artifact_engine(checkpoint, cfg, batch_size=batch_size,
+                                 device=dev)
+    else:
+        state = load_reference_checkpoint(checkpoint)
+        model = create_model(cfg.model, device=dev, state_dict=state)
+        engine = DepthEngine(cfg, model, batch_size=batch_size, device=dev,
+                             wire_plan=wire_plan)
     engine.warmup()
     return engine

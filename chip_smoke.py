@@ -71,7 +71,24 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       against the dense batch bit for bit, cli test --wire on (fp32, TF32
       off) against dense cli test, rtol 1e-6 per metric, cli serve --wire
       on against dense cli serve (bf16) bit for bit, and one bf16 cli
-      train --wire on step's loss against the dense step's.
+      train --wire on step's loss against the dense step's;
+  (k) the serving artifact and the HTTP front end: (k1) cli export of
+      `base` bf16 batch 8 on the card (torch.export, the kernels as
+      operators), a fresh load_engine on it against the live engine on
+      the same frames (bit for bit expected, limit 1e-2 m; 34, 5 and 53
+      launches per forward), and, in a worker process, a base +
+      tpu_decoder bf16 artifact with a dynamic batch against the live
+      engine at batches 3 and 8 (34, 3, 53); (k2, worker) an fp32
+      artifact exported on the CPU serving on the card through the
+      kernels, against the 416x800 golden; (k3, workers) cli test on that
+      artifact against cli test on its checkpoint (rtol 1e-6 per metric),
+      cli serve on the bf16 artifact against the checkpoint's maps, and
+      --wire on with an artifact refused; then the artifact's and the live
+      forward's device busy time and steady stream in turns; (k4)
+      start_server on the bf16 artifact engine: 8 concurrent single-frame
+      POSTs coalesce and each answer equals infer_batch of its frame bit
+      for bit, requests/s and latency of 8 clients, and a wire engine over
+      HTTP (data.wire_radar_cap) against the dense engine.
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -1533,8 +1550,9 @@ def phase_i1(counters, reset_counters):
 
 
 def forward_busy(model, x):
-    """Device busy ms and kernel launches of one forward (torch.profiler,
-    after one forward outside it)."""
+    """Device busy ms and kernel launches of one forward of ``model`` (a
+    model or a serving forward; torch.profiler, after one forward outside
+    it)."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -2051,6 +2069,404 @@ def phase_j(weights, all_counters, counters, reset_counters):
     return launches
 
 
+# ---------------------------------------------------------------- phase (k)
+# an artifact against the live engine on the same frames, depth in metres
+# (0..100 m): the same kernels and library calls in the same order, so bit
+# for bit is expected; the limit is a hundredth of the bf16 serving limit
+ARTIFACT_MAX_ABS_M = 1e-2
+# cli test on an fp32 artifact against cli test on its checkpoint: the
+# artifact's depth is decoded to metres and encoded back
+ARTIFACT_REPORT_RTOL = 1e-6
+# (k4): concurrent single-frame requests, and requests per client in the
+# rate measurement
+HTTP_CLIENTS = 8
+HTTP_ROUNDS = 4
+
+
+def forward_counts():
+    """The forward kernels' launch counts (attention, upsample, conv,
+    gelu) of this process: phase (k) runs parts of itself in worker
+    processes, each with its own counts."""
+    from camradepth_tpu_torch.ops.attention import maxpool_attention_scores
+    from camradepth_tpu_torch.ops.conv_fused import conv3x3_fused
+    from camradepth_tpu_torch.ops.gelu import gelu_bf16
+    from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
+
+    return tuple(fn.launches for fn in (
+        maxpool_attention_scores, upsample_bicubic_x2, conv3x3_fused,
+        gelu_bf16))
+
+
+def counted(fn):
+    """(fn(), the forward kernels' launches during the call)."""
+    before = forward_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(a - b for a, b in zip(forward_counts(), before))
+
+
+def k_frames(cfg, n, seed):
+    h, w = cfg.model.img_size
+    return np.random.default_rng(seed).standard_normal(
+        (n, h, w, cfg.model.input_channels), dtype=np.float32)
+
+
+def k_export(tag, argv, out):
+    """``cli export --format artifact`` to ``out``: (header, seconds)."""
+    from camradepth_tpu_torch.interop.export import read_header
+
+    t0 = time.perf_counter()
+    rc, text = run_cli(["export", "--format", "artifact", "--out", str(out)]
+                       + argv)
+    seconds = time.perf_counter() - t0
+    require(rc == 0, (tag, rc, text))
+    header, blob = read_header(str(out))
+    return header, seconds, (f"{tag} cli export: {seconds:.1f} s, "
+                             f"{blob / 2**20:.1f} MiB, header batch "
+                             f"{header['batch_size']}, platforms "
+                             f"{header['platforms']}")
+
+
+def k_job_tpu_dynamic(tmp):
+    """(k1, worker) a bf16 base + tpu_decoder artifact with a dynamic
+    batch, exported on the card, served at batches 3 and 8 against the
+    live engine; 34, 3 and 53 launches per forward."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.interop.export import load_serving_artifact
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.serving import DepthEngine
+
+    cfg = preset("base")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, tpu_decoder=True))
+    sd = create_model(cfg.model, device="cpu", seed=7,
+                      train=True).state_dict()
+    pth, art = Path(tmp) / "tpu_decoder.pth", Path(tmp) / "tpu_dyn.pt2"
+    torch.save({"state_dict": sd}, pth)
+    _, _, line = k_export("(k1) tpu_decoder bf16 dynamic batch", [
+        "--tpu-decoder", "--checkpoint", str(pth), "--artifact-dtype",
+        "bfloat16", "--dynamic-batch"], art)
+    lines = [line]
+    t0 = time.perf_counter()
+    call, header = load_serving_artifact(str(art), "cuda")
+    lines.append(f"(k1) tpu_decoder artifact loaded on the card in "
+                 f"{time.perf_counter() - t0:.1f} s")
+    require(header["batch_size"] is None and header["tpu_decoder"], header)
+    model = create_model(cfg.model, device="cuda", state_dict=sd)
+    frames = k_frames(cfg, BATCH, 21)
+    want_launches = variant_counts(cfg.model)
+    want_launches = (*want_launches[:2], 0, want_launches[2])
+    for n in (3, BATCH):
+        # the live engine at the same batch: cuDNN picks its algorithms by
+        # shape, and in bf16 another batch rounds otherwise
+        live = DepthEngine(cfg, model, batch_size=n, device="cuda")
+        x = torch.from_numpy(frames[:n]).cuda()
+        call(x)  # the first call at a shape warms cuDNN up
+        out, launches = counted(lambda: call(x)["depth"].cpu().numpy())
+        want = live.infer_batch(frames[:n])["depth"]
+        err = float(np.abs(out - want).max())
+        lines.append(f"(k1) tpu_decoder artifact at batch {n}: launches "
+                     f"{launches} (expected {want_launches}), max |artifact"
+                     f" - live at batch {n}| = {err:.3g} m (limit "
+                     f"{ARTIFACT_MAX_ABS_M}; bit for bit: "
+                     f"{np.array_equal(out, want)})")
+        require(out.shape == want.shape, (out.shape, want.shape))
+        require(launches == want_launches, (n, launches))
+        require(err <= ARTIFACT_MAX_ABS_M, (n, err))
+    return lines
+
+
+def k_golden(final):
+    """The artifact's final depth (the model's inverse encoding, [1, H,
+    W]) against tests/goldens/flagship_416x800.npz with phase (c)'s
+    limits. The golden holds the depth head's raw output, which leaves [0,
+    1] at a few pixels; the serving forward clips it to [0, 1] before it
+    decodes, so the golden is clipped alike."""
+    with np.load(ROOT / "tests" / "goldens" / "flagship_416x800.npz") as z:
+        golden = {k: z[k] for k in ("crop_yx", "final_depth_crop",
+                                    "final_depth_f16")}
+    cy, cx = golden["crop_yx"]
+    lines = []
+    for name, got, ref, atol in (
+            ("final_depth_crop", final[:, cy:cy + 64, cx:cx + 128],
+             golden["final_depth_crop"], 5e-4),
+            ("final_depth_f16", final,
+             golden["final_depth_f16"].astype(np.float32), 1.5e-3)):
+        ref = np.clip(ref.reshape(got.shape), 0.0, 1.0)
+        lines.append(f"(k2) {name}: max_abs_err="
+                     f"{np.abs(got - ref).max():.3g} (rtol 2e-3, atol "
+                     f"{atol})")
+        np.testing.assert_allclose(got, ref, rtol=2e-3, atol=atol,
+                                   err_msg=name)
+    return lines
+
+
+def k_job_fp32_cpu(tmp, pth, head):
+    """(k2, k3; worker) an fp32 base artifact exported on the CPU at
+    416x800 serves on the card through the kernels, within the golden's
+    limits; cli test on it equals cli test on the checkpoint."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.interop.golden import golden_input
+    from camradepth_tpu_torch.serving import load_engine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset("base")
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype="float32"))
+    art = Path(tmp) / "base_fp32_cpu.pt2"
+    f32 = ["--set", "model.compute_dtype=float32"]
+    header, _, line = k_export("(k2) fp32 on the CPU", [
+        "--checkpoint", str(pth), "--device", "cpu", "--serve-batch", "2"]
+        + f32, art)
+    lines = [line]
+    require(header["platforms"] == ["cpu", "cuda"], header)
+    t0 = time.perf_counter()
+    engine = load_engine(cfg, str(art), batch_size=2, device="cuda")
+    lines.append(f"(k2) load_engine on the card with warm-up: "
+                 f"{time.perf_counter() - t0:.1f} s")
+    x = golden_input(cfg.model.img_size)
+    out, launches = counted(lambda: engine.infer_batch(x)["depth"])
+    want = (sum(cfg.model.depths), 5, 0, 0)
+    require(launches == want, (launches, want))
+    lines.append(f"(k2) fp32 artifact traced on the CPU, on the card: "
+                 f"launches {launches} (expected {want})")
+    lines += k_golden(1.0 - out / cfg.data.max_depth)
+    del engine
+    reports = []
+    for ckpt in (art, pth):
+        path = Path(tmp) / f"k3_{ckpt.stem}.json"
+        rc, text = run_cli(["test", "--split", str(head), "--checkpoint",
+                            str(ckpt), "--report-json", str(path),
+                            "--test-batch", "2", "--set",
+                            "data.mini_dataset=1"] + f32)
+        require(rc == 0, (ckpt, rc, text))
+        reports.append(json.loads(path.read_text()))
+    got, want = reports
+    for k in METRIC_KEYS:
+        require(abs(got[k] - want[k]) <= ARTIFACT_REPORT_RTOL * abs(want[k]),
+                (k, got[k], want[k]))
+    lines.append(f"(k3) cli test on the fp32 artifact = cli test on the "
+                 f"checkpoint over {got['frames']:.0f} frames, every metric "
+                 f"within rtol {ARTIFACT_REPORT_RTOL} (rmse_100 "
+                 f"{got['rmse_100']:.6f} vs {want['rmse_100']:.6f})")
+    return lines
+
+
+def k_job_serve(tmp, art, pth, split):
+    """(k3, worker) cli serve on the bf16 artifact writes the checkpoint's
+    depth maps; --wire on with an artifact is refused."""
+    maps = []
+    for ckpt in (art, pth):
+        out_dir = Path(tmp) / f"served_{Path(ckpt).stem}"
+        rc, text = run_cli(["serve", "--split", str(split), "--checkpoint",
+                            str(ckpt), "--out", str(out_dir),
+                            "--serve-batch", str(BATCH), "--set",
+                            "data.mini_dataset=1"])
+        require(rc == 0, (ckpt, rc, text))
+        maps.append([np.load(p) for p in sorted(out_dir.glob("*_depth.npy"))])
+        stats = json.loads(text.strip().splitlines()[-1])
+    require(len(maps[0]) == len(maps[1]) > 0, [len(m) for m in maps])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(*maps))
+    require(err <= ARTIFACT_MAX_ABS_M, err)
+    rc, _ = run_cli(["serve", "--split", str(split), "--checkpoint",
+                     str(art), "--wire", "on", "--set",
+                     "data.mini_dataset=1"])
+    require(rc == 2, rc)
+    return [f"(k3) cli serve on the bf16 artifact: {len(maps[0])} depth maps,"
+            f" max |artifact - checkpoint| = {err:.3g} m; (checkpoint run: "
+            f"{stats['frames_per_sec']:.2f} frames/s); --wire on with an "
+            f"artifact refused (exit 2)"]
+
+
+def http_post(port, body: bytes, path="/v1/depth"):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        data = r.read()
+        code = r.status
+    return code, data, time.perf_counter() - t0
+
+
+def npy_bytes(a) -> bytes:
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def phase_k4(cfg, engine, pth, split):
+    """start_server with the bf16 batch-8 artifact engine: concurrent
+    single-frame requests coalesce and each answer is the engine's own for
+    that frame; requests/s and latency; a wire engine over HTTP (data.
+    wire_radar_cap) answers the dense engine's depth."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from camradepth_tpu_torch.cli import http_wire_plan
+    from camradepth_tpu_torch.data.pipeline import make_loaders
+    from camradepth_tpu_torch.serving import SERVE_WIRE_KEYS, load_engine
+    from camradepth_tpu_torch.serving_http import start_server
+
+    frames = k_frames(cfg, HTTP_CLIENTS, 31)
+    servers = []
+    try:
+        srv, _ = start_server(engine, cfg, "127.0.0.1", 0)
+        servers.append(srv)
+        port = srv.server_address[1]
+        engine.reset_stats()
+        barrier = threading.Barrier(HTTP_CLIENTS)
+
+        def one(i):
+            barrier.wait(timeout=300)
+            return http_post(port, npy_bytes(frames[i]))
+
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            answers = list(pool.map(one, range(HTTP_CLIENTS)))
+        batches = engine.stats()["batches"]
+        for i, (code, body, _) in enumerate(answers):
+            require(code == 200, (i, code))
+            got = np.load(io.BytesIO(body))["depth"]
+            want = engine.infer_batch(frames[i:i + 1])["depth"]
+            require(np.array_equal(got, want),
+                    (i, float(np.abs(got - want).max())))
+        print(f"(k4) {HTTP_CLIENTS} concurrent single-frame POSTs served in "
+              f"{batches:.0f} batch(es); each answer = infer_batch of its "
+              f"frame, bit for bit")
+        require(batches < HTTP_CLIENTS, batches)
+
+        def client(i):
+            return [http_post(port, npy_bytes(frames[i]))[2]
+                    for _ in range(HTTP_ROUNDS)]
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            lat = np.concatenate(list(pool.map(client, range(HTTP_CLIENTS))))
+        wall = time.perf_counter() - t0
+        print(f"(k4) {HTTP_CLIENTS} clients x {HTTP_ROUNDS} requests: "
+              f"{lat.size / wall:.2f} requests/s, latency p50 "
+              f"{1e3 * np.percentile(lat, 50):.1f} ms, p95 "
+              f"{1e3 * np.percentile(lat, 95):.1f} ms")
+
+        # wire: the probed plan's radar cap as data.wire_radar_cap, as
+        # `cli serve --http-port --wire on --set data.wire_radar_cap=N`
+        data = dataclasses.replace(cfg.data, split_path=str(split),
+                                   mini_dataset=1)
+        wire_batch = next(iter(make_loaders(data, BATCH,
+                                            wire_eval=True)["test"]))
+        dense_batch = next(iter(make_loaders(data, BATCH)["test"]))
+        cap = wire_batch["radar_idx"].shape[1]
+        wcfg = cfg.replace(data=dataclasses.replace(
+            data, wire_format="on", wire_radar_cap=cap))
+        wengine = load_engine(wcfg, str(pth), batch_size=BATCH,
+                              wire_plan=http_wire_plan(wcfg))
+        wsrv, _ = start_server(wengine, wcfg, "127.0.0.1", 0)
+        servers.append(wsrv)
+        err = 0.0
+        for i in range(4):
+            req = {k: wire_batch[k][i] for k in SERVE_WIRE_KEYS}
+            buf = io.BytesIO()
+            np.savez(buf, **req)
+            code_w, body_w, _ = http_post(wsrv.server_address[1],
+                                          buf.getvalue())
+            feats = dense_batch["features"][i, ..., :cfg.model.input_channels]
+            code_d, body_d, _ = http_post(port, npy_bytes(feats))
+            require(code_w == code_d == 200, (code_w, code_d))
+            got = np.load(io.BytesIO(body_w))["depth"]
+            want = np.load(io.BytesIO(body_d))["depth"]
+            err = max(err, float(np.abs(got - want).max()))
+        print(f"(k4) wire engine over HTTP (radar cap {cap}): 4 frames, max "
+              f"|wire - dense| = {err:.3g} m (limit {ARTIFACT_MAX_ABS_M})")
+        require(err <= ARTIFACT_MAX_ABS_M, err)
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+            srv._camradepth_aggregator.close()
+
+
+def phase_k(weights, reset_counters, counters):
+    """This slice's path: the serving artifact (cli export, load_engine,
+    cli test and cli serve on artifacts) and the HTTP front end. The
+    exports and loads are Python-bound (torch.export traces and
+    deserializes some 9,000 graph nodes), so three parts run in worker
+    processes beside the main one."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.data import synthetic
+    from camradepth_tpu_torch.data.split import save_split
+    from camradepth_tpu_torch.serving import load_engine
+
+    cfg = preset("base")
+    h, w = cfg.model.img_size
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        tmp = Path(tmp)
+        # the longest part first; it needs neither corpus nor weights
+        jobs = [pool.submit(k_job_tpu_dynamic, str(tmp))]
+        split = synthetic.generate(tmp / "data", num_frames=BATCH, hw=(h, w),
+                                   seed=0, rain_every=4)
+        head = save_split(np.load(split)[:4], tmp / "head_split.npy")
+        pth = tmp / "base_synth.pth"
+        torch.save({"state_dict": {k: torch.from_numpy(v)
+                                   for k, v in weights.items()}}, pth)
+        jobs.append(pool.submit(k_job_fp32_cpu, str(tmp), pth, head))
+        art = tmp / "base_bf16.pt2"
+        header, export_s, line = k_export("(k1) base bf16 batch 8", [
+            "--checkpoint", str(pth), "--artifact-dtype", "bfloat16",
+            "--serve-batch", str(BATCH)], art)
+        print(line)
+        require(header["batch_size"] == BATCH
+                and header["platforms"] == ["cuda", "cpu"], header)
+        jobs.append(pool.submit(k_job_serve, str(tmp), art, pth, split))
+        t0 = time.perf_counter()
+        engine = load_engine(cfg, str(art), batch_size=BATCH)
+        print(f"(k1) load_engine on the artifact with warm-up: "
+              f"{time.perf_counter() - t0:.1f} s")
+        live = load_engine(cfg, str(pth), batch_size=BATCH)
+        frames = k_frames(cfg, BATCH, 23)
+        reset_counters()
+        got = engine.infer_batch(frames)["depth"]
+        launches = counters()
+        want_launches = per_forward(cfg, 1)
+        want = live.infer_batch(frames)["depth"]
+        err = float(np.abs(got - want).max())
+        print(f"(k1) artifact forward: launches (attention, upsample, "
+              f"conv, gelu) {launches} (expected {want_launches}); max "
+              f"|artifact - live| = {err:.3g} m (limit "
+              f"{ARTIFACT_MAX_ABS_M}; bit for bit: "
+              f"{np.array_equal(got, want)})")
+        require(launches == want_launches, (launches, want_launches))
+        require(err <= ARTIFACT_MAX_ABS_M, err)
+        for job in jobs:
+            for line in job.result():
+                print(line)
+        t_workers = time.perf_counter()
+        # the two forwards with the card and the host to themselves (the
+        # workers have ended): one profile each, the streams in turns
+        x = torch.from_numpy(frames).cuda()
+        for name, e in (("artifact", engine), ("live", live)):
+            busy_ms, n_kernels = forward_busy(e._fwd, x)
+            print(f"(k1) {name}: bf16 batch-{BATCH} forward device busy "
+                  f"{busy_ms:.2f} ms ({n_kernels} kernels)")
+        for name, e in (("artifact", engine), ("live", live),
+                        ("live", live), ("artifact", engine)):
+            _, stats, batch_ms = stream(e, frames, 4)
+            print(f"(k1) {name}: steady stream {batch_ms:.2f} ms per batch, "
+                  f"{stats['frames_per_sec']:.2f} frames/s")
+        del live, x
+        torch.cuda.empty_cache()
+        t_turns = time.perf_counter()
+        phase_k4(cfg, engine, pth, split)
+    print(f"(k) phase seconds: (k1)-(k3) {t_workers - t_start:.1f} (main "
+          f"export {export_s:.1f}), turns {t_turns - t_workers:.1f}, (k4) "
+          f"{time.perf_counter() - t_turns:.1f}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
@@ -2071,9 +2487,7 @@ def main() -> None:
                 gelu_bf16, maxpool_attention_scores_backward,
                 upsample_bicubic_x2_backward, gelu_bf16_backward)
 
-    def counters():
-        # the forward kernels' four counts (all seven: all_counters)
-        return tuple(fn.launches for fn in wrappers[:4])
+    counters = forward_counts  # the forward kernels' four counts
 
     def all_counters():
         return tuple(fn.launches for fn in wrappers)
@@ -2109,10 +2523,12 @@ def main() -> None:
     t8 = time.perf_counter()
     phase_j(weights, all_counters, counters, reset_counters)
     t9 = time.perf_counter()
+    phase_k(weights, reset_counters, counters)
+    t10 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
-          f"(j) {t9 - t8:.1f}")
+          f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

@@ -437,7 +437,8 @@ def test_cli_distill_refuses_in_one_line(corpus, tmp_path, capsys):
     for extra, match in (
             (["--teacher-checkpoint", str(path), "--data-parallel", "2"],
              "item 10"),
-            (["--teacher-checkpoint", str(orbax)], "item 8"),
+            (["--teacher-checkpoint", str(orbax)],
+             "camradepth_tpu.cli export --format pth"),
             # a parity checkpoint is no tpu_decoder teacher
             (["--teacher-checkpoint", str(path), "--teacher-tpu-decoder"],
              "--no-strict-teacher"),

@@ -334,8 +334,8 @@ def test_cli_tpu_decoder_refuses_a_reference_checkpoint(corpus, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--wire", "auto", "--http-port", "0"], "item 8"),
-    (["--http-port", "0"], "item 8"),
+    (["--http-port", "0", "--data-parallel", "2"], "item 10"),
+    (["--set", "mesh.spatial_parallel=2"], "item 10"),
     (["--data-parallel", "2"], "item 10"),
     (["--spatial-parallel", "2"], "item 10"),
     (["--set", "mesh.data_parallel=2"], "item 10"),
@@ -349,10 +349,18 @@ def test_cli_refuses_options_of_later_slices(corpus, capsys, extra, item):
     assert item in capsys.readouterr().err
 
 
-def test_cli_refuses_artifact_checkpoints(capsys):
-    assert cli.main(["test", "--checkpoint", "model.hlo",
-                     "--device", "cpu"]) == 2
-    assert "item 9" in capsys.readouterr().err
+def test_cli_refuses_artifact_checkpoints(capsys, tmp_path):
+    """A StableHLO artifact of the JAX package is refused in one line (the
+    port serves its own artifacts, tests/test_torch_export.py), and so is
+    a missing one."""
+    jax_artifact = tmp_path / "model.hlo"
+    jax_artifact.write_bytes(b"CRDSHLO1" + bytes(8))
+    for path, match in ((jax_artifact, "JAX StableHLO artifact"),
+                        (tmp_path / "missing.hlo", "No such file")):
+        assert cli.main(["test", "--checkpoint", str(path),
+                         "--device", "cpu"]) == 2
+        err = capsys.readouterr().err.strip()
+        assert match in err and "\n" not in err, err
 
 
 def test_cli_defaults_to_the_card(corpus):

@@ -25,6 +25,8 @@ package's own limits, tests/test_conv_fused.py:38-40); its fp32 channel
 sums run over H*W terms, so rtol 1e-4 and atol 1e-3 * sqrt(H*W).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -647,3 +649,95 @@ def test_distill_step_on_the_card_matches_the_cpu(cuda):
     for k, g in gp.items():
         rel = ((gc[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
         assert rel <= 1e-3, (k, rel)
+
+
+@pytest.mark.parametrize("op,dtype", [
+    ("scores", torch.float32), ("scores", torch.bfloat16),
+    ("bicubic", torch.float32), ("bicubic", torch.bfloat16),
+    ("gelu", torch.bfloat16)])
+def test_custom_ops_launch_the_kernel(cuda, op, dtype):
+    """Each kernel's operator (``torch.ops.camradepth.*``, the form an
+    exported artifact calls) on CUDA tensors launches the kernel once,
+    equals the plain version (bit for bit for the bicubic and the GELU,
+    the attention limits for the scores), and its fake implementation
+    gives the kernel's shape, dtype and device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    if op == "scores":
+        args = (_randn((2, 1300, 160), 61, dtype, cuda),
+                _randn((2, 325, 160), 62, dtype, cuda), 4, 40 ** -0.5)
+        fn, wrapper = torch.ops.camradepth.maxpool_attention_scores, (
+            maxpool_attention_scores)
+        want = maxpool_attention_scores_reference(*args)
+    elif op == "bicubic":
+        args = (_randn((2, 13, 25, 256), 63, dtype, cuda),)
+        fn, wrapper = torch.ops.camradepth.upsample_bicubic_x2, (
+            upsample_bicubic_x2)
+        want = upsample_bicubic_x2_reference(*args)
+    else:
+        args = (_randn((2, 52, 100, 64), 64, dtype, cuda) * 4,)
+        fn, wrapper = torch.ops.camradepth.gelu_bf16, gelu_bf16
+        want = gelu_bf16_reference(*args)
+    before = wrapper.launches
+    with torch.no_grad():
+        got = fn(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    if op == "scores":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16
+                                     else torch.int32))
+    with FakeTensorMode() as mode:
+        fake = fn(*(mode.from_tensor(a) if torch.is_tensor(a) else a
+                    for a in args))
+    assert (fake.shape, fake.dtype, fake.device) == (got.shape, got.dtype,
+                                                      got.device)
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("traced_on,dtype", [("cuda", "bfloat16"),
+                                             ("cpu", "float32")])
+def test_artifact_on_the_card_launches_the_kernels(cuda, tmp_path,
+                                                   traced_on, dtype):
+    """A serving artifact of the tiny widths, exported on the card (bf16)
+    or on the CPU (fp32: no Python branch of the forward depends on the
+    device), serves on the card through the kernels (4 attention, 5
+    bicubic and, in bf16, one GELU launch per GELU of the live forward)
+    and equals the live engine there bit for bit: the same kernels and
+    library calls in the same order."""
+    from camradepth_tpu_torch.config import tiny_test_config
+    from camradepth_tpu_torch.interop.export import (
+        artifact_engine,
+        export_serving_artifact,
+    )
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.serving import DepthEngine
+
+    cfg = tiny_test_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                compute_dtype=dtype))
+    sd = create_model(cfg.model, device="cpu", seed=4).state_dict()
+    path = tmp_path / "a.pt2"
+    export_serving_artifact(
+        cfg, create_model(cfg.model, device=traced_on, state_dict=sd),
+        str(path), batch_size=2, artifact_dtype=dtype)
+    live = DepthEngine(cfg, create_model(cfg.model, device=cuda,
+                                         state_dict=sd),
+                       batch_size=2, device=cuda)
+    eng = artifact_engine(str(path), cfg, device=cuda)
+    eng.warmup()
+    live.warmup()
+    x = np.random.default_rng(9).standard_normal(
+        (2, *cfg.model.img_size, 7)).astype(np.float32)
+    wrappers = (maxpool_attention_scores, upsample_bicubic_x2, gelu_bf16)
+    counts, outs = [], []
+    for e in (eng, live):
+        before = [w.launches for w in wrappers]
+        outs.append(e.infer_batch(x)["depth"])
+        counts.append([w.launches - b for w, b in zip(wrappers, before)])
+    assert counts[0] == counts[1] and counts[0][:2] == [4, 5], counts
+    assert (counts[0][2] > 0) == (dtype == "bfloat16")
+    assert np.array_equal(outs[0], outs[1])

@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     loaded = res.stdout.split()
-    assert "camradepth_tpu_torch.serving" in loaded
+    for m in ("serving", "serving_http", "interop.export"):
+        assert f"camradepth_tpu_torch.{m}" in loaded, m
     bad = [m for m in loaded if _forbidden(m)]
     assert not bad, bad
 
@@ -60,6 +61,8 @@ def test_sources_import_no_jax():
             bad += [f"{path.name}: {n}" for n in names if _forbidden(n)]
     assert not bad, bad
     assert len(MODULES) >= 11
+    assert {"camradepth_tpu_torch.serving_http",
+            "camradepth_tpu_torch.interop.export"} <= set(MODULES)
 
 
 def test_entry_points_default_to_cuda():
@@ -78,6 +81,10 @@ def test_entry_points_default_to_cuda():
         DepthEngine(cfg, model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_engine(cfg, "no_such_checkpoint.pth")
+    from camradepth_tpu_torch.interop.export import load_serving_artifact
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_serving_artifact("no_such_artifact.pt2")
     from camradepth_tpu_torch.train.trainer import Trainer
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
