@@ -3,8 +3,9 @@
 The JAX package ``camradepth_tpu`` is the reference; this package imports
 nothing from it. Entry points run on the card (``device="cuda"``) unless
 the caller asks for the CPU, and raise when CUDA is not available.
-Importing the package builds no kernel: the CUDA sources under ``csrc/``
-are compiled at first use (see ``ops/_build.py``).
+Importing the package builds nothing: the CUDA sources under ``csrc/``
+are compiled with nvcc at first use (see ``ops/_build.py``), and the
+loader's C++ host code under ``csrc/host/`` with g++ (see ``native.py``).
 """
 
 import torch

@@ -1,5 +1,5 @@
 """Command-line interface of the PyTorch/CUDA port: ``train``,
-``distill``, ``test``, ``serve`` and ``export``.
+``distill``, ``test``, ``serve``, ``export`` and ``validate-data``.
 
   python -m camradepth_tpu_torch.cli train --preset base --split S.npy \\
       [--run-dir R] [--save-model] [--set train.num_epochs=1] [--device ..]
@@ -14,14 +14,17 @@
   python -m camradepth_tpu_torch.cli export --preset base --checkpoint W.pth \\
       --out A.pt2 --format artifact [--serve-batch 8] [--dynamic-batch] \\
       [--artifact-dtype float32|bfloat16] [--device cuda|cpu]
+  python -m camradepth_tpu_torch.cli validate-data --split S.npy | \
+      --data-dir D [--image-dimension 416,800] [--limit N] [--no-decode]
 
 The counterparts of ``camradepth_tpu.cli``'s single-device ``cmd_train``
 (``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
 ``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``) without its
-mesh flags, and ``cmd_export`` (``:514-565``), with the same flags where
-they apply. ``train`` runs :class:`train.trainer.Trainer` and prints the
-best validation loss; its checkpoints are ``.pth`` files that ``test``,
-``serve`` and ``export`` load. ``distill`` trains a student (usually
+mesh flags, ``cmd_export`` (``:514-565``) and ``cmd_validate_data``
+(``:930-958``), with the same flags where they apply. ``train`` runs
+:class:`train.trainer.Trainer` and prints the best validation loss; its
+checkpoints are ``.pth`` files that ``test``, ``serve`` and ``export``
+load. ``distill`` trains a student (usually
 ``--tpu-decoder``) against a frozen parity teacher
 (:class:`train.distill.DistillTrainer`) from a reference ``.pth``, a port
 trainer checkpoint or a run directory (its best checkpoint). ``test``
@@ -35,6 +38,9 @@ the same stats line, or with ``--http-port`` serves the engine over HTTP
 artifact (``interop/export.py``: ``torch.export`` with the weights
 inside, the kernels as operators) that ``test`` and ``serve`` take in
 place of a checkpoint; ``--format pth`` writes the reference layout.
+``validate-data`` checks a prepared dataset's artifacts against the
+loader's frame contract (``data/split.validate_split``) and touches no
+device.
 ``--tpu-decoder`` selects the ``tpu_decoder`` variant; its checkpoints
 are the port's own layout, so a reference-format ``.pth`` is refused for
 it, and its deployment format is the artifact. ``--wire auto|on`` (or
@@ -608,6 +614,36 @@ def cmd_export(args) -> int:
     return 0
 
 
+def cmd_validate_data(args) -> int:
+    """Check a prepared dataset (a split table, or a directory globbed into
+    one) against the loader's frame contract: one line per error, then a
+    summary; exit code 0 when clean, 1 with errors, 2 unless exactly one
+    of --split and --data-dir is given."""
+    from camradepth_tpu_torch.data.split import (
+        MAX_ERRORS,
+        build_split_from_dir,
+        load_split,
+        validate_split,
+    )
+
+    if bool(args.split) == bool(args.data_dir):
+        print("error: give exactly one of --split / --data-dir",
+              file=sys.stderr)
+        return 2
+    rows = (load_split(args.split) if args.split
+            else build_split_from_dir(args.data_dir))
+    hw = tuple(int(v) for v in args.image_dimension.split(","))
+    r = validate_split(rows, image_dimension=hw, limit=args.limit,
+                       decode_images=not args.no_decode)
+    for i, msg in r["errors"]:
+        print(f"row {i}: {msg}")
+    n_err = len(r["errors"])
+    extra = " (further errors suppressed)" if n_err >= MAX_ERRORS else ""
+    status = "OK" if r["ok"] else f"{n_err} errors"
+    print(f"checked {r['checked']} rows: {status}{extra}")
+    return 0 if r["ok"] else 1
+
+
 def _add_train_flags(p: argparse.ArgumentParser) -> None:
     """The flags of ``train``, which ``distill`` shares."""
     p.add_argument("--preset", default="base",
@@ -663,7 +699,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="camradepth_tpu_torch",
         description="CamRaDepth on PyTorch/CUDA: train, distill, test, "
-                    "serve and export",
+                    "serve, export and validate-data",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -748,6 +784,21 @@ def main(argv=None) -> int:
                         "dimension (serves any batch size) instead of "
                         "--serve-batch")
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser(
+        "validate-data",
+        help="artifact-contract checker for a prepared dataset (catches "
+             "the sorted-glob column shift, missing files, wrong shapes "
+             "and dtypes)")
+    p.add_argument("--split", default=None, help="(N,7) split .npy")
+    p.add_argument("--data-dir", default=None,
+                   help="prepared_data dir to glob instead of a split")
+    p.add_argument("--image-dimension", default="416,800", metavar="H,W")
+    p.add_argument("--limit", type=int, default=0,
+                   help="check only the first N rows (0 = all)")
+    p.add_argument("--no-decode", action="store_true",
+                   help="skip the jpg decode (faster)")
+    p.set_defaults(fn=cmd_validate_data)
 
     args = parser.parse_args(argv)
     try:

@@ -123,9 +123,11 @@ class DataConfig:
     sparse_depth_uv: bool = True
     im_uv: bool = False
     rad_vel: bool = True
-    # Kept for field-for-field compatibility with the JAX config. The port
-    # always assembles frames with numpy (data/channels.py): the C++
-    # assembler is not ported yet (ROADMAP queue 1 item 12).
+    # Assemble and wire-encode frames with the C++ host code (native.py,
+    # built with g++ at first use): bit for bit with numpy, and outside the
+    # interpreter lock, so the loader's threads run in parallel. A frame it
+    # does not cover (sparse_lidar, fp16 sources) takes numpy; a failed
+    # build raises. False assembles every frame with numpy.
     native_assemble: bool = True
     # The compact wire format (data/wire.py): the loaders ship the uint8
     # image and the radar and GT points, decoded on the device into the

@@ -15,9 +15,11 @@ holds
 
 in place of the dense feature stack: ~8x fewer host-to-device bytes per
 frame. :func:`encode_frame_wire` runs on the host in the numpy arithmetic
-of ``data/channels.assemble_frame``, value for value. The JAX package's
-C++ encoder (``native_assemble``) is bit for bit with this numpy path and
-only faster; it is not ported (ROADMAP queue 1 item 12).
+of ``data/channels.assemble_frame``, value for value; with
+``DataConfig.native_assemble`` (the default) the package's C++ host code
+(``native.py``) encodes the frame instead, bit for bit, in one pass per
+group outside the interpreter lock, and a frame that it does not cover
+(an fp16 or oddly strided source, a label outside uint8) takes numpy.
 
 :func:`decode_wire_micro` rebuilds the dense batch on whatever device its
 tensors lie on, bit for bit with the dense stack: the image through a
@@ -39,6 +41,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from camradepth_tpu_torch import native
 from camradepth_tpu_torch.config import (
     IMAGENET_MEAN,
     IMAGENET_STD,
@@ -178,23 +181,108 @@ def resolve_wire_ship(cfg) -> DataConfig:
     )
 
 
+def _overflow(what: str, n: int, cap: int) -> WireOverflowError:
+    return WireOverflowError(
+        f"{what}: {n} nonzero points exceed the wire cap {cap}; raise "
+        "data.wire_radar_cap/wire_gt_cap or set data.wire_format=off")
+
+
 def _sparsify(idx: np.ndarray, cap: int, what: str) -> np.ndarray:
     if len(idx) > cap:
-        raise WireOverflowError(
-            f"{what}: {len(idx)} nonzero points exceed the wire cap {cap}; "
-            "raise data.wire_radar_cap/wire_gt_cap or set "
-            "data.wire_format=off")
+        raise _overflow(what, len(idx), cap)
     out = np.zeros((cap,), np.int32)
     out[: len(idx)] = idx
+    return out
+
+
+def _pix_view(s: np.ndarray):
+    """(view, element stride) where flat pixel ``i`` of a 2-D view lies at
+    ``data + i * stride`` (rows back to back: a whole array, or one channel
+    of one, as ``radar[..., 0]``); None for any other layout."""
+    if s.ndim != 2:
+        return None
+    it = s.dtype.itemsize
+    st_r, st_c = s.strides
+    if st_c <= 0 or st_c % it or st_r != s.shape[1] * st_c:
+        return None
+    return s, st_c // it
+
+
+def _encode_frame_wire_native(arrays, descs, cfg: DataConfig,
+                              plan: WirePlan, h: int, w: int):
+    """:func:`encode_frame_wire` through the C++ host code
+    (``camradepth_tpu/data/wire.py:222-312``): the union mask and its
+    gathers, the inverse-depth encode and sparsify, and the seg resizes,
+    each one pass outside the interpreter lock. Returns None for a frame
+    that it does not cover, which the numpy path then encodes (and where
+    a label lies outside uint8, refuses with its message)."""
+    views = []
+    for s, _ in descs:
+        pv = _pix_view(s)
+        if pv is None:
+            return None
+        views.append(pv)
+    dts = {v.dtype for v, _ in views}
+    if dts not in ({np.dtype(np.float32)}, {np.dtype(np.float64)}):
+        return None
+    gt = arrays["gt"]
+    g_pv = _pix_view(gt[..., 0]) if (
+        gt.ndim == 3 and gt.shape[:2] == (h, w)
+        and gt.dtype in (np.float32, np.float64)) else None
+    if g_pv is None:
+        return None
+    mseg = arrays["mseg"]
+    if (mseg.dtype not in (np.int64, np.int32) or mseg.ndim != 2
+            or not mseg.flags.c_contiguous):
+        return None
+
+    npix = h * w
+    radar_idx = np.zeros((plan.radar_cap,), np.int32)
+    n_pts = native.wire_union_nonzero(views, npix, radar_idx)
+    if n_pts > plan.radar_cap:
+        raise _overflow("radar channels", n_pts, plan.radar_cap)
+    radar_val = np.zeros((plan.radar_cap, plan.n_radar_ch), np.float32)
+    for c, ((v, stride), (_, desc)) in enumerate(zip(views, descs)):
+        lo, hi, div = desc if desc is not None else (0.0, 0.0, 1.0)
+        native.wire_gather(v, stride, radar_idx, n_pts, desc is not None,
+                           lo, hi, div, radar_val, c, plan.n_radar_ch)
+    out = {"image_u8": np.ascontiguousarray(arrays["image"]),
+           "radar_idx": radar_idx, "radar_val": radar_val}
+
+    g, g_stride = g_pv
+    if plan.gt_cap:
+        gt_idx = np.zeros((plan.gt_cap,), np.int32)
+        gt_val = np.zeros((plan.gt_cap,), np.float32)
+        n_gt = native.wire_gt_sparse(g, g_stride, npix, float(cfg.max_depth),
+                                     gt_idx, gt_val)
+        if n_gt > plan.gt_cap:
+            raise _overflow("lidar GT", n_gt, plan.gt_cap)
+        out["gt_idx"] = gt_idx
+        out["gt_val"] = gt_val
+    else:
+        out["gt_depth"] = native.encode_inverse_depth_native(
+            np.ascontiguousarray(g), float(cfg.max_depth))
+
+    mseg = mseg[:h, :]
+    for key, ship, shape in (("seg", plan.ship_seg, (h, w)),
+                             ("seg_inter", plan.ship_seg_inter,
+                              (h // 2, w // 2))):
+        if ship:
+            seg = native.gather_resize_u8(mseg, *ch._order0_indices(
+                mseg.shape[0], mseg.shape[1], shape))
+            if seg is None:
+                return None
+            out[key] = seg
     return out
 
 
 def encode_frame_wire(arrays: Dict[str, np.ndarray], cfg: DataConfig,
                       plan: WirePlan) -> Dict[str, np.ndarray]:
     """Raw artifact arrays -> one wire example, on the host
-    (``camradepth_tpu/data/wire.py:327-405``, numpy path): each transform
-    runs in the source dtype and is then cast to f32, as the dense path
-    does."""
+    (``camradepth_tpu/data/wire.py:327-405``): through the C++ host code
+    with ``cfg.native_assemble``, else (or for a frame that it does not
+    cover) in numpy, where each transform runs in the source dtype and is
+    then cast to f32, as the dense path does."""
     h, w = cfg.image_dimension
     img = arrays["image"]
     if img.dtype != np.uint8 or img.shape != (h, w, 3):
@@ -207,6 +295,12 @@ def encode_frame_wire(arrays: Dict[str, np.ndarray], cfg: DataConfig,
         if s.shape[:2] != (h, w):
             raise ValueError(f"radar source shape {s.shape} != image "
                              f"dimension {(h, w)}")
+    if cfg.native_assemble:
+        out = _encode_frame_wire_native(arrays, descs, cfg, plan, h, w)
+        if out is not None:
+            native.count("wire_native")
+            return out
+    native.count("wire_numpy")
     mask = np.zeros((h, w), bool)
     for s, _ in descs:
         mask |= s != 0

@@ -88,7 +88,17 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       start_server on the bf16 artifact engine: 8 concurrent single-frame
       POSTs coalesce and each answer equals infer_batch of its frame bit
       for bit, requests/s and latency of 8 clients, and a wire engine over
-      HTTP (data.wire_radar_cap) against the dense engine.
+      HTTP (data.wire_radar_cap) against the dense engine;
+  (l) the loader's native host code (C++ built with g++, called through
+      ctypes outside the interpreter lock), on (g)'s 32-frame 416x800
+      corpus: (l1) the host's g++, machine and CPUs and the build's
+      seconds, then every frame assembled and wire-encoded natively and in
+      numpy, bit for bit, native by the counts; (l2) the loader alone
+      (BatchLoader, batch 8, 8 workers, no model) dense and wire, numpy
+      and native in turns, and one thread's ms per frame of the load, the
+      assembly and the wire encode; (l3) cli test and cli serve in bf16,
+      native and numpy in turns: the reports' metrics and the served maps
+      equal, 34/5/53 launches per forward, frames/s.
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -104,6 +114,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -273,10 +284,17 @@ def phase_a():
                           timeout=60).stdout.strip().splitlines()[-1]
     print(f"(a) card: {smi} | torch {torch.__version__} | CUDA "
           f"{torch.version.cuda} | python {sys.version.split()[0]} | {nvcc}")
+    from camradepth_tpu_torch import native
+
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    # the loader's host library (g++) builds beside the kernels (nvcc)
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.library)
+        libs = _build.build_all()
+        host.result()
     print(f"(a) kernels built in parallel and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; the loader's host library "
+          f"in {native.build_info['seconds']:.2f} s")
     # registers, stack (spills) and shared memory of each kernel, read
     # from the built libraries
     cuobjdump = str(Path(_build.nvcc_path()).parent / "cuobjdump")
@@ -816,106 +834,105 @@ def run_cli(argv):
     return rc, buf.getvalue()
 
 
-def phase_g(cfg, weights, counters, reset_counters):
+def phase_g(cfg, weights, counters, reset_counters, tmp):
     """cli test (bf16 and fp32) and cli serve on the card at base 416x800,
-    batch 8, over a 32-frame synthetic corpus."""
+    batch 8, over a 32-frame synthetic corpus written into ``tmp``, which
+    phase (l) reads again; returns the split and the .pth."""
     from camradepth_tpu_torch.data import synthetic
     from camradepth_tpu_torch.data.split import save_split
 
     h, w = cfg.model.img_size
     n_frames, n_cpu = 32, 4
     fps = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        t0 = time.perf_counter()
-        split = synthetic.generate(tmp / "data", num_frames=n_frames,
-                                   hw=(h, w), seed=0, rain_every=4)
-        head = save_split(np.load(split)[:n_cpu], tmp / "head_split.npy")
-        pth = tmp / "base_synth.pth"
-        torch.save({"state_dict": {k: torch.from_numpy(v)
-                                   for k, v in weights.items()}}, pth)
-        print(f"(g) {n_frames}-frame {h}x{w} corpus and .pth written in "
-              f"{time.perf_counter() - t0:.1f} s")
-        common = ["--preset", "base", "--set", "data.mini_dataset=1",
-                  "--checkpoint", str(pth), "--test-batch", str(BATCH)]
-        f32 = ["--set", "model.compute_dtype=float32"]
+    t0 = time.perf_counter()
+    split = synthetic.generate(tmp / "data", num_frames=n_frames,
+                               hw=(h, w), seed=0, rain_every=4)
+    head = save_split(np.load(split)[:n_cpu], tmp / "head_split.npy")
+    pth = tmp / "base_synth.pth"
+    torch.save({"state_dict": {k: torch.from_numpy(v)
+                               for k, v in weights.items()}}, pth)
+    print(f"(g) {n_frames}-frame {h}x{w} corpus and .pth written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    common = ["--preset", "base", "--set", "data.mini_dataset=1",
+              "--checkpoint", str(pth), "--test-batch", str(BATCH)]
+    f32 = ["--set", "model.compute_dtype=float32"]
 
-        def test(name, extra, device="cuda", split_path=split):
-            path = tmp / f"{name}.json"
-            reset_counters()
-            rc, out = run_cli(["test", "--split", str(split_path),
-                               "--report-json", str(path), "--device",
-                               device] + common + extra)
-            torch.cuda.synchronize()
-            launches = counters()
-            require(rc == 0, (name, rc, out))
-            report = json.loads(path.read_text())
-            require(tuple(sorted(report)) == tuple(sorted(REPORT_KEYS)),
-                    (name, sorted(set(report) ^ set(REPORT_KEYS))))
-            require(all(np.isfinite(v) for v in report.values()),
-                    (name, report))
-            print(f"(g) cli test {name}: frames={report['frames']:.0f} "
-                  f"rmse_100={report['rmse_100']:.4f} mae_100="
-                  f"{report['mae_100']:.4f} rmse_50={report['rmse_50']:.4f} "
-                  f"mae_50={report['mae_50']:.4f} rmse_edge="
-                  f"{report['rmse_edge']:.4f} rmse_sunny="
-                  f"{report['rmse_sunny']:.4f} frames_per_sec_end_to_end="
-                  f"{report['frames_per_sec_end_to_end']:.2f} "
-                  f"frames_per_sec_steady="
-                  f"{report['frames_per_sec_steady']:.2f}; launches "
-                  f"{launches}")
-            return report, launches
-
-        bf16, launches = test("bf16", [])
-        want = per_forward(cfg, n_frames // BATCH)
-        require(bf16["frames"] == n_frames, bf16["frames"])
-        require(launches == want, (launches, want))
-        fps["test_bf16"] = bf16["frames_per_sec_steady"]
-        fp32, _ = test("fp32", f32)
-        fps["test_fp32"] = fp32["frames_per_sec_steady"]
-        for k in ("rmse_100", "mae_100", "rmse_50", "mae_50"):
-            d = abs(bf16[k] - fp32[k])
-            print(f"(g) {k}: |bf16 - fp32| = {d:.4f} m (tol "
-                  f"{SERVE_MEAN_ABS_M})")
-            require(d <= SERVE_MEAN_ABS_M, (k, bf16[k], fp32[k]))
-        # batch 2, so that the 4 frames make two batches and the report
-        # has its steady-rate keys
-        head_f32 = f32 + ["--test-batch", str(n_cpu // 2)]
-        card, _ = test("fp32_head", head_f32, split_path=head)
-        cpu, _ = test("cpu_fp32_head", head_f32, device="cpu",
-                      split_path=head)
-        for k in METRIC_KEYS:
-            require(abs(card[k] - cpu[k]) <= REPORT_RTOL * abs(cpu[k]),
-                    (k, card[k], cpu[k]))
-        print(f"(g) cli test fp32 on the card = on the CPU over the first "
-              f"{n_cpu} frames, every metric within rtol {REPORT_RTOL} "
-              f"(rmse_100 {card['rmse_100']:.6f} vs {cpu['rmse_100']:.6f})")
-
-        out_dir = tmp / "served"
+    def test(name, extra, device="cuda", split_path=split):
+        path = tmp / f"{name}.json"
         reset_counters()
-        rc, out = run_cli(["serve", "--split", str(split), "--out",
-                           str(out_dir), "--limit", str(n_frames),
-                           "--serve-batch", str(BATCH)] + common[:-2])
+        rc, out = run_cli(["test", "--split", str(split_path),
+                           "--report-json", str(path), "--device",
+                           device] + common + extra)
         torch.cuda.synchronize()
         launches = counters()
-        require(rc == 0, (rc, out))
-        stats = json.loads(out.strip().splitlines()[-1])
-        maps = sorted(out_dir.glob("*_depth.npy"))
-        require(len(maps) == n_frames and stats["frames"] == n_frames,
-                (len(maps), stats))
-        for p in maps:
-            d = np.load(p)
-            require(d.shape == (h, w) and np.isfinite(d).all(), p)
-        # and the engine's warm-up forward
-        want = per_forward(cfg, n_frames // BATCH + 1)
-        require(launches == want, (launches, want))
-        fps["serve_bf16"] = stats["frames_per_sec"]
-        print(f"(g) cli serve: {len(maps)} depth maps; frames_per_sec="
-              f"{stats['frames_per_sec']:.2f} batch_ms_p50="
-              f"{stats['batch_ms_p50']:.2f}; launches {launches} "
-              f"(expected {want})")
+        require(rc == 0, (name, rc, out))
+        report = json.loads(path.read_text())
+        require(tuple(sorted(report)) == tuple(sorted(REPORT_KEYS)),
+                (name, sorted(set(report) ^ set(REPORT_KEYS))))
+        require(all(np.isfinite(v) for v in report.values()),
+                (name, report))
+        print(f"(g) cli test {name}: frames={report['frames']:.0f} "
+              f"rmse_100={report['rmse_100']:.4f} mae_100="
+              f"{report['mae_100']:.4f} rmse_50={report['rmse_50']:.4f} "
+              f"mae_50={report['mae_50']:.4f} rmse_edge="
+              f"{report['rmse_edge']:.4f} rmse_sunny="
+              f"{report['rmse_sunny']:.4f} frames_per_sec_end_to_end="
+              f"{report['frames_per_sec_end_to_end']:.2f} "
+              f"frames_per_sec_steady="
+              f"{report['frames_per_sec_steady']:.2f}; launches "
+              f"{launches}")
+        return report, launches
+
+    bf16, launches = test("bf16", [])
+    want = per_forward(cfg, n_frames // BATCH)
+    require(bf16["frames"] == n_frames, bf16["frames"])
+    require(launches == want, (launches, want))
+    fps["test_bf16"] = bf16["frames_per_sec_steady"]
+    fp32, _ = test("fp32", f32)
+    fps["test_fp32"] = fp32["frames_per_sec_steady"]
+    for k in ("rmse_100", "mae_100", "rmse_50", "mae_50"):
+        d = abs(bf16[k] - fp32[k])
+        print(f"(g) {k}: |bf16 - fp32| = {d:.4f} m (tol "
+              f"{SERVE_MEAN_ABS_M})")
+        require(d <= SERVE_MEAN_ABS_M, (k, bf16[k], fp32[k]))
+    # batch 2, so that the 4 frames make two batches and the report
+    # has its steady-rate keys
+    head_f32 = f32 + ["--test-batch", str(n_cpu // 2)]
+    card, _ = test("fp32_head", head_f32, split_path=head)
+    cpu, _ = test("cpu_fp32_head", head_f32, device="cpu",
+                  split_path=head)
+    for k in METRIC_KEYS:
+        require(abs(card[k] - cpu[k]) <= REPORT_RTOL * abs(cpu[k]),
+                (k, card[k], cpu[k]))
+    print(f"(g) cli test fp32 on the card = on the CPU over the first "
+          f"{n_cpu} frames, every metric within rtol {REPORT_RTOL} "
+          f"(rmse_100 {card['rmse_100']:.6f} vs {cpu['rmse_100']:.6f})")
+
+    out_dir = tmp / "served"
+    reset_counters()
+    rc, out = run_cli(["serve", "--split", str(split), "--out",
+                       str(out_dir), "--limit", str(n_frames),
+                       "--serve-batch", str(BATCH)] + common[:-2])
+    torch.cuda.synchronize()
+    launches = counters()
+    require(rc == 0, (rc, out))
+    stats = json.loads(out.strip().splitlines()[-1])
+    maps = sorted(out_dir.glob("*_depth.npy"))
+    require(len(maps) == n_frames and stats["frames"] == n_frames,
+            (len(maps), stats))
+    for p in maps:
+        d = np.load(p)
+        require(d.shape == (h, w) and np.isfinite(d).all(), p)
+    # and the engine's warm-up forward
+    want = per_forward(cfg, n_frames // BATCH + 1)
+    require(launches == want, (launches, want))
+    fps["serve_bf16"] = stats["frames_per_sec"]
+    print(f"(g) cli serve: {len(maps)} depth maps; frames_per_sec="
+          f"{stats['frames_per_sec']:.2f} batch_ms_p50="
+          f"{stats['batch_ms_p50']:.2f}; launches {launches} "
+          f"(expected {want})")
     print("(g) frames/s: " + " ".join(f"{k}={v:.2f}" for k, v in fps.items()))
-    return fps
+    return split, pth
 
 
 # attention backward: dq is one product per element (bit for bit); dk sums
@@ -2302,7 +2319,6 @@ def phase_k4(cfg, engine, pth, split):
     that frame; requests/s and latency; a wire engine over HTTP (data.
     wire_radar_cap) answers the dense engine's depth."""
     import threading
-    from concurrent.futures import ThreadPoolExecutor
 
     from camradepth_tpu_torch.cli import http_wire_plan
     from camradepth_tpu_torch.data.pipeline import make_loaders
@@ -2467,6 +2483,192 @@ def phase_k(weights, reset_counters, counters):
           f"{time.perf_counter() - t_turns:.1f}")
 
 
+# ---------------------------------------------------------------- phase (l)
+
+# frames a loader pass reads: the 32-frame corpus of (g) twice
+LOADER_FRAMES = 64
+# frames of the one-thread timings
+ONE_THREAD_FRAMES = 16
+
+
+def same_example(got, want) -> bool:
+    """Two loader examples hold the same keys, dtypes, shapes and bytes."""
+    return got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+        and got[k].tobytes() == want[k].tobytes() for k in want)
+
+
+def phase_l1(data_cfg, rows, plan):
+    """Every frame of the corpus, dense and wire, through the native host
+    code and through numpy: bit for bit, and native by the counts."""
+    import os
+    import platform
+
+    from camradepth_tpu_torch import native
+    from camradepth_tpu_torch.data import channels, wire
+    from camradepth_tpu_torch.data.pipeline import load_frame_arrays
+
+    require(data_cfg.native_assemble, "the default config is not native")
+    np_cfg = dataclasses.replace(data_cfg, native_assemble=False)
+    native.library()  # built in (a)
+    info = native.build_info
+    print(f"(l1) host: {info['gxx']}; {platform.machine()}; "
+          f"{len(os.sched_getaffinity(0))} CPUs for this process; native "
+          f"library built in {info['seconds']:.2f} s ({info['path']})")
+    native.reset_counts()
+    for row in rows:
+        arrays = load_frame_arrays(row, data_cfg)
+        for name, fn, plan_arg in (("dense", channels.assemble_frame, ()),
+                                   ("wire", wire.encode_frame_wire,
+                                    (plan,))):
+            got = fn(arrays, data_cfg, *plan_arg)
+            want = fn(arrays, np_cfg, *plan_arg)
+            require(same_example(got, want), (name, row[0]))
+    n = len(rows)
+    want = {"assemble_native": n, "assemble_numpy": n, "wire_native": n,
+            "wire_numpy": n}
+    require(native.counts == want, (native.counts, want))
+    print(f"(l1) {n} frames of {data_cfg.image_dimension[0]}x"
+          f"{data_cfg.image_dimension[1]}, dense and wire (radar_cap "
+          f"{plan.radar_cap}, gt_cap {plan.gt_cap}): native = numpy bit "
+          f"for bit on every key; counts {native.counts}")
+
+
+def loader_rate(rows, data_cfg, plan) -> float:
+    """Frames/s of a BatchLoader (batch 8, the config's workers) over
+    LOADER_FRAMES frames of ``rows``, with no model."""
+    from camradepth_tpu_torch.data.pipeline import (
+        BatchLoader,
+        NuscenesFrames,
+    )
+
+    loader = BatchLoader(NuscenesFrames(rows, data_cfg, wire_plan=plan),
+                         BATCH, num_workers=data_cfg.num_workers,
+                         prefetch=data_cfg.prefetch)
+    n = 0
+    t0 = time.perf_counter()
+    while n < LOADER_FRAMES:
+        for batch in loader:
+            n += int(batch["valid"].sum())
+    return n / (time.perf_counter() - t0)
+
+
+def phase_l2(data_cfg, rows, plan):
+    """The loader alone, dense and wire, numpy and native in turns; then
+    one thread's ms per frame of each step."""
+    from camradepth_tpu_torch.data import channels, wire
+    from camradepth_tpu_torch.data.pipeline import load_frame_arrays
+
+    cfgs = {"native": data_cfg,
+            "numpy": dataclasses.replace(data_cfg, native_assemble=False)}
+    rates: dict = {}
+    for turn in ("numpy", "native", "native", "numpy"):
+        for kind, p in (("dense", None), ("wire", plan)):
+            rate = loader_rate(rows, cfgs[turn], p)
+            rates.setdefault((kind, turn), []).append(rate)
+            print(f"(l2) loader alone, {kind} {turn}: {rate:.2f} frames/s "
+                  f"(batch {BATCH}, {data_cfg.num_workers} workers)")
+    for (kind, turn), r in sorted(rates.items()):
+        print(f"(l2) loader alone, {kind} {turn}: "
+              + ", ".join(f"{v:.2f}" for v in r) + " frames/s in turns")
+
+    steps = {"load_frame_arrays": [], "assemble native": [],
+             "assemble numpy": [], "wire native": [], "wire numpy": []}
+    for row in rows[:ONE_THREAD_FRAMES]:
+        t0 = time.perf_counter()
+        arrays = load_frame_arrays(row, data_cfg)
+        steps["load_frame_arrays"].append(time.perf_counter() - t0)
+        for turn, c in cfgs.items():
+            t0 = time.perf_counter()
+            channels.assemble_frame(arrays, c)
+            t1 = time.perf_counter()
+            wire.encode_frame_wire(arrays, c, plan)
+            steps[f"assemble {turn}"].append(t1 - t0)
+            steps[f"wire {turn}"].append(time.perf_counter() - t1)
+    print("(l2) one thread, median ms per frame over "
+          f"{ONE_THREAD_FRAMES} frames: " + ", ".join(
+              f"{k} {1e3 * float(np.median(v)):.2f}"
+              for k, v in steps.items()))
+
+
+def phase_l3(cfg, split, pth, tmp, counters, reset_counters):
+    """cli test and cli serve in bf16 at base 416x800, batch 8, native and
+    numpy in turns: equal reports and maps, and the kernels' launches."""
+    from camradepth_tpu_torch import native
+
+    n_frames = len(np.load(split))
+    common = ["--preset", "base", "--set", "data.mini_dataset=1",
+              "--checkpoint", str(pth), "--split", str(split)]
+    flags = {"native": [], "numpy": ["--set", "data.native_assemble=false"]}
+    reports, served = {}, []
+    for command in ("test", "serve"):
+        for i, turn in enumerate(("native", "numpy", "numpy", "native")):
+            out = tmp / f"l3_{command}_{i}"
+            argv = [command] + common + flags[turn] + (
+                ["--test-batch", str(BATCH), "--report-json",
+                 str(out) + ".json"] if command == "test" else
+                ["--serve-batch", str(BATCH), "--out", str(out)])
+            reset_counters()
+            native.reset_counts()
+            rc, text = run_cli(argv)
+            torch.cuda.synchronize()
+            launches = counters()
+            require(rc == 0, (command, turn, rc, text))
+            # serve: and the engine's warm-up forward
+            n_fwd = n_frames // BATCH + (command == "serve")
+            require(launches == per_forward(cfg, n_fwd),
+                    (command, turn, launches, per_forward(cfg, n_fwd)))
+            want = {k: 0 for k in native.counts}
+            want[f"assemble_{turn}"] = n_frames
+            require(native.counts == want, (command, turn, native.counts))
+            if command == "test":
+                r = json.loads(Path(str(out) + ".json").read_text())
+                reports.setdefault(turn, []).append(r)
+                rate = (f"frames_per_sec_steady="
+                        f"{r['frames_per_sec_steady']:.2f} "
+                        f"frames_per_sec_end_to_end="
+                        f"{r['frames_per_sec_end_to_end']:.2f}")
+            else:
+                stats = json.loads(text.strip().splitlines()[-1])
+                maps = [np.load(out / f"{j:05d}_depth.npy")
+                        for j in range(n_frames)]
+                served.append(maps)
+                require(all(a.tobytes() == b.tobytes()
+                            for a, b in zip(maps, served[0])),
+                        (turn, "served maps differ"))
+                rate = (f"frames_per_sec={stats['frames_per_sec']:.2f} "
+                        f"batch_ms_p50={stats['batch_ms_p50']:.2f}")
+            print(f"(l3) cli {command} bf16 {turn}: {rate}; launches "
+                  f"{launches} ({n_fwd} forwards of 34/5/53); assembled "
+                  f"{n_frames} frames {turn}")
+    first = reports["native"][0]
+    for r in reports["native"] + reports["numpy"]:
+        require(all(r[k] == first[k] for k in METRIC_KEYS),
+                {k: (r[k], first[k]) for k in METRIC_KEYS})
+    print(f"(l3) the 4 reports' metrics are equal (rmse_100 "
+          f"{first['rmse_100']:.6f}) and the 4 runs' {n_frames} served "
+          "maps bit for bit, native and numpy")
+
+
+def phase_l(cfg, split, pth, tmp, counters, reset_counters):
+    """This slice's path: the loader's native host code, on the 32-frame
+    416x800 corpus of phase (g)."""
+    from camradepth_tpu_torch.data import wire
+    from camradepth_tpu_torch.data.split import load_split
+
+    rows = load_split(split)
+    plan = wire.plan_wire(rows, cfg.data)
+    require(plan is not None, "the wire codec refused the corpus")
+    t0 = time.perf_counter()
+    phase_l1(cfg.data, rows, plan)
+    t1 = time.perf_counter()
+    phase_l2(cfg.data, rows, plan)
+    t2 = time.perf_counter()
+    phase_l3(cfg, split, pth, tmp, counters, reset_counters)
+    print(f"(l) phase seconds: (l1) {t1 - t0:.1f}, (l2) {t2 - t1:.1f}, "
+          f"(l3) {time.perf_counter() - t2:.1f}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
@@ -2513,7 +2715,9 @@ def main() -> None:
     t4 = time.perf_counter()
     rec["conv3x3_fused"] = phase_f(cfg, counters, reset_counters)
     t5 = time.perf_counter()
-    phase_g(cfg, weights, counters, reset_counters)
+    corpus = tempfile.TemporaryDirectory()  # (g)'s, read again in (l)
+    split, pth = phase_g(cfg, weights, counters, reset_counters,
+                         Path(corpus.name))
     t6 = time.perf_counter()
     rec.update(phase_h_kernels(cfg))
     phase_h_step_parity(cfg)
@@ -2525,10 +2729,13 @@ def main() -> None:
     t9 = time.perf_counter()
     phase_k(weights, reset_counters, counters)
     t10 = time.perf_counter()
+    phase_l(cfg, split, pth, Path(corpus.name), counters, reset_counters)
+    corpus.cleanup()
+    t11 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
-          f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}")
+          f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

@@ -5,8 +5,9 @@ the CPU.
 - Metrics: the same random pred/gt through both, NaN in the same places
   (empty bands), rtol 1e-5 (fp32 sums in other orders).
 - Data: frames and loader batches of a ``synthetic.generate`` corpus at
-  64x128 agree bit for bit (same numpy arithmetic; the JAX package's C++
-  assembler is bit-exact with its numpy path).
+  64x128 agree bit for bit (both packages assemble with their C++ host
+  code by default, each bit for bit with its numpy path,
+  tests/test_torch_native.py).
 - The slice as a whole: ``camradepth_tpu.cli test`` and the port's ``cli
   test --device cpu`` on one 6-frame corpus and one reference .pth at the
   ``tiny_test_config`` widths in fp32; every non-timing report key agrees
@@ -15,11 +16,13 @@ the CPU.
   and the same for ``--preset sup_unsup_seg``, the ``iou`` key included;
   its ``cli serve`` labels against the JAX engine's by agreement >= 0.995
   (argmax maps: near-tie pixels may flip between frameworks,
-  tests/test_flagship_golden.py:131-140).
+  tests/test_flagship_golden.py:131-140). The three JAX runs start
+  together on threads (``jax_runs``), beside the port's.
 """
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -220,14 +223,43 @@ def _jax_engine(pth, split):
 
 
 @pytest.fixture(scope="module")
-def reports(corpus):
+def jax_runs(corpus):
+    """The JAX package's runs that the CLI tests hold the port to, started
+    together on a pool of threads at the module's first need: ``cli test``
+    (base), ``cli test --preset sup_unsup_seg`` and the seg engine's
+    forward. Each spends most of its time in XLA's compiler, which leaves
+    the interpreter lock, so they overlap each other and the port's runs
+    on the main thread. Yields the seg .pth and the three futures."""
     tmp, split, pth = corpus
-    common = ["--split", str(split), "--checkpoint", str(pth),
-              "--test-batch", "4"] + TINY_FLAGS
-    assert jax_cli.main(["test", "--report-json", str(tmp / "jax.json")]
-                        + common) == 0
-    assert cli.main(["test", "--report-json", str(tmp / "port.json"),
-                     "--device", "cpu"] + common) == 0
+    seg_pth = _tiny_pth(tmp / "seg_weights.pth", "sup_unsup_seg")
+    base, seg = _test_argv(split, pth), _test_argv(split, seg_pth, True)
+    with ThreadPoolExecutor(3) as pool:
+        yield seg_pth, {
+            "test": pool.submit(jax_cli.main, base + [
+                "--report-json", str(tmp / "jax.json")]),
+            "seg_test": pool.submit(jax_cli.main, seg + [
+                "--report-json", str(tmp / "jseg.json")]),
+            "seg_engine": pool.submit(_jax_engine, seg_pth, split),
+        }
+
+
+def _common(split, pth, seg=False):
+    """The flags of both CLIs' ``test`` and ``serve`` at the tiny widths."""
+    preset = ["--preset", "sup_unsup_seg"] if seg else []
+    return ["--split", str(split), "--checkpoint", str(pth)] + preset + (
+        TINY_FLAGS)
+
+
+def _test_argv(split, pth, seg=False):
+    return ["test", "--test-batch", "4"] + _common(split, pth, seg)
+
+
+@pytest.fixture(scope="module")
+def reports(corpus, jax_runs):
+    tmp, split, pth = corpus
+    assert cli.main(_test_argv(split, pth) + [
+        "--report-json", str(tmp / "port.json"), "--device", "cpu"]) == 0
+    assert jax_runs[1]["test"].result() == 0
     return (json.loads((tmp / "jax.json").read_text()),
             json.loads((tmp / "port.json").read_text()))
 
@@ -273,23 +305,21 @@ def test_cli_serve_writes_one_depth_map_per_frame(corpus, tmp_path,
 
 
 @pytest.fixture(scope="module")
-def seg_runs(corpus):
+def seg_runs(corpus, jax_runs):
     """``cli test`` of the JAX package and of the port on the 6-frame
     corpus at --preset sup_unsup_seg, tiny widths, fp32; the port's ``cli
     serve`` of the same, and the JAX engine's forward on those frames."""
     tmp, split, _ = corpus
-    pth = _tiny_pth(tmp / "seg_weights.pth", "sup_unsup_seg")
-    common = ["--preset", "sup_unsup_seg", "--split", str(split),
-              "--checkpoint", str(pth)] + TINY_FLAGS
-    test = ["test", "--test-batch", "4"] + common
-    assert jax_cli.main(test + ["--report-json", str(tmp / "jseg.json")]) == 0
-    assert cli.main(test + ["--report-json", str(tmp / "seg.json"),
-                            "--device", "cpu"]) == 0
+    pth, jobs = jax_runs
+    assert cli.main(_test_argv(split, pth, seg=True) + [
+        "--report-json", str(tmp / "seg.json"), "--device", "cpu"]) == 0
     assert cli.main(["serve", "--serve-batch", "4", "--out",
-                     str(tmp / "served"), "--device", "cpu"] + common) == 0
+                     str(tmp / "served"), "--device", "cpu"]
+                    + _common(split, pth, seg=True)) == 0
+    assert jobs["seg_test"].result() == 0
     return (json.loads((tmp / "jseg.json").read_text()),
             json.loads((tmp / "seg.json").read_text()),
-            _jax_engine(pth, split), tmp / "served")
+            jobs["seg_engine"].result(), tmp / "served")
 
 
 def test_cli_test_seg_report_matches_jax(seg_runs, capsys):
