@@ -3,6 +3,10 @@
 
   python -m camradepth_tpu_torch.cli train --preset base --split S.npy \\
       [--run-dir R] [--save-model] [--set train.num_epochs=1] [--device ..]
+  torchrun --nproc-per-node N -m camradepth_tpu_torch.cli train \\
+      --multihost --data-parallel N|--fsdp N --run-dir R ...
+  python -m camradepth_tpu_torch.cli train --coordinator HOST:PORT \\
+      --num-processes N --process-id I --data-parallel N --run-dir R ...
   python -m camradepth_tpu_torch.cli distill --tpu-decoder --split S.npy \\
       --teacher-checkpoint T.pth [--alpha 0.7] [--run-dir R] [--save-model]
   python -m camradepth_tpu_torch.cli test  --preset base --split S.npy \\
@@ -17,14 +21,20 @@
   python -m camradepth_tpu_torch.cli validate-data --split S.npy | \
       --data-dir D [--image-dimension 416,800] [--limit N] [--no-decode]
 
-The counterparts of ``camradepth_tpu.cli``'s single-device ``cmd_train``
+The counterparts of ``camradepth_tpu.cli``'s ``cmd_train``
 (``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
 ``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``) without its
 mesh flags, ``cmd_export`` (``:514-565``) and ``cmd_validate_data``
 (``:930-958``), with the same flags where they apply. ``train`` runs
 :class:`train.trainer.Trainer` and prints the best validation loss; its
 checkpoints are ``.pth`` files that ``test``, ``serve`` and ``export``
-load. ``distill`` trains a student (usually
+load. Both train on one device, or on several processes, one device
+each: ``--multihost`` (under ``torchrun``) or ``--coordinator`` with
+``--num-processes`` and ``--process-id`` start the process group (NCCL on
+the card, gloo on the CPU) before anything touches the device, and
+``--data-parallel`` / ``--fsdp`` size the layout (``parallel/mesh.py``:
+DDP, FSDP2, or both as HSDP), as the JAX flags do. ``distill`` trains a
+student (usually
 ``--tpu-decoder``) against a frozen parity teacher
 (:class:`train.distill.DistillTrainer`) from a reference ``.pth``, a port
 trainer checkpoint or a run directory (its best checkpoint). ``test``
@@ -54,8 +64,9 @@ or for ``test`` and ``serve`` a serving artifact. An Orbax checkpoint of
 the JAX package reaches the port as a ``.pth`` written by
 ``camradepth_tpu.cli export --format pth``. One flag is new: ``--device``
 (default ``cuda``, which raises without a card). The options of slices
-still to come are refused with the ROADMAP item that brings them: mesh
-serving and multi-device training (queue 1 item 10).
+still to come are refused with the ROADMAP item that brings them:
+``--spatial-parallel`` everywhere, and mesh serving (``--data-parallel``
+on ``test`` and ``serve``), queue 1 item 10b.
 """
 
 from __future__ import annotations
@@ -76,10 +87,9 @@ class UserError(ValueError):
 
 # Options of the JAX CLI that the port does not take yet, with the ROADMAP
 # queue-1 item that brings each.
-_LATER_FLAGS = {
-    "data_parallel": "item 10 (multi-device: mesh serving)",
-    "spatial_parallel": "item 10 (multi-device: mesh serving)",
-}
+_ITEM_10B = "item 10b (spatial parallel and mesh serving)"
+_LATER_FLAGS = {"data_parallel": _ITEM_10B,
+                "spatial_parallel": _ITEM_10B}
 
 # How an Orbax checkpoint of the JAX package reaches the port.
 _ORBAX_ROUTE = ("an Orbax checkpoint of the JAX package comes across as a "
@@ -173,11 +183,6 @@ def _build_config(args):
     return cfg
 
 
-# Options of the JAX CLI's train that the port does not take yet.
-_LATER_TRAIN_FLAGS = ("data_parallel", "fsdp", "spatial_parallel",
-                      "multihost", "coordinator")
-
-
 def _build_train_config(args):
     """The train config from the flags, as the JAX package's
     ``_build_config_inner`` (``camradepth_tpu/cli.py:127-190``) for the
@@ -222,6 +227,13 @@ def _build_train_config(args):
         if args.compute_dtype:
             cfg = cfg.replace(model=dataclasses.replace(
                 cfg.model, compute_dtype=args.compute_dtype))
+        mesh_kw = {}
+        if args.data_parallel is not None:
+            mesh_kw["data_parallel"] = args.data_parallel
+        if args.fsdp is not None:
+            mesh_kw["fsdp_parallel"] = args.fsdp
+        if mesh_kw:
+            cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, **mesh_kw))
         cfg = _with_tpu_decoder(cfg, args)
         if args.set_overrides:
             cfg = C.apply_overrides(cfg, args.set_overrides)
@@ -230,20 +242,54 @@ def _build_train_config(args):
     return cfg
 
 
+def _start_processes(args) -> bool:
+    """Join the process group of a multi-process ``train`` or ``distill``
+    (``camradepth_tpu/cli.py:313-330``), before anything touches the
+    device; True when this call started it."""
+    from camradepth_tpu_torch.parallel import multihost
+
+    if args.spatial_parallel:
+        raise UserError(f"--spatial-parallel is not ported yet (ROADMAP "
+                        f"queue 1 {_ITEM_10B})")
+    if not (args.multihost or args.coordinator):
+        if args.num_processes is not None or args.process_id is not None:
+            raise UserError("--num-processes and --process-id need "
+                            "--coordinator")
+        return False
+    if args.coordinator and (args.num_processes is None
+                             or args.process_id is None):
+        raise UserError(
+            "--coordinator requires --num-processes and --process-id")
+    try:
+        multihost.initialize(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+    except ValueError as e:  # no torchrun environment, bad combination
+        raise UserError(str(e)) from e
+    return True
+
+
+def _train_and_report(args, make_trainer) -> int:
+    """Join the process group the flags ask for, run ``make_trainer()``'s
+    training, print the best validation loss (on the primary), and leave
+    the group this command started, whatever was raised."""
+    from camradepth_tpu_torch.parallel import multihost
+
+    started = _start_processes(args)
+    try:
+        best = make_trainer().train()
+        if multihost.is_primary():
+            print(f"best val loss: {best:.6f}")
+    finally:
+        if started:
+            multihost.shutdown()
+    return 0
+
+
 def cmd_train(args) -> int:
     from camradepth_tpu_torch.train.trainer import Trainer
 
-    for flag in _LATER_TRAIN_FLAGS:
-        if getattr(args, flag, None):
-            raise UserError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
-                "queue 1 item 10 (multi-device)): the port trains on one "
-                "device")
-    cfg = _build_train_config(args)
-    trainer = Trainer(cfg, run_dir=args.run_dir, device=args.device)
-    best = trainer.train()
-    print(f"best val loss: {best:.6f}")
-    return 0
+    return _train_and_report(args, lambda: Trainer(
+        _build_train_config(args), run_dir=args.run_dir, device=args.device))
 
 
 def _teacher_state(teacher_cfg, path: str, strict: bool):
@@ -305,33 +351,28 @@ def cmd_distill(args) -> int:
         check_pairing,
     )
 
-    for flag in ("data_parallel", "fsdp", "spatial_parallel"):
-        if getattr(args, flag, None):
-            raise UserError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
-                "queue 1 item 10 (multi-device)): the port distills on one "
-                "device")
-    cfg = _build_train_config(args)
-    teacher_cfg = cfg.replace(model=dataclasses.replace(
-        cfg.model, tpu_decoder=args.teacher_tpu_decoder,
-        # remat changes only the backward; the teacher never trains
-        remat_encoder=False, remat_decoder=False,
-        remat_decoder_small=False))
-    try:
-        check_pairing(cfg, teacher_cfg, args.alpha)
-    except ValueError as e:
-        raise UserError(str(e)) from e
-    state = _teacher_state(teacher_cfg, args.teacher_checkpoint,
-                           strict=not args.no_strict_teacher)
-    trainer = DistillTrainer(
-        cfg, teacher_cfg, state, alpha=args.alpha,
-        temperature=args.temperature,
-        # a student --checkpoint (resume or continue) keeps its weights
-        init_from_teacher=not args.no_teacher_init and not args.checkpoint,
-        run_dir=args.run_dir, device=args.device)
-    best = trainer.train()
-    print(f"best val loss: {best:.6f}")
-    return 0
+    def make_trainer():
+        cfg = _build_train_config(args)
+        teacher_cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, tpu_decoder=args.teacher_tpu_decoder,
+            # remat changes only the backward; the teacher never trains
+            remat_encoder=False, remat_decoder=False,
+            remat_decoder_small=False))
+        try:
+            check_pairing(cfg, teacher_cfg, args.alpha)
+        except ValueError as e:
+            raise UserError(str(e)) from e
+        state = _teacher_state(teacher_cfg, args.teacher_checkpoint,
+                               strict=not args.no_strict_teacher)
+        return DistillTrainer(
+            cfg, teacher_cfg, state, alpha=args.alpha,
+            temperature=args.temperature,
+            # a student --checkpoint (resume or continue) keeps its weights
+            init_from_teacher=not args.no_teacher_init
+            and not args.checkpoint,
+            run_dir=args.run_dir, device=args.device)
+
+    return _train_and_report(args, make_trainer)
 
 
 def _check_args(args, artifacts: bool = True) -> None:
@@ -388,6 +429,13 @@ def _load_artifact(cfg, path: str, device):
         raise UserError(str(e)) from e
 
 
+def _refuse_mesh(cfg) -> None:
+    """Mesh serving (a ``mesh.*`` layout on test or serve) is item 10b."""
+    if cfg.mesh.data_parallel > 1 or cfg.mesh.fsdp_parallel > 1:
+        raise UserError(f"mesh serving is not ported yet (ROADMAP queue 1 "
+                        f"{_ITEM_10B}): test and serve run on one device")
+
+
 def _refuse_wire_on(cfg) -> None:
     if cfg.data.wire_format == "on":
         raise UserError(
@@ -408,6 +456,7 @@ def cmd_test(args) -> int:
 
     _check_args(args)
     cfg = _build_config(args)
+    _refuse_mesh(cfg)
     dev = resolve_device(args.device)
     if is_artifact(args.checkpoint):
         # score the program that will serve, on dense batches
@@ -493,6 +542,7 @@ def cmd_serve(args) -> int:
 
     _check_args(args)
     cfg = _build_config(args)
+    _refuse_mesh(cfg)
     artifact = is_artifact(args.checkpoint)
     http = args.http_port is not None
     if artifact:
@@ -685,12 +735,30 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--set", action="append", dest="set_overrides",
                    default=None, metavar="SECTION.FIELD=VALUE",
                    help="override a config field by dotted path (sections "
-                        "model, data, train); repeatable, applied last")
+                        "model, data, train, mesh); repeatable, applied "
+                        "last")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu runs "
-                        "the kernels' plain versions)")
-    for flag in ("--data-parallel", "--fsdp", "--spatial-parallel"):
-        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+                        "the kernels' plain versions); under a process "
+                        "group each rank takes its own card")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="data-axis ranks (DDP; -1 sizes it from the ranks "
+                        "and the batch); batches shard jointly over data x "
+                        "fsdp")
+    p.add_argument("--fsdp", type=int, default=None,
+                   help="fsdp-axis ranks (FSDP2: parameters, gradients and "
+                        "optimizer state sharded)")
+    p.add_argument("--spatial-parallel", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--multihost", action="store_true",
+                   help="join the process group from torchrun's "
+                        "environment (one process per device)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="start the process group at this address (needs "
+                        "--num-processes and --process-id; the explicit "
+                        "form of --multihost)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
 
 
 def main(argv=None) -> int:
@@ -703,10 +771,9 @@ def main(argv=None) -> int:
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="train a model variant on one device")
+    p = sub.add_parser("train", help="train a model variant on one device or "
+                                     "across processes")
     _add_train_flags(p)
-    p.add_argument("--multihost", action="store_true", help=argparse.SUPPRESS)
-    p.add_argument("--coordinator", default=None, help=argparse.SUPPRESS)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser(
@@ -739,6 +806,8 @@ def main(argv=None) -> int:
                    help="also write the metric dict as JSON")
     _add_common_flags(p)
     p.add_argument("--test-batch", type=int, default=8)
+    for flag in ("--data-parallel", "--spatial-parallel"):
+        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     p.set_defaults(fn=cmd_test)
 
     p = sub.add_parser("serve", help="streaming batched inference over a "

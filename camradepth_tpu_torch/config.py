@@ -4,10 +4,11 @@ The package's own copy of the parts of ``camradepth_tpu/config.py`` that
 serving, training, the data pipeline and the CLI read:
 :class:`ModelConfig`, :class:`DataConfig`, :class:`TrainConfig`,
 :class:`ExperimentConfig`, :func:`preset`, :func:`apply_overrides`
-(``--set``), :func:`num_epochs_for_steps` and :func:`tiny_test_config`.
-Field names and defaults are those of the JAX package, so one set of
-keyword arguments builds both configs and a JAX config maps onto this one
-field for field. Mesh settings arrive with the multi-device slice.
+(``--set``), :func:`num_epochs_for_steps` and :func:`tiny_test_config`,
+and :class:`MeshConfig`, the layout of multi-device training
+(``parallel/mesh.py``). Field names and defaults are those of the JAX
+package, so one set of keyword arguments builds both configs and a JAX
+config maps onto this one field for field.
 """
 
 from __future__ import annotations
@@ -219,10 +220,35 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The layout of multi-device training (``camradepth_tpu/config.py:
+    276-289``): the global batch shards jointly over ``data`` x ``fsdp``
+    ranks, parameters and optimizer state over ``fsdp`` (FSDP2), replicated
+    over ``data`` (DDP when ``fsdp`` is 1). ``data_parallel = -1`` sizes the
+    data axis from the world size and the batch (``parallel/mesh.py``).
+    Spatial parallelism is not ported yet: ``spatial_parallel > 1``
+    raises."""
+
+    data_axis: str = "data"
+    fsdp_axis: str = "fsdp"
+    sp_axis: str = "sp"
+    data_parallel: int = -1
+    fsdp_parallel: int = 1
+    spatial_parallel: int = 1
+
+    def __post_init__(self):
+        if self.spatial_parallel > 1:
+            raise ConfigError(
+                "mesh.spatial_parallel is not ported yet (ROADMAP queue 1 "
+                "item 10b (spatial parallel and mesh serving))")
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     name: str = "base"
 
     def replace(self, **kw) -> "ExperimentConfig":
@@ -309,19 +335,13 @@ def _coerce_override(raw: str, current):
     return s
 
 
-# Config sections of the JAX package that the port does not have yet, and
-# the ROADMAP queue-1 item that brings each.
-_LATER_SECTIONS = {"mesh": "item 10 (multi-device)"}
-
-
 def apply_overrides(cfg: ExperimentConfig, pairs) -> ExperimentConfig:
     """Dotted ``section.field=value`` overrides, as the JAX package's
     ``apply_overrides`` (``camradepth_tpu/config.py:402-445``): sections
-    ``model``, ``data`` and ``train``, plus the top-level ``name``. Values
-    are coerced against the current field's type and ``__post_init__``
-    checks re-run. A ``mesh.*`` path raises, naming the ROADMAP item that
-    brings that section."""
-    sections = ("model", "data", "train")
+    ``model``, ``data``, ``train`` and ``mesh``, plus the top-level
+    ``name``. Values are coerced against the current field's type and
+    ``__post_init__`` checks re-run."""
+    sections = ("model", "data", "train", "mesh")
     for pair in pairs:
         if "=" not in pair:
             raise ValueError(
@@ -338,11 +358,6 @@ def apply_overrides(cfg: ExperimentConfig, pairs) -> ExperimentConfig:
             cfg = cfg.replace(name=raw.strip())
             continue
         section, _, fname = path.partition(".")
-        if section in _LATER_SECTIONS:
-            raise ValueError(
-                f"config section {section!r} is not ported yet (ROADMAP "
-                f"queue 1 {_LATER_SECTIONS[section]})"
-            )
         if section not in sections:
             raise ValueError(
                 f"unknown config section {section!r}; choose from "

@@ -6,10 +6,9 @@ reference channel stack (``data/channels.py``), or with a wire plan the
 compact wire example (``data/wire.py``), which the consumer decodes on the
 device; batches are fixed-shape numpy, and an eval batch pads its ragged
 tail by repeating the last frame and marks it in ``batch["valid"]``. The
-caller copies batches to the device.
-
-Not ported yet: the multi-process row sharding of the train loader
-(ROADMAP queue 1 item 10).
+caller copies batches to the device. In a multi-process run each rank's
+train loader reads its strided share of the train rows (``process_shard``
+of :func:`make_loaders`).
 """
 
 from __future__ import annotations
@@ -188,7 +187,8 @@ class BatchLoader:
 
 
 def make_loaders(cfg: DataConfig, batch_size: int, split_path=None,
-                 wire: bool = False, wire_eval: bool = False):
+                 wire: bool = False, wire_eval: bool = False,
+                 process_shard=None):
     """Train/val/test loaders over a split file (reference
     make_dataloaders, dataloader.py:22-50): train = the first rows,
     shuffled; val = the next ones; test = the remainder. A split with no
@@ -199,7 +199,12 @@ def make_loaders(cfg: DataConfig, batch_size: int, split_path=None,
     pipeline.py:204-275``). All of them share one plan, probed once from
     the head of the split, so every loader has the same shapes. Where the
     codec does not suit the config or the data, the loaders stay dense,
-    or with ``data.wire_format=on`` this raises :class:`ConfigError`."""
+    or with ``data.wire_format=on`` this raises :class:`ConfigError`.
+
+    ``process_shard=(rank, world)``: the train rows are cut to a multiple of
+    ``world`` (every rank then has as many batches) and this rank reads the
+    strided rows ``[rank::world]``; ``batch_size`` is then the rank's share
+    of the global batch. Val and test stay whole on every rank."""
     rows = load_split(split_path or cfg.split_path)
     tr, va, te = split_ranges(len(rows), cfg.effective_train_val_split)
     plan = None
@@ -212,14 +217,21 @@ def make_loaders(cfg: DataConfig, batch_size: int, split_path=None,
                 "images that are not uint8, or radar too dense); use "
                 "wire_format=auto or off")
 
-    def mk(r, shuffle, wire_loader):
+    def mk(r, shuffle, wire_loader, shard=False):
         if len(r) == 0:
             return None
-        frames = NuscenesFrames(rows[list(r)], cfg,
+        sel = rows[list(r)]
+        if shard and process_shard is not None:
+            rank, world = process_shard
+            sel = sel[:len(sel) // world * world][rank::world]
+            if len(sel) == 0:
+                return None
+        frames = NuscenesFrames(sel, cfg,
                                 wire_plan=plan if wire_loader else None)
         return BatchLoader(frames, batch_size, shuffle=shuffle,
                            num_workers=cfg.num_workers,
                            prefetch=cfg.prefetch)
 
-    return {"train": mk(tr, True, wire), "val": mk(va, False, wire_eval),
+    return {"train": mk(tr, True, wire, shard=True),
+            "val": mk(va, False, wire_eval),
             "test": mk(te, False, wire_eval)}

@@ -127,12 +127,25 @@ class CamRaDepth(nn.Module):
             self.unsup_final = SegConv(mid, mul * cfg.unsup_classes)
         self.dropout = Dropout2d(cfg.dropout_rate)
 
+    # this rank's rows of the global batch (parallel/multihost.BatchShard);
+    # None on one device
+    batch_shard = None
+
     def set_generator(self, generator: Optional[torch.Generator]) -> None:
         """Draw every dropout mask (DropPath, Dropout2d) from
         ``generator``."""
         for mod in self.modules():
             if isinstance(mod, (DropPath, Dropout2d)):
                 mod.generator = generator
+
+    def set_batch_shard(self, shard) -> None:
+        """Run on rows ``shard.index`` of ``shard.count`` equal shares of
+        the global batch (``parallel/mesh.wrap``): every dropout mask is
+        drawn for the global batch and cut to these rows."""
+        self.batch_shard = shard
+        for mod in self.modules():
+            if isinstance(mod, (DropPath, Dropout2d)):
+                mod.shard = shard
 
     def _stage(self, stage: nn.Module, *args, small: bool = False):
         """A decoder stage, followed by channel dropout, recomputed in the

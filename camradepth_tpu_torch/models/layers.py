@@ -93,42 +93,60 @@ def group_norm_divisor(channels: int, divisor: int = 16) -> GroupNorm:
     return GroupNorm(max(1, channels // divisor), channels)
 
 
+def _draw_keep(x: torch.Tensor, shape, keep: float, generator,
+               shard) -> torch.Tensor:
+    """The keep mask of ``shape`` (rows first) for ``x``. Under a batch
+    shard (``shard.index`` of ``shard.count`` ranks, see
+    ``parallel/multihost.BatchShard``) the mask is drawn for the global
+    batch and this rank's rows are taken, so the ranks' masks are the
+    single-process draw's, as JAX's SPMD draw is a function of the global
+    shape."""
+    if shard is None or shard.count == 1:
+        return torch.rand(shape, generator=generator, device=x.device) < keep
+    b = shape[0]
+    full = torch.rand((b * shard.count,) + tuple(shape[1:]),
+                      generator=generator, device=x.device)
+    return full[shard.index * b:(shard.index + 1) * b] < keep
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth; identity at eval or at rate 0. The mask
     is drawn from ``generator`` (the run's explicit generator, set by
-    ``CamRaDepth.set_generator``) when one is set."""
+    ``CamRaDepth.set_generator``) when one is set, for this rank's rows of
+    the global batch under a batch ``shard``."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = _draw_keep(x, shape, keep, self.generator, self.shard)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class Dropout2d(nn.Module):
     """Channel dropout over NHWC (torch Dropout2d, CamRaDepth.py:96): whole
-    feature maps are dropped, broadcast over H and W. Identity at eval."""
+    feature maps are dropped, broadcast over H and W. Identity at eval.
+    Drawn as :class:`DropPath` draws."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0], 1, 1, x.shape[-1])
-        mask = torch.rand(shape, generator=self.generator,
-                          device=x.device) < keep
+        mask = _draw_keep(x, shape, keep, self.generator, self.shard)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

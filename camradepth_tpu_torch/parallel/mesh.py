@@ -1,0 +1,216 @@
+"""The training layout: its size, its device mesh and the model's wrapper.
+
+Counterpart of ``camradepth_tpu/parallel/mesh.py`` and of the trainer's
+``_auto_mesh`` (``camradepth_tpu/train/trainer.py:100-163``). Each rank
+holds one device. The global microbatch (``train.batch_size`` rows) shards
+jointly over ``data`` x ``fsdp`` ranks, as the JAX package's batch does
+(``camradepth_tpu/parallel/mesh.py:95-100``), so the layout covers every
+rank:
+
+- ``data`` only: DDP, a full replica on each rank, the gradients
+  all-reduced once per optimizer step;
+- ``fsdp``: FSDP2 (``fully_shard``) on a 1-D mesh, every encoder block,
+  every decoder stage and then the root each a unit whose parameters,
+  gradients and optimizer state are sharded over the ranks;
+- ``data`` x ``fsdp``: FSDP2 on the 2-D mesh ``("data", "fsdp")`` (HSDP),
+  replicated over ``data`` and sharded over ``fsdp``.
+
+JAX's ``param_sharding_rule`` picks the axis to shard per parameter to suit
+GSPMD, and keeps parameters under 2**16 elements and depthwise kernels
+whole. FSDP2 shards dim 0 of every parameter of a unit, padding the last
+shard: no parameter stays whole, and none needs to, since the sharded axis
+changes where the numbers live, not what they are. Gradients reduce in
+fp32 (no ``MixedPrecisionPolicy``); the bf16 compute dtype is a cast at use
+(``models/layers.py`` ``cast_to``), as on one device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from camradepth_tpu_torch.config import ConfigError
+from camradepth_tpu_torch.parallel import multihost
+
+
+@dataclass(frozen=True)
+class Layout:
+    """``data`` x ``fsdp`` ranks. ``wrap`` names the wrapper ("ddp" or
+    "fsdp"); empty, it follows from the sizes (FSDP2 when ``fsdp`` > 1,
+    else DDP). An explicit wrapper is how a one-rank DDP or FSDP2 run is
+    driven (``Trainer(layout=...)``)."""
+
+    data: int = 1
+    fsdp: int = 1
+    wrap: str = ""
+
+    def __post_init__(self):
+        if self.wrap not in ("", "ddp", "fsdp"):
+            raise ConfigError(f"layout wrap must be ddp or fsdp, got "
+                              f"{self.wrap!r}")
+        if self.wrap == "ddp" and self.fsdp != 1:
+            raise ConfigError("a DDP layout has no fsdp axis")
+
+    @property
+    def size(self) -> int:
+        return self.data * self.fsdp
+
+    @property
+    def kind(self) -> str:
+        return self.wrap or ("fsdp" if self.fsdp > 1 else "ddp")
+
+
+def mesh_shape(data_parallel: int, fsdp_parallel: int, spatial_parallel: int,
+               world: int, batch_size: int, img_height: int
+               ) -> Optional[Tuple[int, int, int]]:
+    """The (data, fsdp, sp) sizes ``_auto_mesh`` gives for ``world``
+    devices, or None for one device; the same refusals
+    (``camradepth_tpu/train/trainer.py:100-163``). With ``data_parallel``
+    -1 the data axis is the largest divisor of the global batch that fits
+    the ranks left by fsdp (the batch shards jointly over data x fsdp);
+    explicit sizes are strict."""
+    fsdp = max(1, fsdp_parallel)
+    sp = max(1, spatial_parallel)
+    if data_parallel > 0:
+        data = data_parallel
+    elif sp > 1:
+        data = 1
+    else:
+        avail = max(1, world // (fsdp * sp))
+        data = 1
+        for d in range(min(avail, batch_size), 0, -1):
+            if batch_size % (d * fsdp) == 0:
+                data = d
+                break
+    if data * fsdp * sp == 1:
+        return None
+    if sp > 1 and data * fsdp > 1:
+        raise ConfigError(
+            "spatial_parallel cannot be combined with data/fsdp axes in "
+            "training (the JAX package's GSPMD conv-gradient fault)")
+    if sp > 2:
+        raise ConfigError("spatial_parallel > 2 in training gives wrong conv "
+                          "gradients in the JAX package")
+    if batch_size % (data * fsdp):
+        raise ConfigError(
+            f"batch_size {batch_size} is not divisible by data_parallel*"
+            f"fsdp={data}x{fsdp} (batches shard jointly over both axes)")
+    if data * fsdp * sp > world:
+        raise ConfigError(
+            f"layout {data}x{fsdp}x{sp} needs {data * fsdp * sp} ranks, have "
+            f"{world}: start one process per rank (torchrun --nproc-per-node "
+            "N, or --coordinator/--num-processes/--process-id)")
+    if sp > 1 and img_height % sp:
+        raise ConfigError(f"image height {img_height} is not divisible by "
+                          f"spatial_parallel={sp}")
+    return data, fsdp, sp
+
+
+def training_layout(cfg, world: Optional[int] = None) -> Optional[Layout]:
+    """The layout of ``cfg.mesh`` over ``world`` ranks (default: the
+    process group's size), or None for one unwrapped device. A process
+    group of more than one rank needs a layout that covers every rank:
+    each rank holds its share of the batch."""
+    world = multihost.process_count() if world is None else world
+    m = cfg.mesh
+    shape = mesh_shape(m.data_parallel, m.fsdp_parallel, m.spatial_parallel,
+                       world, cfg.train.batch_size, cfg.model.img_size[0])
+    if shape is None:
+        if world > 1:
+            raise ConfigError(
+                f"{world} processes need a training layout over all of "
+                f"them: batch_size {cfg.train.batch_size} with --fsdp "
+                f"{m.fsdp_parallel} gives one rank; size --data-parallel / "
+                "--fsdp (and the batch) to the ranks")
+        return None
+    data, fsdp, _ = shape
+    if data * fsdp != world:
+        raise ConfigError(
+            f"layout {data}x{fsdp} covers {data * fsdp} of {world} ranks; a "
+            "rank without a share of the batch would stall the others: "
+            "size --data-parallel / --fsdp (and the batch) to the ranks")
+    return Layout(data, fsdp)
+
+
+def create_mesh(layout: Layout, device_type: str):
+    """The ``("data", "fsdp")`` device mesh of ``layout`` over the process
+    group's ranks, row-major."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, (layout.data, layout.fsdp),
+                            mesh_dim_names=("data", "fsdp"))
+
+
+def unwrap(model):
+    """The CamRaDepth inside a DDP wrapper (FSDP2 wraps in place)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    return model.module if isinstance(model, DistributedDataParallel) \
+        else model
+
+
+def fsdp_units(model):
+    """The modules FSDP2 shards as units of their own, in the order they
+    run: each encoder block, each decoder stage (the seg branch's too)."""
+    enc = model.dest_encoder
+    units = [blk for i in range(4) for blk in getattr(enc, f"block{i + 1}")]
+    units += list(model.depth_upsample)
+    if hasattr(model, "seg_upsample"):
+        units += list(model.seg_upsample)
+    return units
+
+
+def wrap(model, layout: Layout):
+    """``model`` (a CamRaDepth on this rank's device, the same weights on
+    every rank) under ``layout``'s wrapper, its dropout drawn for this
+    rank's rows of the global batch. Needs a process group of
+    ``layout.size`` ranks."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.nn.parallel import DistributedDataParallel
+
+    world = multihost.process_count()
+    if layout.size != world:
+        raise ConfigError(f"layout {layout.data}x{layout.fsdp} needs "
+                          f"{layout.size} ranks, the process group has "
+                          f"{world}")
+    dev = next(model.parameters()).device
+    model.set_batch_shard(multihost.BatchShard(multihost.process_index(),
+                                               world))
+    if layout.kind == "ddp":
+        # the unsupervised seg heads feed the loss only through an argmax:
+        # no gradient reaches them
+        return DistributedDataParallel(
+            model, device_ids=[dev.index] if dev.type == "cuda" else None,
+            broadcast_buffers=False,
+            find_unused_parameters=model.cfg.unsupervised_seg)
+    # FSDP2 shards contiguous parameters only: the conv weights leave
+    # channels_last, and cuDNN lays each one out for an NHWC input at use
+    for p in model.parameters():
+        p.data = p.data.contiguous()
+    mesh = create_mesh(layout, dev.type)
+    mesh = mesh if layout.data > 1 else mesh["fsdp"]
+    for unit in fsdp_units(model):
+        fully_shard(unit, mesh=mesh)
+    fully_shard(model, mesh=mesh)
+    return model
+
+
+def set_gradient_sync(model, enabled: bool) -> None:
+    """Reduce the gradients in this backward (``enabled``) or keep adding
+    them up locally: DDP's ``require_backward_grad_sync``, FSDP2's
+    ``set_requires_gradient_sync``. Nothing for an unwrapped model."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.nn.parallel import DistributedDataParallel
+
+    if isinstance(model, DistributedDataParallel):
+        model.require_backward_grad_sync = enabled
+    elif isinstance(model, FSDPModule):
+        model.set_requires_gradient_sync(enabled)
+
+
+def batch_shard(model) -> Optional[multihost.BatchShard]:
+    """The rows of the global batch that ``model`` (wrapped or not) runs
+    on this rank; None for one unwrapped device."""
+    return unwrap(model).batch_shard

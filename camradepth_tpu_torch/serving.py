@@ -22,7 +22,7 @@ Counterpart of the dense path of ``camradepth_tpu/serving.py``:
   (``:99-176``, ``load_engine`` ``:428-442``).
 
 The mesh arguments of the JAX engine are not ported yet (ROADMAP queue 1
-item 10).
+item 10b).
 """
 
 from __future__ import annotations

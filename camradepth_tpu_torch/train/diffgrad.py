@@ -22,11 +22,23 @@ All state is fp32: per tensor ``exp_avg``, ``exp_avg_sq``,
 The learning rate is ``param_groups[i]["lr"]``, which the trainer sets
 from the schedule before each step (the first step takes lr(0), as
 optax's count does).
+
+Under FSDP2 a parameter, its gradient and its ``exp_avg``, ``exp_avg_sq``
+and ``previous_grad`` are DTensors sharded alike, and the update runs on
+this rank's shards with the same operations. Only the per-tensor norm
+needs the other ranks: it is the whole tensor's (a shard's own norm would
+scale each shard by another factor), the shards' squared norms summed
+over the ranks (one all-reduce per step for all of them), so
+``exp_grad_norm`` stays a plain tensor, the same on every rank. Under DDP
+every tensor is whole, as on one device.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from camradepth_tpu_torch.parallel.multihost import is_dtensor
 
 
 class DiffGradNorm(torch.optim.Optimizer):
@@ -47,38 +59,94 @@ class DiffGradNorm(torch.optim.Optimizer):
         for group in self.param_groups:
             b1, b2 = group["betas"]
             eps, wd, lr = group["eps"], group["weight_decay"], group["lr"]
-            for p in group["params"]:
-                # a parameter the loss does not reach has a zero gradient,
-                # as in the JAX package
-                g = (p.grad if p.grad is not None
-                     else torch.zeros_like(p)).float()
-                if wd:
-                    g = g + wd * p.float()
-                state = self.state[p]
-                if not state:
-                    state["step"] = torch.zeros((), dtype=torch.int64)
-                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
-                    state["exp_avg_sq"] = torch.zeros_like(
-                        p, dtype=torch.float32)
-                    state["previous_grad"] = torch.zeros_like(
-                        p, dtype=torch.float32)
-                    state["exp_grad_norm"] = torch.zeros(
-                        (), dtype=torch.float32, device=p.device)
-                state["step"] += 1
-                t = float(state["step"])
-                gn = torch.linalg.vector_norm(g)
-                egn = 0.95 * state["exp_grad_norm"] + 0.05 * gn
-                g1 = torch.where(egn > gn, g * egn / (gn + 1e-8), g)
-                m = b1 * state["exp_avg"] + (1 - b1) * g1
-                v = b2 * state["exp_avg_sq"] + (1 - b2) * torch.square(g)
-                bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t
-                bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** t
-                step_size = (torch.sqrt(bc2) / (bc1 + 1e-8)).to(p.device)
-                dfc = torch.sigmoid(torch.abs(state["previous_grad"] - g))
-                direction = step_size * (m * dfc) / (torch.sqrt(v) + eps)
-                p.add_((-lr * direction).to(p.dtype))
-                state["exp_avg"] = m
-                state["exp_avg_sq"] = v
-                state["previous_grad"] = g
-                state["exp_grad_norm"] = egn
+            params = group["params"]
+            grads = [_gradient(p, wd) for p in params]
+            for p, g, gn in zip(params, grads, _norms(params, grads)):
+                self._update(p, g, gn, self.state[p], b1, b2, eps, lr)
         return loss
+
+    @staticmethod
+    def _update(p, g, gn, state, b1, b2, eps, lr) -> None:
+        """One parameter's rule: ``g`` its (local) gradient with the weight
+        decay, ``gn`` the whole tensor's norm of it."""
+        if not state:
+            state["step"] = torch.zeros((), dtype=torch.int64)
+            state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+            state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+            state["previous_grad"] = torch.zeros_like(p, dtype=torch.float32)
+            state["exp_grad_norm"] = torch.zeros(
+                (), dtype=torch.float32, device=p.device)
+        sharded = p if is_dtensor(p) else None
+        p = _local(p)
+        exp_avg, exp_avg_sq, previous_grad = (
+            _local(state[k]) for k in ("exp_avg", "exp_avg_sq",
+                                       "previous_grad"))
+        state["step"] += 1
+        t = float(state["step"])
+        egn = 0.95 * state["exp_grad_norm"] + 0.05 * gn
+        g1 = torch.where(egn > gn, g * egn / (gn + 1e-8), g)
+        m = b1 * exp_avg + (1 - b1) * g1
+        v = b2 * exp_avg_sq + (1 - b2) * torch.square(g)
+        bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t
+        bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** t
+        step_size = (torch.sqrt(bc2) / (bc1 + 1e-8)).to(p.device)
+        dfc = torch.sigmoid(torch.abs(previous_grad - g))
+        direction = step_size * (m * dfc) / (torch.sqrt(v) + eps)
+        p.add_((-lr * direction).to(p.dtype))
+        state["exp_avg"] = _like(m, sharded)
+        state["exp_avg_sq"] = _like(v, sharded)
+        state["previous_grad"] = _like(g, sharded)
+        state["exp_grad_norm"] = egn
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _gradient(p, wd: float) -> torch.Tensor:
+    """The fp32 gradient with the coupled weight decay, of this rank's
+    shard for a DTensor. A parameter the loss does not reach has a zero
+    gradient, as in the JAX package."""
+    grad = p.grad if p.grad is not None else torch.zeros_like(p)
+    g = _local(grad).float()
+    return g + wd * _local(p).float() if wd else g
+
+
+def _shard_dims(p) -> list:
+    """The mesh dimensions of more than one rank that shard ``p``."""
+    if not is_dtensor(p):
+        return []
+    mesh = p.device_mesh
+    return [d for d, pl in enumerate(p.placements)
+            if pl.is_shard() and mesh.size(d) > 1]
+
+
+def _norms(params, grads) -> list:
+    """Each gradient's L2 norm, of the whole tensor: for sharded
+    parameters (all on one mesh, as FSDP2 lays them out) the shards'
+    squared norms are summed over the sharding ranks in one all-reduce."""
+    norms = [torch.linalg.vector_norm(g) for g in grads]
+    sharded = [i for i, p in enumerate(params) if _shard_dims(p)]
+    if not sharded:
+        return norms
+    first = params[sharded[0]]
+    mesh, dims = first.device_mesh, _shard_dims(first)
+    if any(params[i].device_mesh != mesh or _shard_dims(params[i]) != dims
+           for i in sharded):
+        raise ValueError("sharded parameters of one mesh and placement only")
+    sq = torch.stack([norms[i] for i in sharded]).square()
+    for d in dims:
+        dist.all_reduce(sq, group=mesh.get_group(d))
+    for j, i in enumerate(sharded):
+        norms[i] = sq[j].sqrt()
+    return norms
+
+
+def _like(local: torch.Tensor, sharded) -> torch.Tensor:
+    """``local`` as a shard of a DTensor laid out like ``sharded``, or
+    itself for a whole parameter."""
+    if sharded is None:
+        return local
+    return type(sharded).from_local(
+        local, sharded.device_mesh, sharded.placements, run_check=False,
+        shape=sharded.shape, stride=sharded.stride())

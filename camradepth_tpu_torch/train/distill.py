@@ -20,6 +20,12 @@ row would pollute, are weighted by a per-row valid mask. The teacher
 holds its weights in the compute dtype, cast once (the same bits a cast at
 each use gives), and its activations never enter autograd. The optimizer
 step is :func:`train.step.train_step`'s, with this objective.
+
+Under a multi-device layout the student is wrapped as the trainer's model
+is, after its warm start; the teacher stays whole and unwrapped on every
+rank (``camradepth_tpu/train/distill.py:311-320``) and runs on the rank's
+rows. The distillation mean and the GT terms are the global batch's
+(``train/losses.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ import torch.nn.functional as F
 
 from camradepth_tpu_torch.config import ExperimentConfig
 from camradepth_tpu_torch.models.camradepth import create_model
-from camradepth_tpu_torch.train.losses import multitask_loss
+from camradepth_tpu_torch.parallel.mesh import batch_shard, unwrap
+from camradepth_tpu_torch.train.losses import masked_mean, multitask_loss
 from camradepth_tpu_torch.train.step import (
     build_gt,
     prepare_microbatch,
@@ -120,13 +127,16 @@ def distill_loss(cfg: ExperimentConfig, model, micro: Dict,
     valid = (torch.arange(b, device=x.device) < orig_b).float()
     with torch.no_grad():
         teacher_pred = teacher(x)
-    model.set_generator(generator)
+    unwrap(model).set_generator(generator)
     pred = model(x)
     per_sample, terms = distill_terms(pred, teacher_pred, cfg, temperature)
     del teacher_pred
-    l_distill = torch.sum(per_sample * valid) / torch.clamp(valid.sum(),
-                                                            min=1.0)
-    l_gt, gt_metrics = multitask_loss(pred, build_gt(micro), cfg)
+    shard = batch_shard(model)
+    if shard is not None:
+        # each term is a mean over this rank's rows, as many on every rank
+        terms = {k: shard.sum(v) / shard.count for k, v in terms.items()}
+    l_distill = masked_mean(per_sample, valid, shard)
+    l_gt, gt_metrics = multitask_loss(pred, build_gt(micro), cfg, shard)
     total = alpha * l_distill + (1.0 - alpha) * l_gt
     metrics = {"loss": total, "loss_distill": l_distill, "loss_gt": l_gt,
                "rmse_m": gt_metrics["rmse_m"], **terms}
@@ -171,24 +181,31 @@ class DistillTrainer(Trainer):
         check_pairing(cfg, teacher_cfg, alpha)
         self._alpha = float(alpha)
         self._temperature = float(temperature)
+        self._teacher_cfg = teacher_cfg
+        self._teacher_state = teacher_state
+        self._init_from_teacher = init_from_teacher
         super().__init__(cfg, **kwargs)
-        self.teacher = create_model(teacher_cfg.model, device=self.device,
-                                    state_dict=teacher_state)
+
+    def _prepare_model(self, restored: bool) -> None:
+        """The frozen teacher, and the student's warm start from it, before
+        the student is wrapped."""
+        self.teacher = create_model(self._teacher_cfg.model,
+                                    device=self.device,
+                                    state_dict=self._teacher_state)
         for p in self.teacher.parameters():
             p.requires_grad_(False)
         # a restored state keeps its parameters: they belong with the
         # restored optimizer moments (an auto-resume, or a --checkpoint)
-        restored = self.training_steps > 0 or bool(
-            cfg.train.checkpoint and cfg.train.load_ckpt)
-        if init_from_teacher and restored:
-            print("#### teacher warm start SKIPPED: a checkpoint was "
-                  "restored (resume takes precedence)")
-        if init_from_teacher and not restored:
+        if self._init_from_teacher and restored:
+            self._say("#### teacher warm start SKIPPED: a checkpoint was "
+                      "restored (resume takes precedence)")
+        if self._init_from_teacher and not restored:
             # from the fp32 weights, not the teacher's compute-dtype copy
-            done = ckpt_util.partial_restore(dict(teacher_state), self.model,
-                                             verbose=False)
-            print(f"#### teacher warm start: {len(done.transferred)}/"
-                  f"{done.total} param tensors transferred")
+            done = ckpt_util.partial_restore(dict(self._teacher_state),
+                                             self.model, verbose=False)
+            self._say(f"#### teacher warm start: {len(done.transferred)}/"
+                      f"{done.total} param tensors transferred")
+        self._teacher_state = None  # the caller's; the teacher holds a copy
 
     def _train_step(self, micro, gens, lr):
         loss_fn = functools.partial(distill_loss, teacher=self.teacher,

@@ -4,6 +4,19 @@ Counterpart of ``camradepth_tpu/train/losses.py`` (the reference's
 loss_funcs.py). Every loss is a fixed-shape masked mean,
 sum(mask * f) / max(sum(mask), 1), as in the JAX package, and computes in
 fp32.
+
+The JAX package takes each mean over the global batch, however it is
+sharded. Here a rank of a multi-device step holds its rows only, so the
+losses that train (SmoothL1, the focal CE, and the MSE of the RMSE metric)
+take a ``shard`` (``parallel/multihost.BatchShard``): the mask's count is
+summed over the ranks, and so is the masked sum, through an all-reduce
+whose gradient reaches each rank's own terms. The value is then the global
+batch's mean on every rank, and the ranks' gradients add up to its
+gradient, also when the ranks' valid-pixel counts differ (sparse lidar,
+padded rows). The focal CE's transform, which follows the mean, sees the
+global mean. ``smoothness_loss`` is a mean of per-sample means: over equal
+shares of the batch the global value is the mean of the ranks' values, so
+it needs no shard.
 """
 
 from __future__ import annotations
@@ -13,29 +26,36 @@ from typing import Dict, Tuple
 import torch
 
 
-def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1.0)
+def masked_mean(values: torch.Tensor, mask: torch.Tensor,
+                shard=None) -> torch.Tensor:
+    """sum(mask * values) / max(sum(mask), 1), both sums over the global
+    batch under a ``shard``."""
+    num, den = torch.sum(values * mask), torch.sum(mask)
+    if shard is not None:
+        num, den = shard.sum_grad(num), shard.sum(den)
+    return num / torch.clamp(den, min=1.0)
 
 
 def masked_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
-                     beta: float = 1.0) -> torch.Tensor:
+                     beta: float = 1.0, shard=None) -> torch.Tensor:
     """SmoothL1 over target > 0 pixels (loss_funcs.py:77-91; beta 1)."""
     mask = (target > 0).float()
     diff = torch.abs(target - pred)
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
                        diff - 0.5 * beta)
-    return _masked_mean(loss, mask)
+    return masked_mean(loss, mask, shard)
 
 
-def masked_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def masked_mse(pred: torch.Tensor, target: torch.Tensor,
+               shard=None) -> torch.Tensor:
     """MSE over target > 0 pixels (loss_funcs.py:36-46)."""
     mask = (target > 0).float()
-    return _masked_mean(torch.square(target - pred), mask)
+    return masked_mean(torch.square(target - pred), mask, shard)
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     mask = (target > 0).float()
-    return _masked_mean(torch.abs(target - pred), mask)
+    return masked_mean(torch.abs(target - pred), mask)
 
 
 def masked_rmse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -48,7 +68,7 @@ def masked_huber(pred: torch.Tensor, target: torch.Tensor,
     diff = torch.abs(target - pred)
     loss = torch.where(diff < delta, 0.5 * diff * diff,
                        delta * (diff - 0.5 * delta))
-    return _masked_mean(loss, mask)
+    return masked_mean(loss, mask)
 
 
 def masked_berhu(pred: torch.Tensor, target: torch.Tensor,
@@ -64,12 +84,12 @@ def masked_berhu(pred: torch.Tensor, target: torch.Tensor,
     l2_part = torch.where(
         diff > delta, diff * diff / (2.0 * torch.clamp(delta, min=1e-12)),
         zero)
-    return _masked_mean(l1_part + l2_part, mask.float())
+    return masked_mean(l1_part + l2_part, mask.float())
 
 
 def masked_focal_ce(logits: torch.Tensor, target: torch.Tensor,
-                    gamma: float = 2.0,
-                    ignore_index: int = 255) -> torch.Tensor:
+                    gamma: float = 2.0, ignore_index: int = 255,
+                    shard=None) -> torch.Tensor:
     """Focal loss as in the reference (loss_funcs.py:14-34): cross entropy
     with ignore_index 255, mean-reduced FIRST, then the scalar focal
     transform (1 - exp(-ce))**gamma * ce, not a per-pixel weighting.
@@ -84,7 +104,7 @@ def masked_focal_ce(logits: torch.Tensor, target: torch.Tensor,
     safe_t = torch.where(valid, target, torch.zeros_like(target)).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe_t[..., None])[..., 0]
-    ce = _masked_mean(nll, valid.float())
+    ce = masked_mean(nll, valid.float(), shard)
     pt = torch.exp(-ce)
     return (1.0 - pt) ** gamma * ce
 
@@ -107,8 +127,8 @@ def smoothness_loss(pred_depth: torch.Tensor,
     return torch.mean(gdx) + torch.mean(gdy)
 
 
-def multitask_loss(pred: dict, gt: dict,
-                   cfg) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def multitask_loss(pred: dict, gt: dict, cfg, shard=None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Deep-supervised multi-task objective (runner.py:197-215;
     ``camradepth_tpu/train/losses.py:111``): weights [1, 1, 1, .2, .2]
     over [depth_final, depth_stage4, depth_stage3, seg_final, seg_inter],
@@ -121,21 +141,25 @@ def multitask_loss(pred: dict, gt: dict,
       gt: {"depth": [B, H, W], "depth_stage4": [B, H/2, W/2],
            "depth_stage3": [B, H/4, W/4], "seg", "seg_inter"}.
       cfg: ExperimentConfig.
+      shard: this rank's share of the global batch, or None; every term
+        and metric is then the global batch's, the same on every rank.
     """
     w = cfg.train.loss_weights
     depth_final = pred["depth"]["final_depth"][..., 0]
     inter = pred["depth"]["intermediate_depths"]
     d4, d3 = inter[3][..., 0], inter[2][..., 0]
 
-    l_final = masked_smooth_l1(depth_final, gt["depth"])
-    l_d4 = masked_smooth_l1(d4, gt["depth_stage4"])
-    l_d3 = masked_smooth_l1(d3, gt["depth_stage3"])
+    l_final = masked_smooth_l1(depth_final, gt["depth"], shard=shard)
+    l_d4 = masked_smooth_l1(d4, gt["depth_stage4"], shard=shard)
+    l_d3 = masked_smooth_l1(d3, gt["depth_stage3"], shard=shard)
 
     zero = depth_final.new_zeros(())
     if cfg.model.supervised_seg and pred["seg"]["final_seg"] is not None:
-        l_seg = masked_focal_ce(pred["seg"]["final_seg"], gt["seg"])
+        l_seg = masked_focal_ce(pred["seg"]["final_seg"], gt["seg"],
+                                shard=shard)
         l_seg_i = (
-            masked_focal_ce(pred["seg"]["intermediate_seg"], gt["seg_inter"])
+            masked_focal_ce(pred["seg"]["intermediate_seg"], gt["seg_inter"],
+                            shard=shard)
             if cfg.train.seg_inter_loss
             and pred["seg"]["intermediate_seg"] is not None
             else zero
@@ -146,7 +170,7 @@ def multitask_loss(pred: dict, gt: dict,
 
     total = (w[0] * l_final + w[1] * l_d4 + w[2] * l_d3 + w[3] * l_seg
              + w[4] * l_seg_i) / sum(w)
-    rmse = torch.sqrt(masked_mse(depth_final, gt["depth"])) * (
+    rmse = torch.sqrt(masked_mse(depth_final, gt["depth"], shard)) * (
         cfg.data.max_depth)
     metrics = {
         "loss": total,

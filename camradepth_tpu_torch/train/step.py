@@ -9,6 +9,19 @@ optimizer state, the norms and the losses are fp32. The GT min-pool
 pyramid is built on the device, so only the full-resolution inverse-depth
 map comes from the host. A compact wire microbatch (``data/wire.py``) is
 decoded on the device after its padding, before the forward.
+
+Under a multi-device layout (``parallel/mesh.py``: DDP, FSDP2 or HSDP)
+each rank runs its rows of every microbatch. The losses are the global
+batch's (``train/losses.py``), and each rank's backward is scaled by the
+rank count, so the wrapper's mean of the ranks' gradients is the global
+gradient. The gradients are reduced once per optimizer step, in fp32, in
+the last microbatch's backward; the earlier ones add up locally. The
+metrics and ``grad_norm`` come out the same, bit for bit, on every rank.
+Padding (``train.pad_microbatch_to``) pads each rank's rows to that size,
+so the global microbatch has ranks times as many rows. The padded rows
+carry no weight in any global normalizer; the dropout masks are drawn for
+the padded global batch, so a real row's mask sits at another position
+of the draw than in a one-process step.
 """
 
 from __future__ import annotations
@@ -16,9 +29,16 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from camradepth_tpu_torch.data.wire import decode_wire_micro, is_wire_micro
 from camradepth_tpu_torch.ops.pooling import minpool_sparse
+from camradepth_tpu_torch.parallel.mesh import (
+    batch_shard,
+    set_gradient_sync,
+    unwrap,
+)
+from camradepth_tpu_torch.parallel.multihost import is_dtensor
 from camradepth_tpu_torch.train.losses import multitask_loss
 
 
@@ -68,17 +88,34 @@ def prepare_microbatch(cfg, micro: Dict[str, torch.Tensor]
 def microbatch_loss(cfg, model, micro: Dict[str, torch.Tensor],
                     generator: Optional[torch.Generator] = None):
     """(loss, metrics) of one microbatch in train mode, its dropout drawn
-    from ``generator``."""
+    from ``generator``; the global batch's under a layout."""
     micro = prepare_microbatch(cfg, micro)
-    model.set_generator(generator)
+    unwrap(model).set_generator(generator)
     pred = model(micro["features"])
-    return multitask_loss(pred, build_gt(micro), cfg)
+    return multitask_loss(pred, build_gt(micro), cfg, batch_shard(model))
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    """sqrt of the sum of squares of every element (optax.global_norm). Of
+    FSDP2's sharded gradients (DTensors, all on one mesh) each rank sums
+    its shards' squares and the sums are all-reduced over the sharded mesh
+    dimensions."""
+    sharded = [t for t in tensors if is_dtensor(t)]
+    if not sharded:
+        return torch.sqrt(sum(torch.sum(torch.square(t.float()))
+                              for t in tensors))
+
+    mesh, placements = sharded[0].device_mesh, sharded[0].placements
+    if any(t.device_mesh != mesh or t.placements != placements
+           for t in sharded):
+        raise ValueError("global_norm takes DTensors of one mesh and "
+                         "placement")
+    sq = sum(torch.sum(torch.square(t.to_local().float())) for t in sharded)
+    for dim, placement in enumerate(placements):
+        if placement.is_shard():
+            dist.all_reduce(sq, group=mesh.get_group(dim))
+    return torch.sqrt(sum((torch.sum(torch.square(t.float()))
+                           for t in tensors if not is_dtensor(t)), sq))
 
 
 def train_step(cfg, model, optimizer, microbatches: List[Dict],
@@ -92,13 +129,17 @@ def train_step(cfg, model, optimizer, microbatches: List[Dict],
     microbatch (the distillation step passes its own). Returns the
     metrics, each the mean over the microbatches, and ``grad_norm``, the
     global L2 norm of the averaged gradients (0-d device tensors: reading
-    one waits for the step)."""
+    one waits for the step). ``model`` may be wrapped for a layout (see the
+    module docstring)."""
     params = [p for p in model.parameters() if p.requires_grad]
     optimizer.zero_grad(set_to_none=True)
+    shard = batch_shard(model)
     per_micro = []
-    for micro, gen in zip(microbatches, generators):
+    for i, (micro, gen) in enumerate(zip(microbatches, generators)):
+        if shard is not None:
+            set_gradient_sync(model, i == len(microbatches) - 1)
         loss, metrics = loss_fn(cfg, model, micro, gen)
-        loss.backward()
+        (loss if shard is None else loss * shard.count).backward()
         per_micro.append({k: v.detach() for k, v in metrics.items()})
     accum = len(per_micro)
     with torch.no_grad():

@@ -1,8 +1,7 @@
-"""Single-device training driver: epochs, validation, early stopping,
-checkpoints, resume and preemption.
+"""The trainer: epochs, validation, early stopping, checkpoints, resume
+and preemption, on one device or across ranks.
 
-Counterpart of ``camradepth_tpu/train/trainer.py:202-781`` without its
-mesh and multi-host branches (ROADMAP queue 1 item 10):
+Counterpart of ``camradepth_tpu/train/trainer.py:166-781``:
 
 - one optimizer step consumes ``update_interval`` microbatches
   (``train/step.py``); the OneCycle schedule is indexed by the optimizer
@@ -24,17 +23,36 @@ mesh and multi-host branches (ROADMAP queue 1 item 10):
 - early stopping, the ``stop_after = num_epochs - 4`` quirk
   (runner.py:382-384), best-validation checkpoints, auto-resume from the
   newest checkpoint of the run directory (the interrupted epoch's consumed
-  steps skipped), and SIGTERM handled at an optimizer-step boundary.
+  steps skipped), and SIGTERM handled at an optimizer-step boundary;
+- the run directory gets the resolved config, the git revision and a copy
+  of the model and train sources (``project_files/``, as the JAX
+  package's ``_snapshot_run``).
 
 On ``cuda`` everything runs on the card: nothing moves to the CPU but the
 scalars that are logged.
+
+Multi-device (``parallel/``): the layout comes from ``cfg.mesh`` and the
+process group's size (``parallel/mesh.training_layout``), or is given
+(``layout=``, e.g. a one-rank DDP or FSDP2 run). The model is built, warm
+started and restored on every rank alike, then wrapped; the optimizer
+takes the wrapped parameters. Each rank's train loader reads its strided
+rows of the split (``make_loaders(process_shard=...)``), its share of each
+global batch; val stays whole, and every rank evaluates all of it in
+lockstep (an FSDP2 forward needs every rank). The primary alone writes the
+run directory (metrics, config, snapshot, checkpoints gathered from every
+rank), the best-checkpoint and early-stopping decisions are the primary's,
+broadcast, and a SIGTERM on any rank stops every rank at the same step. A
+multi-process run needs an explicit run directory and takes dense batches
+(wire ``auto`` stays dense; ``on`` is refused).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import signal
+import subprocess
 import threading
 import time
 from pathlib import Path
@@ -44,15 +62,30 @@ import numpy as np
 import torch
 
 from camradepth_tpu_torch import resolve_device
-from camradepth_tpu_torch.config import ExperimentConfig, num_epochs_for_steps
+from camradepth_tpu_torch.config import (
+    ConfigError,
+    ExperimentConfig,
+    num_epochs_for_steps,
+)
 from camradepth_tpu_torch.data.pipeline import make_loaders
 from camradepth_tpu_torch.data.wire import WIRE_KEYS, resolve_wire_ship
 from camradepth_tpu_torch.models.camradepth import create_model
+from camradepth_tpu_torch.parallel import multihost
+from camradepth_tpu_torch.parallel.mesh import (
+    Layout,
+    training_layout,
+    unwrap,
+    wrap,
+)
 from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
 from camradepth_tpu_torch.train.schedule import onecycle
 from camradepth_tpu_torch.train.step import eval_step, train_step
 from camradepth_tpu_torch.utils import checkpoint as ckpt_util
-from camradepth_tpu_torch.utils.logging import MetricWriter, create_run_dir
+from camradepth_tpu_torch.utils.logging import (
+    MetricWriter,
+    NullWriter,
+    create_run_dir,
+)
 from camradepth_tpu_torch.utils.prefetch import prefetch_iter
 
 # the batch keys a step reads (the seg labels only with a seg branch), of
@@ -91,15 +124,63 @@ def step_generator(device: torch.device, seed: int, epoch: int, step: int,
         int(s) & 0x7FFF_FFFF_FFFF_FFFF)
 
 
+# the sources the run snapshot copies (camradepth_tpu/train/trainer.py:
+# 190-199), relative to the package
+_SNAPSHOT_SOURCES = ("models/camradepth.py", "models/encoder.py",
+                     "models/layers.py", "train/step.py", "train/losses.py",
+                     "train/diffgrad.py", "config.py", "data/channels.py")
+
+
+def snapshot_run(cfg: ExperimentConfig, run_dir: Path) -> None:
+    """The run's reproducibility snapshot in ``run_dir/project_files``
+    (``camradepth_tpu/train/trainer.py:166-199``; the reference's
+    save_files): the resolved config as JSON, the git revision of the
+    checkout and a copy of the model and train sources."""
+    snap = run_dir / "project_files"
+    snap.mkdir(parents=True, exist_ok=True)
+    (snap / "config.json").write_text(
+        json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+    pkg = Path(__file__).resolve().parents[1]
+    try:
+        # empty outside a git checkout, as the JAX package writes it
+        rev = subprocess.run(["git", "rev-parse", "HEAD"], cwd=pkg.parent,
+                             capture_output=True, text=True, timeout=10)
+        (snap / "GIT_REVISION").write_text(rev.stdout.strip() + "\n")
+    except (OSError, subprocess.SubprocessError):
+        pass  # no git: the snapshot goes without the revision
+    for rel in _SNAPSHOT_SOURCES:
+        shutil.copyfile(pkg / rel, snap / rel.replace("/", "__"))
+
+
 class Trainer:
     def __init__(self, cfg: ExperimentConfig, loaders: Optional[Dict] = None,
                  run_dir: Optional[str] = None, auto_resume: bool = False,
-                 device="cuda"):
+                 device="cuda", layout: Optional[Layout] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.layout = layout if layout is not None else training_layout(cfg)
+        multi = multihost.is_multiprocess()
+        if multi and run_dir is None:
+            # an auto-indexed directory would differ between the ranks
+            raise ConfigError(
+                "multi-process training requires an explicit run_dir (pass "
+                "--run-dir) so every rank uses the same directory")
         # the compact wire format (camradepth_tpu/train/trainer.py:248-
-        # 287): single-process, so "auto" and "on" both take it
-        wire = cfg.data.wire_format != "off"
+        # 287): one process takes it for "auto" and "on"; several stay
+        # dense, and refuse "on"
+        if multi and cfg.data.wire_format == "on":
+            raise ConfigError(
+                "data.wire_format=on requires a single-process run; use "
+                "wire_format=auto or off")
+        wire = cfg.data.wire_format != "off" and not multi
+        if loaders is None and multi:
+            world = multihost.process_count()
+            if cfg.train.batch_size % world:
+                raise ConfigError(f"batch_size {cfg.train.batch_size} must "
+                                  f"divide over {world} processes")
+            loaders = make_loaders(
+                cfg.data, cfg.train.batch_size // world,
+                process_shard=(multihost.process_index(), world))
         self.loaders = loaders or make_loaders(
             resolve_wire_ship(cfg) if wire else cfg.data,
             cfg.train.batch_size, wire=wire, wire_eval=wire)
@@ -117,8 +198,25 @@ class Trainer:
             cfg.train.learning_rate, total_steps=opt_steps,
             pct_start=cfg.train.pct_start, div_factor=cfg.train.div_factor,
             final_div_factor=cfg.train.final_div_factor)
+        self.run_dir = Path(run_dir) if run_dir else create_run_dir(
+            cfg.train.output_dir, cfg.train.arch_name, cfg.train.run_name)
+        # the primary alone writes the run directory
+        self._primary = multihost.is_primary()
+        latest = (ckpt_util.latest_checkpoint(self.run_dir) if auto_resume
+                  else None)
         self.model = create_model(cfg.model, device=self.device,
                                   seed=cfg.train.seed, train=True)
+        # the full state to restore once the model is wrapped: a trainer
+        # checkpoint given as train.checkpoint, or the run's newest
+        full = None
+        if cfg.train.checkpoint and cfg.train.load_ckpt:
+            full = self._read_checkpoint(cfg.train.checkpoint)
+        if latest is not None:
+            full = ckpt_util.restore_checkpoint(latest)
+        self._prepare_model(restored=full is not None or bool(
+            cfg.train.checkpoint and cfg.train.load_ckpt))
+        if self.layout is not None:
+            self.model = wrap(self.model, self.layout)
         self.optimizer = DiffGradNorm(
             self.model.parameters(), lr=self.schedule(0),
             betas=cfg.train.betas, eps=cfg.train.eps,
@@ -126,55 +224,71 @@ class Trainer:
         self.training_steps = 0
         self.val_steps = 0
         self.start_epoch = 0
-        if cfg.train.checkpoint and cfg.train.load_ckpt:
-            self.load_checkpoint(cfg.train.checkpoint)
-        self.run_dir = Path(run_dir) if run_dir else create_run_dir(
-            cfg.train.output_dir, cfg.train.arch_name, cfg.train.run_name)
-        self.run_dir.mkdir(parents=True, exist_ok=True)
-        self.writer = MetricWriter(self.run_dir)
+        if full is not None:
+            self._restore(full)
+        if self._primary:
+            self.run_dir.mkdir(parents=True, exist_ok=True)
+            self.writer = MetricWriter(self.run_dir)
+            (self.run_dir / "config.json").write_text(
+                json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
+            snapshot_run(cfg, self.run_dir)
+        else:
+            self.writer = NullWriter()
         self._async_saver = (ckpt_util.AsyncSaver()
                              if cfg.train.async_checkpoint else None)
         self._preempt_monitor: Optional[_PreemptionMonitor] = None
         self._preempted = False
-        (self.run_dir / "config.json").write_text(
-            json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
-        if auto_resume:
-            latest = ckpt_util.latest_checkpoint(self.run_dir)
-            if latest is not None:
-                self._restore(ckpt_util.restore_checkpoint(latest))
-                # both name forms count epochs completed: a regular save
-                # resumes at the next epoch, a preempt save restarts the
-                # interrupted one and skips its consumed steps
-                self.start_epoch = ckpt_util.epochs_completed(latest)
-                print(f"#### auto-resumed from {latest.name} (epoch "
+        if latest is not None:
+            # both name forms count epochs completed: a regular save
+            # resumes at the next epoch, a preempt save restarts the
+            # interrupted one and skips its consumed steps
+            self.start_epoch = ckpt_util.epochs_completed(latest)
+            self._say(f"#### auto-resumed from {latest.name} (epoch "
                       f"{self.start_epoch}, step {self.training_steps})")
+
+    def _say(self, line: str) -> None:
+        if self._primary:
+            print(line)
+
+    def _prepare_model(self, restored: bool) -> None:
+        """Set up the unwrapped model before the layout wraps it (a
+        subclass's warm start); ``restored`` when a checkpoint will give
+        its weights."""
 
     # ------------------------------------------------------------------
     def state(self) -> Dict:
         """The training state as a host snapshot (model, optimizer,
-        step)."""
-        return ckpt_util.host_snapshot(self.model, self.optimizer,
-                                       self.training_steps)
+        step), in the single-device layout under any layout: every rank
+        calls it, the primary's holds the state."""
+        if self.layout is None:
+            return ckpt_util.host_snapshot(self.model, self.optimizer,
+                                           self.training_steps)
+        return {**multihost.full_state(self.model, self.optimizer),
+                "step": int(self.training_steps)}
 
     def _restore(self, state: Dict) -> None:
-        self.model.load_state_dict(state["state_dict"], strict=True)
-        if "optimizer" in state:
-            self.optimizer.load_state_dict(state["optimizer"])
+        if self.layout is None:
+            self.model.load_state_dict(state["state_dict"], strict=True)
+            if "optimizer" in state:
+                self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            multihost.load_full_state(self.model, self.optimizer, state)
         self.training_steps = int(state.get("step", 0))
 
-    def load_checkpoint(self, path: str) -> None:
-        """A full trainer checkpoint restores the model, the optimizer and
-        the step; any other ``.pth`` (a reference state_dict) loads its
-        shape-matching parameters (runner.py:124-132)."""
+    def _read_checkpoint(self, path: str) -> Optional[Dict]:
+        """``train.checkpoint``: a full trainer checkpoint is returned, to
+        restore the model, the optimizer and the step; any other ``.pth``
+        (a reference state_dict) loads its shape-matching parameters into
+        the unwrapped model now (runner.py:124-132)."""
         state = ckpt_util.restore_checkpoint(path)
         if isinstance(state, dict) and "optimizer" in state:
-            self._restore(state)
-            print(f"#### restored the full training state from {path}")
-            return
+            self._say(f"#### restored the full training state from {path}")
+            return state
         sd = state.get("state_dict", state) if isinstance(state, dict) \
             else state
-        ckpt_util.partial_restore(sd, self.model)
-        print(f"#### partial-restored params from {path}")
+        ckpt_util.partial_restore(sd, self.model, verbose=self._primary)
+        self._say(f"#### partial-restored params from {path}")
+        return None
 
     # ------------------------------------------------------------------
     def _transfer_dtype(self) -> Optional[torch.dtype]:
@@ -218,9 +332,13 @@ class Trainer:
                 return
 
     def _preemption_requested(self) -> bool:
-        return (self.cfg.train.graceful_preemption
-                and self._preempt_monitor is not None
-                and self._preempt_monitor.triggered())
+        """The SIGTERM flag; across ranks all-reduced, so that every rank
+        stops at the same step (a rank that left alone would strand the
+        others in a collective)."""
+        if not self.cfg.train.graceful_preemption:
+            return False
+        return multihost.any_flag(self._preempt_monitor is not None
+                                  and self._preempt_monitor.triggered())
 
     def train_one_epoch(self, epoch: int, skip_opt_steps: int = 0) -> None:
         cfg = self.cfg
@@ -258,7 +376,7 @@ class Trainer:
                 m["steps_per_sec"] = (i + 1 - start) / (
                     time.perf_counter() - t0)
                 self.writer.scalars(m, self.training_steps, prefix="train/")
-                print(f"[epoch {epoch + 1}/{self.num_epochs} step {i + 1}/"
+                self._say(f"[epoch {epoch + 1}/{self.num_epochs} step {i + 1}/"
                       f"{n_opt_steps}] loss {m['loss']:.5f} rmse "
                       f"{m['rmse_m']:.3f}m lr {m['lr']:.2e}")
             if self._preemption_requested():
@@ -284,7 +402,7 @@ class Trainer:
                 bsz = int(next(iter(dev.values())).shape[0])
                 valid = np.asarray(batch.get("valid", np.ones(bsz)),
                                    np.float64)
-                metrics = eval_step(self.cfg, self.model, dev)
+                metrics = eval_step(self.cfg, unwrap(self.model), dev)
                 for k, v in metrics.items():
                     v = v.double().cpu().numpy()
                     finite = np.isfinite(v)
@@ -329,39 +447,52 @@ class Trainer:
                     if epoch == self.start_epoch else 0)
             self.train_one_epoch(epoch, skip_opt_steps=skip)
             if self._preempted:
-                path = ckpt_util.save_preemption_checkpoint(
-                    self.run_dir, self.state(), epoch)
-                print(f"#### SIGTERM: saved preemption checkpoint to {path} "
-                      f"(step {self.training_steps}); rerun with auto-resume "
-                      "to continue")
+                state = self.state()
+                if self._primary:
+                    path = ckpt_util.save_preemption_checkpoint(
+                        self.run_dir, state, epoch)
+                    print(f"#### SIGTERM: saved preemption checkpoint to "
+                          f"{path} (step {self.training_steps}); rerun with "
+                          "auto-resume to continue")
+                multihost.sync()
                 break
             val = self.evaluate()
-            print(f"#### epoch {epoch + 1}: val loss {val['loss']:.5f} RMSE "
-                  f"{val.get('rmse_m', float('nan')):.3f} m")
-            if val["loss"] < best_eval:
-                best_eval = val["loss"]
+            val_loss = multihost.broadcast_value(val["loss"])
+            self._say(f"#### epoch {epoch + 1}: val loss {val_loss:.5f} "
+                      f"RMSE {val.get('rmse_m', float('nan')):.3f} m")
+            if val_loss < best_eval:
+                best_eval = val_loss
                 patience = 0
                 if cfg.train.save_model:
-                    if cfg.train.async_checkpoint:
-                        if self._async_saver is None:
-                            self._async_saver = ckpt_util.AsyncSaver()
-                        path = self._async_saver.save(
-                            self.run_dir, self.state(), epoch, best_eval)
-                    else:
-                        path = ckpt_util.save_checkpoint(
-                            self.run_dir, self.state(), epoch, best_eval)
-                    print(f"#### saved best checkpoint to {path}")
+                    self._save_best(epoch, best_eval)
             else:
                 patience += 1
             if patience >= cfg.train.early_stopping_thresh:
-                print("#### early stopping")
+                self._say("#### early stopping")
                 break
             if epoch + 1 >= stop_after:
                 # the reference skips the final low-lr epochs
-                print("#### stop_after reached")
+                self._say("#### stop_after reached")
                 break
         if self._async_saver is not None:
             self._async_saver.close()
             self._async_saver = None
         self.writer.close()
+        multihost.sync()
         return best_eval
+
+    def _save_best(self, epoch: int, best_eval: float) -> None:
+        """The best-validation checkpoint, gathered from every rank and
+        written by the primary."""
+        state = self.state()
+        if self._primary:
+            if self.cfg.train.async_checkpoint:
+                if self._async_saver is None:
+                    self._async_saver = ckpt_util.AsyncSaver()
+                path = self._async_saver.save(self.run_dir, state, epoch,
+                                              best_eval)
+            else:
+                path = ckpt_util.save_checkpoint(self.run_dir, state, epoch,
+                                                 best_eval)
+            print(f"#### saved best checkpoint to {path}")
+        multihost.sync()

@@ -4,7 +4,8 @@
 The package's own copy of ``camradepth_tpu/utils/logging.py``: every
 scalar lands in ``metrics.jsonl`` of the run directory, so a headless run
 keeps its record; OSErrors are tolerated as the reference tolerates them
-(runner.py:260-261).
+(runner.py:260-261). The other ranks of a multi-process run write through
+:class:`NullWriter`.
 """
 
 from __future__ import annotations
@@ -63,6 +64,21 @@ class MetricWriter:
                 self._tb = None
         except OSError:
             pass
+
+
+class NullWriter:
+    """The metric sink of a rank other than the primary: only the primary
+    writes the run directory's files."""
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def scalars(self, values: Dict[str, float], step: int,
+                prefix: str = "") -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def create_run_dir(output_dir, arch_name: str,

@@ -98,7 +98,20 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       and native in turns, and one thread's ms per frame of the load, the
       assembly and the wire encode; (l3) cli test and cli serve in bf16,
       native and numpy in turns: the reports' metrics and the served maps
-      equal, 34/5/53 launches per forward, frames/s.
+      equal, 34/5/53 launches per forward, frames/s;
+  (m) multi-device training: (m1) at world size 1 on the card (NCCL), one
+      bf16 optimizer step of base 416x800 (batch 2 x 3) single-device,
+      under DDP and under FSDP2 (both built through Trainer(layout=...))
+      from the same weights, microbatches and dropout generators: losses,
+      grad_norm and every parameter against the single-device step
+      (relative L2 1e-6), 34 + 34 / 5 + 5 / 53 + 53 launches per
+      microbatch, then step wall ms, device busy and peak memory of each
+      in turns; (m2) cli train --coordinator --num-processes 1 for 2 steps
+      on (g)'s corpus, its checkpoint served by load_engine; (m3) beside
+      (m2), on the host's CPUs with gloo, parallel/gradcheck.py's check of
+      2-rank DDP, 2-rank FSDP2 and 4-rank data 2 x fsdp 2 against the
+      single-process step (grad_parity, two steps with uneven valid-GT
+      counts and dropout, a supervised_seg step).
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -2669,6 +2682,287 @@ def phase_l(cfg, split, pth, tmp, counters, reset_counters):
           f"(l3) {time.perf_counter() - t2:.1f}")
 
 
+# ---------------------------------------------------------------- phase (m)
+# (m1): one bf16 optimizer step of base at 416x800 under DDP and FSDP2 at
+# world size 1 (NCCL) against the single-device step from the same weights,
+# microbatches and dropout generators: the same kernels on the same values,
+# so bit for bit is expected; the limit is relative L2 1e-6 per parameter
+# and rtol 1e-6 for the losses and grad_norm
+LAYOUT_REL = 1e-6
+# (m3): parallel/gradcheck.py's CPU check on gloo ranks, (data, fsdp) of
+# each group, held to tests/test_torch_parallel.py's limits
+GLOO_LAYOUTS = ((2, 1), (1, 2), (2, 2))
+GLOO_LIMITS = dict(loss_rel=1e-6, grad_rel=1e-5, params_rel=1e-5)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def full_params(model):
+    """name -> a copy of the whole fp32 parameter (gathered from an FSDP2
+    shard; no DDP prefix)."""
+    from torch.distributed.tensor import DTensor
+
+    from camradepth_tpu_torch.parallel.mesh import unwrap
+
+    return {n: (p.full_tensor() if isinstance(p, DTensor) else p)
+            .detach().clone() for n, p in unwrap(model).named_parameters()}
+
+
+def resident_bytes(model, opt) -> int:
+    """This rank's bytes of the parameters and the optimizer state."""
+    from camradepth_tpu_torch.train.diffgrad import _local
+
+    ts = [_local(p) for p in model.parameters()] + [
+        _local(v) for s in opt.state.values() for v in s.values()
+        if torch.is_tensor(v)]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def phase_m1(cfg, counters, reset_counters):
+    """One bf16 step (batch 2 x 3) single-device, DDP and FSDP2 (the
+    latter two built through Trainer(layout=...)) at world size 1: losses,
+    grad_norm and parameters against the single-device step, the kernels'
+    launches per microbatch, then step wall ms, device busy and peak
+    memory of each in turns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.parallel import multihost
+    from camradepth_tpu_torch.parallel.mesh import Layout
+    from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+    from camradepth_tpu_torch.train.step import train_step
+    from camradepth_tpu_torch.train.trainer import Trainer, step_generator
+
+    accum, lr, t = cfg.train.update_interval, 1e-5, cfg.train
+    t_start = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        dev = torch.device("cuda")
+        micro = [step_inputs(cfg, TRAIN_BATCH, 60 + j, "cuda")
+                 for j in range(accum)]
+        for mb in micro:
+            mb["features"] = mb["features"].to(torch.bfloat16)
+        model = create_model(cfg.model, device="cuda", seed=t.seed,
+                             train=True)
+        runs = {"single": (model, DiffGradNorm(
+            model.parameters(), lr=lr, betas=t.betas, eps=t.eps,
+            weight_decay=t.weight_decay))}
+        for kind in ("ddp", "fsdp"):
+            tr = Trainer(cfg, loaders={"train": [None] * accum},
+                         run_dir=f"{tmp.name}/{kind}", device="cuda",
+                         layout=Layout(1, 1, kind))
+            runs[kind] = (tr.model, tr.optimizer)
+
+        def step(kind, i):
+            model, opt = runs[kind]
+            gens = [step_generator(dev, t.seed, 0, i, j)
+                    for j in range(accum)]
+            return train_step(cfg, model, opt, micro, gens, lr)
+
+        want_launches = per_microbatch(cfg, accum, 0)
+        first = {}
+        for kind in runs:
+            torch.cuda.synchronize()
+            reset_counters()
+            metrics = step(kind, 0)
+            torch.cuda.synchronize()
+            launches = counters()
+            require(launches == want_launches, (kind, launches,
+                                                want_launches))
+            first[kind] = ({k: float(v) for k, v in metrics.items()},
+                           full_params(runs[kind][0]))
+        (wm, wp) = first["single"]
+        for kind in ("ddp", "fsdp"):
+            gm, gp = first[kind]
+            for k in ("loss", "loss_depth_final", "grad_norm"):
+                require(abs(gm[k] - wm[k]) <= LAYOUT_REL * abs(wm[k]),
+                        (kind, k, gm[k], wm[k]))
+            rel = {n: ((gp[n] - w).double().norm()
+                       / w.double().norm().clamp_min(1e-30)).item()
+                   for n, w in wp.items()}
+            worst = max(rel, key=rel.get)
+            same = sum(torch.equal(gp[n], w) for n, w in wp.items())
+            require(rel[worst] <= LAYOUT_REL, (kind, worst, rel[worst]))
+            print(f"(m1) {kind} at world size 1 vs single-device, one bf16 "
+                  f"step of base 416x800 (batch {TRAIN_BATCH} x {accum}): "
+                  f"loss {gm['loss']!r} vs {wm['loss']!r}, grad_norm "
+                  f"{gm['grad_norm']!r} vs {wm['grad_norm']!r}; parameters "
+                  f"bit for bit {same}/{len(wp)}, largest relative L2 "
+                  f"difference {rel[worst]:.3g} ({worst}; limit "
+                  f"{LAYOUT_REL}); launches {want_launches} (34 + 34, 5 + 5"
+                  f", 53 + 53 per microbatch)")
+        del first, wp
+        t_parity = time.perf_counter()
+        # in turns: wall ms and peak memory of a step, then one profiled
+        walls = {k: [] for k in runs}
+        peaks = {}
+        for i, kind in enumerate(("single", "ddp", "fsdp", "fsdp", "ddp",
+                                  "single")):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(kind, 1 + i)
+            torch.cuda.synchronize()
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+            peaks[kind] = (torch.cuda.max_memory_allocated() - before
+                           + resident_bytes(*runs[kind])) / 2**30
+        t_turns = time.perf_counter()
+        for i, kind in enumerate(runs):
+            # device activity only: the host's 80,000 launch records would
+            # cost more than the step
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(kind, 7 + i)
+                torch.cuda.synchronize()
+            kernels = device_kernels(prof)
+            busy = sum(e.self_device_time_total for e in kernels) / 1e3
+            wall = sum(walls[kind]) / len(walls[kind])
+            print(f"(m1) {kind}: step wall {wall:.2f} ms (mean of "
+                  f"{', '.join(f'{w:.2f}' for w in walls[kind])}, in turns), "
+                  f"device busy {busy:.2f} ms under the profiler "
+                  f"({sum(e.count for e in kernels)} kernel launches), idle "
+                  f"share {100 * (1 - busy / wall):.1f} %, peak memory "
+                  f"{peaks[kind]:.2f} GiB (its parameters and optimizer "
+                  f"state plus the step's peak above them)")
+        print(f"(m1) seconds: set-up and the three first steps "
+              f"{t_parity - t_start:.1f}, steps in turns "
+              f"{t_turns - t_parity:.1f}, profiled steps "
+              f"{time.perf_counter() - t_turns:.1f}")
+    finally:
+        multihost.shutdown()
+        tmp.cleanup()
+
+
+def phase_m2(cfg, split, counters, reset_counters):
+    """cli train --coordinator at world size 1 (NCCL) for 2 optimizer
+    steps on (g)'s corpus: finite losses, one checkpoint, served by
+    load_engine, and the process group left."""
+    from camradepth_tpu_torch.serving import load_engine
+
+    h, w = cfg.model.img_size
+    n_train, n_val, accum = 12, 4, 3
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = Path(tmp) / "run"
+        argv = ["train", "--coordinator", f"127.0.0.1:{free_port()}",
+                "--num-processes", "1", "--process-id", "0", "--preset",
+                "base", "--split", str(split), "--train-val-split",
+                f"{n_train},{n_val}", "--run-dir", str(run_dir),
+                "--save-model", "--batch-size", str(TRAIN_BATCH),
+                "--desired-batch-size", str(TRAIN_BATCH * accum),
+                "--num-epochs", "1", "--set", "train.log_every=1"]
+        reset_counters()
+        t0 = time.perf_counter()
+        rc, out = run_cli(argv)
+        wall = time.perf_counter() - t0
+        launches = counters()
+        require(rc == 0, (rc, out[-2000:]))
+        require(not torch.distributed.is_initialized(),
+                "cli train left its process group running")
+        steps = n_train // (TRAIN_BATCH * accum)
+        want = per_microbatch(cfg, steps * accum, -(-n_val // TRAIN_BATCH))
+        require(launches == want, (launches, want))
+        rows = [json.loads(line) for line in
+                (run_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["value"] for r in rows if r["tag"] == "train/loss"]
+        require(len(losses) == steps and all(np.isfinite(losses)), losses)
+        ckpts = sorted(run_dir.glob("ckpt_*"))
+        require(len(ckpts) == 1, ckpts)
+        engine = load_engine(cfg, str(ckpts[0]), batch_size=TRAIN_BATCH,
+                             device="cuda")
+        d = engine.infer_batch(np.random.default_rng(6).standard_normal(
+            (TRAIN_BATCH, h, w, cfg.model.input_channels),
+            dtype=np.float32))["depth"]
+        require(d.shape == (TRAIN_BATCH, h, w) and np.isfinite(d).all(),
+                d.shape)
+        print(f"(m2) cli train --coordinator (1 process, NCCL): {steps} "
+              f"optimizer steps + eval in {wall:.1f} s, losses "
+              f"{[round(v, 6) for v in losses]}, launches {launches}; "
+              f"{ckpts[0].name} served by load_engine: depth {d.min():.3f} "
+              f".. {d.max():.3f} m")
+
+
+def start_m3():
+    """Start parallel/gradcheck.py's check of each gloo layout, one CPU
+    process per rank (no card)."""
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for data, fsdp in GLOO_LAYOUTS:
+        n, port = data * fsdp, free_port()
+        for r in range(n):
+            procs.append(((data, fsdp, r), subprocess.Popen(
+                [sys.executable, "-m", "camradepth_tpu_torch.parallel."
+                 "gradcheck", "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", str(n), "--process-id", str(r),
+                 "--data", str(data), "--fsdp", str(fsdp)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    return procs, time.perf_counter()
+
+
+def finish_m3(procs, t0):
+    reports = {}
+    try:
+        for key, p in procs:
+            out, _ = p.communicate(timeout=900)
+            require(p.returncode == 0, (key, out[-3000:]))
+            line = [x for x in out.splitlines() if x.startswith("{")][-1]
+            reports[key] = json.loads(line)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    for data, fsdp in GLOO_LAYOUTS:
+        ranks = [reports[(data, fsdp, r)] for r in range(data * fsdp)]
+        for rep in ranks:
+            require(rep["grad_parity"]["ok"], rep["grad_parity"])
+            for case in ("step", "seg_step"):
+                for k, lim in GLOO_LIMITS.items():
+                    require(rep[case][k] <= lim, (data, fsdp, case, k,
+                                                  rep[case][k]))
+        for case in ("step", "seg_step"):
+            require(all(r[case]["loss"] == ranks[0][case]["loss"]
+                        and r[case]["grad_norm"] == ranks[0][case]
+                        ["grad_norm"] for r in ranks), (data, fsdp, case))
+        r0 = ranks[0]
+        print(f"(m3) gloo, {r0['layout']} ({data * fsdp} CPU processes): "
+              f"grad_parity max rel {r0['grad_parity']['max_rel_diff']:.3g}"
+              + "".join(
+                  f"; {c}: loss rel {r0[c]['loss_rel']:.3g}, gradient rel "
+                  f"L2 {r0[c]['grad_rel']:.3g}, parameters rel L2 "
+                  f"{r0[c]['params_rel']:.3g}, largest change "
+                  f"{r0[c]['param_max_change_lr']:.3g} lr"
+                  for c in ("step", "seg_step"))
+              + "; ranks bit for bit")
+    print(f"(m3) the three gloo groups ({sum(a * b for a, b in GLOO_LAYOUTS)}"
+          f" processes at once) took {wall:.1f} s of wall time. NCCL refuses "
+          "two ranks on one card, so a run of two or more ranks on cards "
+          "waits for a machine with more than one")
+
+
+def phase_m(cfg, split, all_counters, reset_counters):
+    """This slice's path: multi-device training."""
+    t0 = time.perf_counter()
+    phase_m1(cfg, all_counters, reset_counters)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    procs, t_m3 = start_m3()  # CPU processes beside (m2) on the card
+    phase_m2(cfg, split, all_counters, reset_counters)
+    t2 = time.perf_counter()
+    finish_m3(procs, t_m3)
+    print(f"(m) phase seconds: (m1) {t1 - t0:.1f}, (m2) {t2 - t1:.1f}, "
+          f"(m3, beside (m2)) {time.perf_counter() - t_m3:.1f}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
@@ -2730,12 +3024,15 @@ def main() -> None:
     phase_k(weights, reset_counters, counters)
     t10 = time.perf_counter()
     phase_l(cfg, split, pth, Path(corpus.name), counters, reset_counters)
-    corpus.cleanup()
     t11 = time.perf_counter()
+    phase_m(cfg, split, all_counters, reset_counters)
+    corpus.cleanup()
+    t12 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
-          f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}")
+          f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}, "
+          f"(m) {t12 - t11:.1f}")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

@@ -436,7 +436,9 @@ def test_cli_distill_refuses_in_one_line(corpus, tmp_path, capsys):
               "--device", "cpu"] + TINY_FLAGS
     for extra, match in (
             (["--teacher-checkpoint", str(path), "--data-parallel", "2"],
-             "item 10"),
+             "needs 2 ranks, have 1"),
+            (["--teacher-checkpoint", str(path), "--spatial-parallel", "2"],
+             "item 10b"),
             (["--teacher-checkpoint", str(orbax)],
              "camradepth_tpu.cli export --format pth"),
             # a parity checkpoint is no tpu_decoder teacher

@@ -36,6 +36,7 @@ Tolerances:
   tests/test_tpu_decoder_golden.py:76-79.
 """
 
+import concurrent.futures
 import dataclasses
 from pathlib import Path
 
@@ -335,15 +336,24 @@ def _outputs(out):
     return got
 
 
+# the (variant, dtype) cases of test_whole_model_matches_jax
+WHOLE_MODEL_CASES = ([("base", "float32"), ("base", "bfloat16")]
+                     + [(v, "float32") for v in VARIANTS]
+                     + [(v, "bfloat16") for v in BF16_VARIANTS])
+
+
 @pytest.fixture(scope="module")
 def whole_model_jax(small_jax_model):
-    """For each variant (base and VARIANTS): its input, its parameters and,
-    compiled and run only when a test asks for them, the JAX model's
-    outputs in a dtype with, in fp32, the logits of its guidance heads."""
+    """For each variant (base and VARIANTS): its input, its parameters and
+    the JAX model's outputs in a dtype with, in fp32, the logits of its
+    guidance heads. Every case's forward is traced when the fixture is
+    made and compiled on a pool of threads (XLA's compiler leaves the
+    interpreter lock), so the compiles overlap each other and the tests;
+    each case runs when a test first asks for it."""
     jmodel, base_params = small_jax_model
     inputs = {"base": _rand((2, 64, 128, 7), 15),
               "variant": _rand((2, *VARIANT_HW, 7), 15)}
-    params, outputs = {"base": base_params}, {}
+    params, outputs, compiled = {"base": base_params}, {}, {}
 
     def cfg_of(name, **kw):
         if name == "base":
@@ -361,25 +371,36 @@ def whole_model_jax(small_jax_model):
                                      seed=VARIANT_SEED, deterministic=True)
         return params[name]
 
+    def heads_of(name, dtype):
+        return dtype == "float32" and name != "base"
+
+    def forward(name, dtype):
+        model = JaxCamRaDepth(cfg_of(name, compute_dtype=dtype))
+        if heads_of(name, dtype):
+            return lambda p, v: model.apply(
+                {"params": p}, v, capture_intermediates=lambda mod, _: (
+                    mod.name in GUIDANCE_HEADS))
+        return lambda p, v: model.apply({"params": p}, v)
+
     def jax_outputs(name, dtype):
         if (name, dtype) not in outputs:
-            model = JaxCamRaDepth(cfg_of(name, compute_dtype=dtype))
+            out = compiled[name, dtype].result()(params_of(name),
+                                                 jnp.asarray(x_of(name)))
             heads = {}
-            if dtype == "float32" and name != "base":
-                out, inter = jax.jit(lambda p, v: model.apply(
-                    {"params": p}, v, capture_intermediates=lambda mod, _: (
-                        mod.name in GUIDANCE_HEADS)))(
-                            params_of(name), jnp.asarray(x_of(name)))
+            if heads_of(name, dtype):
+                out, inter = out
                 heads = {k: np.asarray(v["__call__"][0]) for k, v in
                          inter.get("intermediates", {}).items()}
-            else:
-                out = jax.jit(lambda p, v: model.apply({"params": p}, v))(
-                    params_of(name), jnp.asarray(x_of(name)))
             outputs[name, dtype] = ({k: np.asarray(v) for k, v in
                                      _outputs(out).items()}, heads)
         return outputs[name, dtype]
 
-    return x_of, params_of, jax_outputs
+    with concurrent.futures.ThreadPoolExecutor(len(WHOLE_MODEL_CASES)) as pool:
+        for name, dtype in WHOLE_MODEL_CASES:
+            compiled[name, dtype] = pool.submit(jax.jit(
+                forward(name, dtype)).lower(
+                    params_of(name), jnp.asarray(x_of(name))).compile)
+        yield x_of, params_of, jax_outputs
 
 
 def _agreement(a, b):
@@ -414,11 +435,8 @@ def _assert_no_near_ties(got, want, cfg):
 
 
 @pytest.mark.parametrize("variant,dtype", [
-    pytest.param("base", "float32", id="float32"),
-    pytest.param("base", "bfloat16", id="bfloat16"),
-] + [pytest.param(v, "float32", id=f"{v}-float32") for v in VARIANTS]
-  + [pytest.param(v, "bfloat16", id=f"{v}-bfloat16")
-     for v in BF16_VARIANTS])
+    pytest.param(v, d, id=d if v == "base" else f"{v}-{d}")
+    for v, d in WHOLE_MODEL_CASES])
 def test_whole_model_matches_jax(whole_model_jax, variant, dtype):
     x_of, params_of, jax_outputs = whole_model_jax
     want, want_heads = jax_outputs(variant, dtype)

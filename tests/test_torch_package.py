@@ -62,7 +62,10 @@ def test_sources_import_no_jax():
     assert not bad, bad
     assert len(MODULES) >= 11
     assert {"camradepth_tpu_torch.serving_http",
-            "camradepth_tpu_torch.interop.export"} <= set(MODULES)
+            "camradepth_tpu_torch.interop.export",
+            "camradepth_tpu_torch.parallel.multihost",
+            "camradepth_tpu_torch.parallel.mesh",
+            "camradepth_tpu_torch.parallel.gradcheck"} <= set(MODULES)
 
 
 def test_entry_points_default_to_cuda():
@@ -119,9 +122,10 @@ def test_seg_presets_build_with_either_decoder(name, tpu_decoder):
 
 
 def test_config_maps_field_for_field_from_jax_config():
+    from camradepth_tpu.config import MeshConfig as JaxMeshConfig
     from camradepth_tpu.config import preset as jax_preset
     from camradepth_tpu.config import tiny_test_config as jax_tiny
-    from camradepth_tpu_torch.config import TrainConfig, preset
+    from camradepth_tpu_torch.config import MeshConfig, TrainConfig, preset
     from camradepth_tpu_torch.config import tiny_test_config
 
     for name in ("base", "base_rgb", "sup_unsup_seg"):
@@ -134,6 +138,12 @@ def test_config_maps_field_for_field_from_jax_config():
         for f in TrainConfig.__dataclass_fields__:
             assert getattr(tt, f) == getattr(jt, f), (name, f)
         assert tt.update_interval == jt.update_interval == 3
+        # the mesh section, field for field
+        assert ([f for f in MeshConfig.__dataclass_fields__]
+                == [f for f in JaxMeshConfig.__dataclass_fields__])
+        jm, tm = jax_preset(name).mesh, preset(name).mesh
+        for f in MeshConfig.__dataclass_fields__:
+            assert getattr(tm, f) == getattr(jm, f), (name, f)
     for f in TrainConfig.__dataclass_fields__:
         assert getattr(tiny_test_config().train, f) == getattr(
             jax_tiny().train, f), f

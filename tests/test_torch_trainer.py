@@ -15,6 +15,7 @@ import json
 import os
 import signal
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -201,6 +202,36 @@ def test_checkpoint_names_follow_the_jax_rules(tmp_path):
         tmp_path / "ckpt_preempt_epoch_2_step_14.pth") == 2
 
 
+def test_run_dir_holds_the_jax_run_snapshot(corpus, tmp_path):
+    """The run directory gets what the JAX trainer's ``_snapshot_run``
+    writes (``camradepth_tpu/train/trainer.py:166-199``): project_files/
+    with the resolved config, the git revision and the copied model and
+    train sources, named as JAX names them (read from its source)."""
+    import ast
+
+    import camradepth_tpu
+
+    src = Path(camradepth_tpu.__file__).parent / "train" / "trainer.py"
+    fn = next(n for n in ast.walk(ast.parse(src.read_text()))
+              if isinstance(n, ast.FunctionDef) and n.name == "_snapshot_run")
+    copied = next(ast.literal_eval(n.iter) for n in ast.walk(fn)
+                  if isinstance(n, ast.For) and isinstance(n.iter, ast.Tuple))
+    want = {"config.json", "GIT_REVISION"} | {
+        rel.replace("/", "__") for rel in copied}
+    cfg = _cfg(corpus, tmp_path)
+    tr = Trainer(cfg, run_dir=str(tmp_path / "run"), device="cpu")
+    snap = tr.run_dir / "project_files"
+    assert {p.name for p in snap.iterdir()} == want
+    assert json.loads((snap / "config.json").read_text()) == json.loads(
+        json.dumps(dataclasses.asdict(cfg), default=str))
+    pkg = Path(cli.__file__).parent
+    for rel in copied:
+        assert (snap / rel.replace("/", "__")).read_bytes() == (
+            pkg / rel).read_bytes(), rel
+    # a commit id, or empty outside a git checkout (as JAX writes it)
+    assert len((snap / "GIT_REVISION").read_text().strip()) in (0, 40)
+
+
 def test_async_saver_writes_the_snapshot_it_was_given(tmp_path):
     model = torch.nn.Linear(3, 2)
     state = ckpt_util.host_snapshot(model, None, 7)
@@ -225,6 +256,8 @@ def test_cli_train_on_the_cpu(corpus, tmp_path, capsys):
                    "--desired-batch-size", "4", "--num-epochs", "1",
                    "--set", "data.num_workers=2"] + TINY_FLAGS)
     assert rc == 0
+    # no multi-device flag: one device, no process group
+    assert not torch.distributed.is_initialized()
     out = capsys.readouterr().out
     assert "best val loss:" in out
     best = ckpt_util.best_checkpoint(run_dir)
@@ -275,13 +308,29 @@ def test_cli_train_then_serve_the_seg_tpu_decoder_variant(corpus, tmp_path,
     assert "IoU:" in capsys.readouterr().out
 
 
+# why each multi-device flag is refused in a one-process run: a layout
+# needs as many ranks as it covers; spatial parallel is ROADMAP item 10b;
+# --multihost reads torchrun's environment; --coordinator needs the rest
+_MULTI_DEVICE_REFUSALS = {
+    "--data-parallel": "needs 2 ranks, have 1",
+    "--fsdp": "needs 2 ranks, have 1",
+    "--spatial-parallel": "item 10b",
+    "--multihost": "torchrun",
+    "--coordinator": "requires --num-processes and --process-id",
+}
+
+
 @pytest.mark.parametrize("flag", [["--data-parallel", "2"], ["--fsdp", "2"],
                                   ["--spatial-parallel", "2"],
                                   ["--multihost"],
                                   ["--coordinator", "localhost:1234"]])
-def test_cli_train_refuses_multi_device_flags(flag, capsys):
+def test_cli_train_refuses_multi_device_flags(flag, capsys, monkeypatch):
+    for key in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(key, raising=False)
     assert cli.main(["train", "--device", "cpu"] + flag) == 2
-    assert "item 10" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert _MULTI_DEVICE_REFUSALS[flag[0]] in err, err
+    assert err.startswith("error:") and err.count("\n") == 1, err
 
 
 def test_train_overrides_and_epoch_count():
@@ -292,7 +341,10 @@ def test_train_overrides_and_epoch_count():
     assert cfg.train.update_interval == 2
     assert cfg.train.checkpoint == "w.pth"
     assert num_epochs_for_steps(cfg) == 10  # 100 steps * 3 / 30 frames
-    with pytest.raises(ValueError, match="item 10"):
-        apply_overrides(cfg, ["mesh.data_parallel=2"])
+    assert apply_overrides(cfg, ["mesh.data_parallel=2",
+                                 "mesh.fsdp_parallel=2"]).mesh.fsdp_parallel \
+        == 2
+    with pytest.raises(ValueError, match="item 10b"):
+        apply_overrides(cfg, ["mesh.spatial_parallel=2"])
     with pytest.raises(ValueError, match="multiple of batch_size"):
         apply_overrides(cfg, ["train.desired_batch_size=7"])
