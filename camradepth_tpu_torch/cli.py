@@ -15,6 +15,9 @@
       --checkpoint W.pth|A.pt2 --out served/ [--limit N] [--device cuda|cpu]
   python -m camradepth_tpu_torch.cli serve --preset base \\
       --checkpoint W.pth|A.pt2 --http-port 8080 [--http-host H]
+  torchrun --nproc-per-node N -m camradepth_tpu_torch.cli serve \\
+      --multihost --data-parallel D --spatial-parallel S --checkpoint W.pth \\
+      --split S.npy|--http-port 8080 ...
   python -m camradepth_tpu_torch.cli export --preset base --checkpoint W.pth \\
       --out A.pt2 --format artifact [--serve-batch 8] [--dynamic-batch] \\
       [--artifact-dtype float32|bfloat16] [--device cuda|cpu]
@@ -23,8 +26,8 @@
 
 The counterparts of ``camradepth_tpu.cli``'s ``cmd_train``
 (``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
-``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``) without its
-mesh flags, ``cmd_export`` (``:514-565``) and ``cmd_validate_data``
+``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``), ``cmd_export``
+(``:514-565``) and ``cmd_validate_data``
 (``:930-958``), with the same flags where they apply. ``train`` runs
 :class:`train.trainer.Trainer` and prints the best validation loss; its
 checkpoints are ``.pth`` files that ``test``, ``serve`` and ``export``
@@ -48,6 +51,12 @@ the same stats line, or with ``--http-port`` serves the engine over HTTP
 artifact (``interop/export.py``: ``torch.export`` with the weights
 inside, the kernels as operators) that ``test`` and ``serve`` take in
 place of a checkpoint; ``--format pth`` writes the reference layout.
+``serve`` also runs on a mesh of processes, one device each:
+``--data-parallel`` shards each batch's frames, ``--spatial-parallel``
+each frame's rows (``parallel/spatial.py``), started as ``train`` starts
+its processes (ranks that outnumber the host's cards share them over
+gloo, as NCCL refuses two ranks on one card); rank 0 alone writes the
+maps or runs the HTTP front end.
 ``validate-data`` checks a prepared dataset's artifacts against the
 loader's frame contract (``data/split.validate_split``) and touches no
 device.
@@ -63,10 +72,9 @@ artifacts, which take dense batches.
 or for ``test`` and ``serve`` a serving artifact. An Orbax checkpoint of
 the JAX package reaches the port as a ``.pth`` written by
 ``camradepth_tpu.cli export --format pth``. One flag is new: ``--device``
-(default ``cuda``, which raises without a card). The options of slices
-still to come are refused with the ROADMAP item that brings them:
-``--spatial-parallel`` everywhere, and mesh serving (``--data-parallel``
-on ``test`` and ``serve``), queue 1 item 10b.
+(default ``cuda``, which raises without a card). ``--spatial-parallel`` on
+``train`` and ``distill`` is refused with the ROADMAP item that brings it
+(queue 1 item 10c).
 """
 
 from __future__ import annotations
@@ -84,12 +92,6 @@ class UserError(ValueError):
     """A CLI user error (bad flag, value or combination): printed as one
     line and exit code 2."""
 
-
-# Options of the JAX CLI that the port does not take yet, with the ROADMAP
-# queue-1 item that brings each.
-_ITEM_10B = "item 10b (spatial parallel and mesh serving)"
-_LATER_FLAGS = {"data_parallel": _ITEM_10B,
-                "spatial_parallel": _ITEM_10B}
 
 # How an Orbax checkpoint of the JAX package reaches the port.
 _ORBAX_ROUTE = ("an Orbax checkpoint of the JAX package comes across as a "
@@ -243,14 +245,16 @@ def _build_train_config(args):
 
 
 def _start_processes(args) -> bool:
-    """Join the process group of a multi-process ``train`` or ``distill``
-    (``camradepth_tpu/cli.py:313-330``), before anything touches the
-    device; True when this call started it."""
+    """Join the process group of a multi-process ``train``, ``distill`` or
+    ``serve`` (``camradepth_tpu/cli.py:313-330``), before anything touches
+    the device; True when this call started it."""
     from camradepth_tpu_torch.parallel import multihost
+    from camradepth_tpu_torch.parallel.mesh import ITEM_10C
 
-    if args.spatial_parallel:
-        raise UserError(f"--spatial-parallel is not ported yet (ROADMAP "
-                        f"queue 1 {_ITEM_10B})")
+    if args.command != "serve" and args.spatial_parallel:
+        raise UserError(f"--spatial-parallel is not ported to training yet "
+                        f"(ROADMAP queue 1 {ITEM_10C}); it serves (cli serve "
+                        "--spatial-parallel)")
     if not (args.multihost or args.coordinator):
         if args.num_processes is not None or args.process_id is not None:
             raise UserError("--num-processes and --process-id need "
@@ -376,12 +380,6 @@ def cmd_distill(args) -> int:
 
 
 def _check_args(args, artifacts: bool = True) -> None:
-    for flag, item in _LATER_FLAGS.items():
-        if getattr(args, flag, None) is not None:
-            raise UserError(
-                f"--{flag.replace('_', '-')} is not ported yet (ROADMAP "
-                f"queue 1 {item})"
-            )
     if not args.checkpoint:
         raise UserError(f"--checkpoint required for {args.command}")
     from camradepth_tpu_torch.interop.export import is_artifact
@@ -429,11 +427,23 @@ def _load_artifact(cfg, path: str, device):
         raise UserError(str(e)) from e
 
 
-def _refuse_mesh(cfg) -> None:
-    """Mesh serving (a ``mesh.*`` layout on test or serve) is item 10b."""
-    if cfg.mesh.data_parallel > 1 or cfg.mesh.fsdp_parallel > 1:
-        raise UserError(f"mesh serving is not ported yet (ROADMAP queue 1 "
-                        f"{_ITEM_10B}): test and serve run on one device")
+def _refuse_mesh(cfg, args) -> None:
+    """A ``mesh.*`` layout is training's: ``serve`` takes its layout from
+    ``--data-parallel`` and ``--spatial-parallel``, and ``test`` scores on
+    one process, as the JAX package's ``cli test`` does."""
+    m = cfg.mesh
+    flags = [f for f in ("data_parallel", "spatial_parallel")
+             if args.command == "test" and getattr(args, f) is not None]
+    if flags or m.data_parallel > 1 or m.fsdp_parallel > 1 \
+            or m.spatial_parallel > 1:
+        where = ("serve takes its layout from --data-parallel and "
+                 "--spatial-parallel" if args.command == "serve" else
+                 "test scores on one process, as the JAX package's cli test "
+                 "does; serve on a mesh with cli serve --data-parallel / "
+                 "--spatial-parallel")
+        what = (f"--{flags[0].replace('_', '-')}" if flags
+                else "a mesh.* layout (training's)")
+        raise UserError(f"{what} is not taken here: {where}")
 
 
 def _refuse_wire_on(cfg) -> None:
@@ -456,7 +466,7 @@ def cmd_test(args) -> int:
 
     _check_args(args)
     cfg = _build_config(args)
-    _refuse_mesh(cfg)
+    _refuse_mesh(cfg, args)
     dev = resolve_device(args.device)
     if is_artifact(args.checkpoint):
         # score the program that will serve, on dense batches
@@ -535,23 +545,49 @@ def http_wire_plan(cfg):
 
 
 def cmd_serve(args) -> int:
-    from camradepth_tpu_torch.data.pipeline import make_loaders
-    from camradepth_tpu_torch.data.wire import is_wire_micro
+    """Serve over a split or HTTP, on one process or on a mesh of them
+    (``--data-parallel`` x ``--spatial-parallel`` ranks); the process
+    group this command starts is left at the end, whatever was raised."""
     from camradepth_tpu_torch.interop.export import is_artifact
-    from camradepth_tpu_torch.serving import SERVE_WIRE_KEYS, load_engine
+    from camradepth_tpu_torch.parallel import multihost
+    from camradepth_tpu_torch.parallel.mesh import serving_layout
 
     _check_args(args)
     cfg = _build_config(args)
-    _refuse_mesh(cfg)
+    _refuse_mesh(cfg, args)
     artifact = is_artifact(args.checkpoint)
+    # every refusal of the layout comes before any process starts
+    layout = serving_layout(args.data_parallel or 1,
+                            args.spatial_parallel or 1,
+                            cfg.model.img_size[0], args.serve_batch,
+                            artifact, cfg.data.wire_format)
+    started = _start_processes(args)
+    try:
+        return _serve(args, cfg, artifact, layout)
+    finally:
+        if started:
+            multihost.shutdown()
+
+
+def _serve(args, cfg, artifact: bool, layout) -> int:
+    from camradepth_tpu_torch.data.pipeline import make_loaders
+    from camradepth_tpu_torch.data.wire import is_wire_micro
+    from camradepth_tpu_torch.parallel import multihost
+    from camradepth_tpu_torch.parallel.mesh import serving_mesh
+    from camradepth_tpu_torch.serving import SERVE_WIRE_KEYS, load_engine
+
+    mesh = serving_mesh(layout, cfg.model.img_size[0])
+    primary = multihost.is_primary()
     http = args.http_port is not None
     if artifact:
         _refuse_wire_on(cfg)
     # compact wire requests (camradepth_tpu/cli.py:703-783), decoded on
     # the device by the engine: over HTTP with data.wire_radar_cap's
     # shape, over a split with the loaders' plan ("auto" stays dense where
-    # the codec does not suit the data: the plan is None)
-    wire = cfg.data.wire_format != "off" and not artifact
+    # the codec does not suit the data: the plan is None, and under
+    # spatial sharding, whose decode would not be frame-local)
+    wire = (cfg.data.wire_format != "off" and not artifact
+            and (layout is None or layout.sp == 1))
     loader = wire_plan = None
     if http:
         wire_plan = http_wire_plan(cfg) if wire else None
@@ -565,7 +601,7 @@ def cmd_serve(args) -> int:
     try:
         engine = load_engine(cfg, args.checkpoint,
                              batch_size=args.serve_batch, device=args.device,
-                             wire_plan=wire_plan)
+                             wire_plan=wire_plan, mesh=mesh)
     except RuntimeError as e:
         _refuse_layout(cfg, args.checkpoint, e)
         raise
@@ -591,7 +627,8 @@ def cmd_serve(args) -> int:
         if loader is None:
             raise UserError("the split has no test/val frames")
     out_dir = Path(args.out)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if primary:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     def frames():
         # whole batches pass through infer_stream without a restack; the
@@ -607,11 +644,13 @@ def cmd_serve(args) -> int:
             yield feats if valid.all() else feats[valid]
 
     n = 0
+    # on a mesh every rank streams the same frames; rank 0 gets the maps
     for i, res in enumerate(engine.infer_stream(frames(),
                                                 inflight=args.inflight)):
-        np.save(out_dir / f"{i:05d}_depth.npy", res["depth"])
-        if "seg" in res:
-            np.save(out_dir / f"{i:05d}_seg.npy", res["seg"])
+        if primary:
+            np.save(out_dir / f"{i:05d}_depth.npy", res["depth"])
+            if "seg" in res:
+                np.save(out_dir / f"{i:05d}_seg.npy", res["seg"])
         n += 1
         if args.limit and n >= args.limit:
             break
@@ -619,7 +658,8 @@ def cmd_serve(args) -> int:
     # "frames" = frames written (--limit can stop mid-batch); the engine's
     # own count stays available as frames_processed
     stats["frames_processed"] = stats.pop("frames", 0.0)
-    print(json.dumps({**stats, "frames": n}))
+    if primary:
+        print(json.dumps({**stats, "frames": n}))
     return 0
 
 
@@ -750,6 +790,11 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                         "optimizer state sharded)")
     p.add_argument("--spatial-parallel", type=int, default=None,
                    help=argparse.SUPPRESS)
+    _add_process_flags(p)
+
+
+def _add_process_flags(p: argparse.ArgumentParser) -> None:
+    """The flags that start a multi-process run (train, distill, serve)."""
     p.add_argument("--multihost", action="store_true",
                    help="join the process group from torchrun's "
                         "environment (one process per device)")
@@ -806,6 +851,7 @@ def main(argv=None) -> int:
                    help="also write the metric dict as JSON")
     _add_common_flags(p)
     p.add_argument("--test-batch", type=int, default=8)
+    # the JAX package's cli test takes no layout: refused in one line
     for flag in ("--data-parallel", "--spatial-parallel"):
         p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
     p.set_defaults(fn=cmd_test)
@@ -827,8 +873,15 @@ def main(argv=None) -> int:
     p.add_argument("--http-batch-window-ms", type=float, default=3.0,
                    help="how long a batch waits for concurrent requests to "
                         "join it (0: serve each request alone)")
-    for flag in ("--data-parallel", "--spatial-parallel"):
-        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="shard each serving batch's frames over this many "
+                        "ranks (one process each; --serve-batch must divide)")
+    p.add_argument("--spatial-parallel", type=int, default=None,
+                   help="shard each frame's rows over this many ranks (halo "
+                        "rows, cross-rank GroupNorm sums; at most the "
+                        "image's rows at /32, 13 at 416x800); combinable with "
+                        "--data-parallel, rank = data x sp + sp index")
+    _add_process_flags(p)
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("export",

@@ -226,8 +226,10 @@ class MeshConfig:
     ranks, parameters and optimizer state over ``fsdp`` (FSDP2), replicated
     over ``data`` (DDP when ``fsdp`` is 1). ``data_parallel = -1`` sizes the
     data axis from the world size and the batch (``parallel/mesh.py``).
-    Spatial parallelism is not ported yet: ``spatial_parallel > 1``
-    raises."""
+    ``spatial_parallel`` is taken as the JAX package takes it; serving on a
+    mesh takes its layout from ``cli serve``'s flags
+    (``parallel/mesh.serving_layout``), and training with sp > 1 is refused
+    by ``parallel/mesh.training_layout`` (ROADMAP queue 1 item 10c)."""
 
     data_axis: str = "data"
     fsdp_axis: str = "fsdp"
@@ -235,12 +237,6 @@ class MeshConfig:
     data_parallel: int = -1
     fsdp_parallel: int = 1
     spatial_parallel: int = 1
-
-    def __post_init__(self):
-        if self.spatial_parallel > 1:
-            raise ConfigError(
-                "mesh.spatial_parallel is not ported yet (ROADMAP queue 1 "
-                "item 10b (spatial parallel and mesh serving))")
 
 
 @dataclass(frozen=True)

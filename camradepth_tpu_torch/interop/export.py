@@ -276,12 +276,14 @@ def artifact_engine(
     decode_depth: Optional[bool] = None,
     batch_size: Optional[int] = None,
     device="cuda",
+    mesh=None,
 ):
     """A ``DepthEngine`` on ``device`` serving an artifact. ``cfg`` is for
     bookkeeping only (the artifact is self-contained); when given, its
     geometry must be the header's, checked before the program is read.
     ``batch_size`` is the serving batch of a dynamic-batch artifact
-    (default 8); a fixed one serves its own."""
+    (default 8); a fixed one serves its own. The engine refuses a ``mesh``
+    (an artifact's partitioning is fixed at export time)."""
     from camradepth_tpu_torch.serving import DepthEngine
 
     header, _ = read_header(path)
@@ -302,4 +304,4 @@ def artifact_engine(
     return DepthEngine(cfg, None,
                        batch_size=header["batch_size"] or batch_size or 8,
                        device=device, decode_depth=header["decode_depth"],
-                       forward_fn=call)
+                       forward_fn=call, mesh=mesh)

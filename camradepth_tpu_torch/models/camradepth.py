@@ -64,6 +64,7 @@ from camradepth_tpu_torch.models.layers import (
     seg_block,
     space_to_depth,
 )
+from camradepth_tpu_torch.parallel import spatial
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -171,12 +172,22 @@ class CamRaDepth(nn.Module):
         return sup, uns, (torch.cat(maps, dim=-1) if maps else None)
 
     def forward(self, x: torch.Tensor) -> dict:
+        """The outputs of the module docstring for input ``x`` [B, H, W,
+        C_in]. Under a spatial shard (``parallel/spatial.sharded``) ``x``
+        holds this rank's input rows and every output this rank's rows of
+        it; every variant runs so."""
         cfg = self.cfg
         if x.shape[-1] != cfg.input_channels:
             raise ValueError(
                 f"expected {cfg.input_channels} input channels (NHWC), got "
                 f"{x.shape[-1]}"
             )
+        shard = spatial.active()
+        if shard is not None and shard.factor(x.shape[1]) != spatial.ROW_UNIT:
+            raise ValueError(
+                f"rank {shard.index} of the sp group owns "
+                f"{shard.counts[shard.index] * spatial.ROW_UNIT} input rows, "
+                f"got {x.shape[1]}")
         x = x.to(self.dtype)
         lay = self.dest_encoder(x)
         enc1 = self.from_encoder_1(lay[3])

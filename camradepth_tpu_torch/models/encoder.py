@@ -3,7 +3,9 @@
 Counterpart of ``camradepth_tpu/models/encoder.py``: four stages of
 OverlapPatchEmbed (stride 4, 2, 2, 2) and Blocks with max-pool attention
 and a depthwise-conv MLP. Tokens are [B, N, C] and feature maps NHWC, so a
-stage's tokens are a free reshape of its feature map.
+stage's tokens are a free reshape of its feature map. Under a spatial
+shard (``parallel/spatial.py``) a stage's tokens are this rank's rows of
+its feature map, and ``hw`` their local height and width.
 
 Reference symbol map (simplified_attention.py):
   Mlp                   -> MixFFN                (:11-43)
@@ -31,6 +33,7 @@ from camradepth_tpu_torch.models.layers import (
     remat,
 )
 from camradepth_tpu_torch.ops.attention import maxpool_attention
+from camradepth_tpu_torch.parallel.spatial import all_gather_rows, sharded
 
 
 class DWConv(nn.Module):
@@ -84,13 +87,19 @@ class MaxPoolAttention(nn.Module):
             self.norm = group_norm_divisor(dim, divisor)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+        """Under a spatial shard ``x`` holds this rank's tokens: the sr-conv
+        runs on the rank's rows (its windows cover whole /32 rows), its
+        output is gathered whole on every rank, and the norm and the keys
+        are computed on all M tokens; the queries stay local."""
         b, n, c = x.shape
         q = self.q(x)
         if self.sr_ratio > 1:
-            xs = self.sr(x.reshape(b, hw[0], hw[1], c))
-            x_kv = self.norm(xs.reshape(b, -1, c))
+            xs = all_gather_rows(self.sr(x.reshape(b, hw[0], hw[1], c)))
+            with sharded(None):  # the gathered tokens are whole
+                x_kv = self.norm(xs.reshape(b, -1, c))
         else:
-            x_kv = x
+            x_kv = all_gather_rows(x.reshape(b, hw[0], hw[1], c))
+            x_kv = x_kv.reshape(b, -1, c)
         k = self.k(x_kv)
         out = maxpool_attention(x, q, k, self.num_heads, self.scale)
         return self.proj(out)

@@ -9,6 +9,13 @@ copy, and its output is permuted back.
 
 Parameter names and shapes are the reference ``state_dict`` layout, so a
 reference checkpoint loads with ``load_state_dict(strict=True)``.
+
+Under a spatial shard (``parallel/spatial.py``) a tensor holds this rank's
+rows. A convolution taller than one row takes its neighbours' halo rows
+and pads zeros in H only at the image's own edges; the decoder's bicubic
+x2 runs on the rank's rows plus 2 halo rows each side and drops the output
+rows of each cut side's halo, so the kernel's edge replication acts only
+at the image's edges. Everything else is row-local.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from camradepth_tpu_torch.ops.gelu import gelu_for_dtype
 from camradepth_tpu_torch.ops.groupnorm import group_norm
 from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
+from camradepth_tpu_torch.parallel import spatial
 
 
 def cast_to(p: Optional[torch.Tensor], dtype: torch.dtype):
@@ -43,16 +51,38 @@ class Conv2d(nn.Conv2d):
     bf16, as cuDNN and XLA do: oneDNN's bf16 path loses precision on the
     strided 8x8 sr-conv (errors of several units on outputs of order 1)."""
 
+    def _rows(self, x: torch.Tensor):
+        """``x`` with the rows this rank's output rows read (under a
+        spatial shard: the halo of a kernel taller than one row, zeros past
+        the image's edges) and the H padding left to the convolution."""
+        if spatial.active() is None:
+            return x, self.padding
+        kh, sh, ph = self.kernel_size[0], self.stride[0], self.padding[0]
+        top, bottom = ph, kh - ph - sh
+        if bottom < 0 or x.shape[1] % sh:
+            raise ValueError(f"a {kh}-row kernel of stride {sh} and padding "
+                             f"{ph} cannot run on {x.shape[1]} sharded rows")
+        x, n_top, n_bottom = spatial.halo(x, top, bottom)
+        if n_top < top or n_bottom < bottom:
+            x = F.pad(x, (0, 0, 0, 0, top - n_top, bottom - n_bottom))
+        return x, (0, self.padding[1])
+
     def product(self, x: torch.Tensor) -> torch.Tensor:
         """The convolution without its bias, in the dtype of ``x``."""
+        x, padding = self._rows(x)
         xc = x.permute(0, 3, 1, 2)
         weight = cast_to(self.weight, x.dtype)
         if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-            y = self._conv_forward(xc.float(), weight.float(), None)
-            y = y.to(x.dtype)
+            y = self._conv(xc.float(), weight.float(), padding).to(x.dtype)
         else:
-            y = self._conv_forward(xc, weight, None)
+            y = self._conv(xc, weight, padding)
         return y.permute(0, 2, 3, 1)
+
+    def _conv(self, xc, weight, padding):
+        if padding == self.padding:
+            return self._conv_forward(xc, weight, None)
+        return F.conv2d(xc, weight, None, self.stride, padding,
+                        self.dilation, self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.product(x)
@@ -219,6 +249,19 @@ class ShortResBlock(nn.Module):
         return self.layers[-1](x)
 
 
+def upsample_rows_x2(x: torch.Tensor) -> torch.Tensor:
+    """:func:`upsample_bicubic_x2` of this rank's rows: under a spatial
+    shard the rows go in with up to 2 halo rows each side (each output row
+    reads 2 input rows beyond its own), and the 2 output rows of each
+    attached halo row are dropped. Where fewer are attached, the tensor
+    ends at the image's edge, whose replication the kernel does itself."""
+    xh, n_top, n_bottom = spatial.halo(x, 2, 2)
+    y = upsample_bicubic_x2(xh)
+    if n_top or n_bottom:
+        y = y[:, 2 * n_top:2 * (n_top + x.shape[1])]
+    return y
+
+
 class Decoder(nn.Module):
     """Bicubic x2 upsample -> optional skip concat -> ShortResBlock
     (utils.py:231-257). The upsample is the port's kernel wrapper."""
@@ -231,7 +274,7 @@ class Decoder(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 skip: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = upsample_bicubic_x2(x)
+        x = upsample_rows_x2(x)
         if self.has_skip:
             if skip is None:
                 raise ValueError("this decoder stage needs a skip input")

@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from camradepth_tpu_torch.ops import _build
+from camradepth_tpu_torch.parallel import spatial
 
 
 def _dots(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -328,7 +329,16 @@ def maxpool_attention(
       k: [B, M, C] projected keys.
     Returns:
       [B, N, C] = s[b, n] * vbar[b, c] in ``x.dtype``.
+
+    Under a spatial shard (``parallel/spatial.py``) x and q are this rank's
+    tokens and k holds all M keys: vbar is the whole image's token mean,
+    the fp32 sum across the sp group over the whole token count.
     """
     s = maxpool_attention_scores(q, k, num_heads, scale)
-    vbar = x.float().mean(dim=1, keepdim=True)  # [B, 1, C]
+    shard = spatial.active()
+    if shard is None:
+        vbar = x.float().mean(dim=1, keepdim=True)  # [B, 1, C]
+    else:
+        vbar = (spatial.sum_across(x.float().sum(dim=1, keepdim=True))
+                / shard.global_count(x.shape[1]))
     return (s[:, :, None] * vbar).to(x.dtype)

@@ -5,11 +5,18 @@ per (batch, group) accumulated in fp32, the normalization and the affine
 folded per (batch, channel) into one fp32 scale and shift, those cast to
 the input dtype and applied as a multiply and an add. ``F.group_norm`` is not
 used: in bf16 it normalizes in another order and rounds differently.
+
+Under a spatial shard (``parallel/spatial.py``) each rank holds some rows:
+Σx and Σx² per (batch, group) are summed in fp32 across the sp group and
+divided by the whole image's element count, as GSPMD's cross-shard sums
+do; the scale, shift and rounding are then the same.
 """
 
 from __future__ import annotations
 
 import torch
+
+from camradepth_tpu_torch.parallel import spatial
 
 
 def group_norm(
@@ -25,8 +32,15 @@ def group_norm(
     b, c = shape[0], shape[-1]
     gsize = c // num_groups
     xg = x.reshape(b, -1, num_groups, gsize)
-    mean = xg.mean(dim=(1, 3), dtype=torch.float32)  # [B, G]
-    mean2 = xg.float().square().mean(dim=(1, 3))
+    shard = spatial.active()
+    if shard is None:
+        mean = xg.mean(dim=(1, 3), dtype=torch.float32)  # [B, G]
+        mean2 = xg.float().square().mean(dim=(1, 3))
+    else:
+        sums = spatial.sum_across(torch.stack([
+            xg.sum(dim=(1, 3), dtype=torch.float32),
+            xg.float().square().sum(dim=(1, 3))]))
+        mean, mean2 = sums / shard.global_count(xg.shape[1] * gsize)
     var = (mean2 - mean * mean).clamp_min(0.0)
     inv = torch.reciprocal(torch.sqrt(var + eps))
     inv_c = inv.repeat_interleave(gsize, dim=-1)  # [B, C]

@@ -1,8 +1,14 @@
-"""The training layout: its size, its device mesh and the model's wrapper.
+"""The training and serving layouts: their sizes, the device mesh and the
+model's wrapper.
 
-Counterpart of ``camradepth_tpu/parallel/mesh.py`` and of the trainer's
-``_auto_mesh`` (``camradepth_tpu/train/trainer.py:100-163``). Each rank
-holds one device. The global microbatch (``train.batch_size`` rows) shards
+Counterpart of ``camradepth_tpu/parallel/mesh.py``, of the trainer's
+``_auto_mesh`` (``camradepth_tpu/train/trainer.py:100-163``) and of
+``serving_mesh`` (``camradepth_tpu/serving.py:382-410``). Each rank holds
+one device. Serving (:class:`ServingMesh`) shards a batch's rows over
+``data`` and the image's rows over ``sp`` (``parallel/spatial.py``).
+Training takes no ``sp`` axis yet (ROADMAP queue 1 item 10c).
+
+In training the global microbatch (``train.batch_size`` rows) shards
 jointly over ``data`` x ``fsdp`` ranks, as the JAX package's batch does
 (``camradepth_tpu/parallel/mesh.py:95-100``), so the layout covers every
 rank:
@@ -33,6 +39,10 @@ import torch
 
 from camradepth_tpu_torch.config import ConfigError
 from camradepth_tpu_torch.parallel import multihost
+
+
+# the ROADMAP item that brings an sp axis to training
+ITEM_10C = "item 10c (spatially sharded training)"
 
 
 @dataclass(frozen=True)
@@ -115,6 +125,11 @@ def training_layout(cfg, world: Optional[int] = None) -> Optional[Layout]:
     each rank holds its share of the batch."""
     world = multihost.process_count() if world is None else world
     m = cfg.mesh
+    if m.spatial_parallel > 1:
+        raise ConfigError(
+            "spatially sharded training is not ported yet (ROADMAP queue 1 "
+            f"{ITEM_10C}); spatial_parallel serves (cli serve "
+            "--spatial-parallel)")
     shape = mesh_shape(m.data_parallel, m.fsdp_parallel, m.spatial_parallel,
                        world, cfg.train.batch_size, cfg.model.img_size[0])
     if shape is None:
@@ -214,3 +229,117 @@ def batch_shard(model) -> Optional[multihost.BatchShard]:
     """The rows of the global batch that ``model`` (wrapped or not) runs
     on this rank; None for one unwrapped device."""
     return unwrap(model).batch_shard
+
+
+@dataclass(frozen=True)
+class ServingLayout:
+    """``data`` x ``sp`` ranks of a serving mesh, rank = d * sp + s (the
+    JAX package's ``(data, sp)`` mesh, row-major): each ``data`` group of
+    ranks serves its rows of a batch, each ``sp`` rank its rows of the
+    image."""
+
+    data: int = 1
+    sp: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.data * self.sp
+
+
+def serving_layout(data_parallel: int, spatial_parallel: int,
+                   img_height: int, batch_size: int, artifact: bool = False,
+                   wire_format: str = "off") -> Optional[ServingLayout]:
+    """The serving layout of ``data_parallel`` x ``spatial_parallel``
+    ranks, or None for one process: every refusal of a serving layout, made
+    before any process starts. They are the JAX package's
+    (``camradepth_tpu/cli.py:679-723``, ``serving_mesh``): a batch that the
+    ``data`` groups do not share evenly, an image height that sp does not
+    divide, an artifact on a mesh and ``wire_format=on`` with sp; and the
+    port's own limit on sp (``spatial.partition``). :func:`serving_mesh`
+    then checks the layout against the process group."""
+    from camradepth_tpu_torch.parallel.spatial import partition
+
+    data, sp = max(1, data_parallel), max(1, spatial_parallel)
+    if data > 1 and batch_size % data:
+        raise ConfigError(f"--serve-batch {batch_size} is not divisible by "
+                          f"--data-parallel {data}")
+    if sp > 1:
+        if img_height % sp:
+            raise ConfigError(f"image height {img_height} is not divisible "
+                              f"by --spatial-parallel {sp}")
+        partition(img_height, sp)
+    if artifact and data * sp > 1:
+        raise ConfigError(
+            "serving artifacts cannot be served with --data-parallel/"
+            "--spatial-parallel: their partitioning is fixed at export "
+            "time; serve the .pth checkpoint instead")
+    if sp > 1 and wire_format == "on":
+        raise ConfigError(
+            "data.wire_format=on is incompatible with artifact / spatially-"
+            "sharded serving: use wire auto or off")
+    return None if data * sp == 1 else ServingLayout(data, sp)
+
+
+def serving_mesh(layout: Optional[ServingLayout],
+                 img_height: int) -> Optional[ServingMesh]:
+    """This rank's :class:`ServingMesh` of ``layout`` (None: one process),
+    which must cover every rank of the process group."""
+    world = multihost.process_count()
+    if layout is None:
+        if world > 1:
+            raise ConfigError(
+                f"{world} processes need a serving layout over all of them: "
+                "size --data-parallel x --spatial-parallel to the ranks")
+        return None
+    if layout.size != world:
+        raise ConfigError(
+            f"serving layout {layout.data}x{layout.sp} needs {layout.size} "
+            f"ranks, have {world}: start one process per rank (torchrun "
+            "--nproc-per-node N, or --coordinator/--num-processes/"
+            "--process-id)")
+    return ServingMesh(layout, img_height)
+
+
+class ServingMesh:
+    """This rank's place in a serving layout: its share of a batch, its
+    rows of the image (``rows``, a ``spatial.RowShard``; None when sp is 1)
+    and the gather of the maps to rank 0. Every rank of the process group
+    builds it (the sub-groups are collective)."""
+
+    def __init__(self, layout: ServingLayout, img_height: int):
+        from camradepth_tpu_torch.parallel.spatial import RowShard, partition
+
+        self.layout = layout
+        self.data_index, self.sp_index = divmod(multihost.process_index(),
+                                                layout.sp)
+        sp_group, _ = multihost.grid_groups(layout.data, layout.sp)
+        self.rows = None
+        if layout.sp > 1:
+            self.rows = RowShard(partition(img_height, layout.sp),
+                                 self.sp_index, sp_group)
+
+    def batch_rows(self, batch_size: int) -> slice:
+        """This rank's rows of a batch of ``batch_size``."""
+        per = batch_size // self.layout.data
+        return slice(self.data_index * per, (self.data_index + 1) * per)
+
+    def gather(self, t: torch.Tensor) -> Optional[torch.Tensor]:
+        """The whole [B, H, ...] batch on rank 0 (on the host) from every
+        rank's [B / data, h, ...] piece; None on the other ranks."""
+        import torch.distributed as dist
+
+        from camradepth_tpu_torch.parallel.spatial import join_rows, pad_rows
+
+        sizes = ([t.shape[1]] if self.rows is None
+                 else self.rows.level_sizes(t.shape[1]))
+        piece = pad_rows(t.contiguous().to(multihost.collective_device()),
+                         max(sizes))
+        primary = multihost.is_primary()
+        parts = ([torch.empty_like(piece) for _ in range(self.layout.size)]
+                 if primary else None)
+        dist.gather(piece, parts, dst=0)
+        if not primary:
+            return None
+        sp = self.layout.sp
+        return torch.cat([join_rows(parts[d * sp:(d + 1) * sp], sizes)
+                          for d in range(self.layout.data)], dim=0).cpu()

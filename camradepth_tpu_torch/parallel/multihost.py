@@ -7,7 +7,11 @@ the same program on one device; ``torch.distributed`` joins them:
 - :func:`initialize` starts the process group before any model is built,
   from an explicit coordinator (``tcp://``) or from ``torchrun``'s
   environment (``env://``). The backend is NCCL for a CUDA device and gloo
-  for the CPU. Nothing falls back: a failed start raises.
+  for the CPU, or gloo on cards that the host's ranks outnumber: ranks
+  that share a card, which NCCL refuses. Nothing falls back: a failed
+  start raises.
+- :func:`grid_groups` builds the row and column sub-groups of a rank grid
+  (a serving mesh's ``sp`` and ``data`` groups).
 - :func:`process_rows` is this rank's contiguous rows of a global batch;
   the trainer's loaders take the strided rows instead
   (``data/pipeline.make_loaders(process_shard=...)``).
@@ -56,7 +60,10 @@ def initialize(coordinator: Optional[str] = None,
     group starts from ``torchrun``'s environment (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``). On a CUDA device
     each rank takes the card ``LOCAL_RANK`` names (else its rank modulo
-    the cards present) and the backend is NCCL; on the CPU it is gloo."""
+    the cards present) and the backend is NCCL, unless the ranks on this
+    host (:func:`_local_ranks`) outnumber its cards: ranks that share a
+    card, which NCCL refuses, start gloo, whose collectives go through the
+    host (:func:`collective_device`). On the CPU it is gloo."""
     if dist.is_initialized():
         raise RuntimeError("the process group is already initialized")
     if coordinator is None:
@@ -83,11 +90,26 @@ def initialize(coordinator: Optional[str] = None,
     dev = torch.device(device)
     backend = "gloo"
     if dev.type == "cuda":
-        backend = "nccl"
+        cards = torch.cuda.device_count()
         local = dev.index if dev.index is not None else int(
-            os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
+            os.environ.get("LOCAL_RANK", rank % cards))
         torch.cuda.set_device(local)
+        if _local_ranks(coordinator, num_processes) <= cards:
+            backend = "nccl"
     dist.init_process_group(backend, init_method=init, **kw)
+
+
+def _local_ranks(coordinator: Optional[str],
+                 num_processes: Optional[int]) -> int:
+    """The ranks on this host: ``LOCAL_WORLD_SIZE`` (torchrun sets it),
+    else all ``num_processes`` when the coordinator is a loopback address,
+    else one."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
+    host = (coordinator or "").rsplit(":", 1)[0].strip("[]")
+    if host in ("127.0.0.1", "localhost", "::1"):
+        return int(num_processes or 1)
+    return 1
 
 
 def shutdown() -> None:
@@ -124,6 +146,27 @@ def process_rows(n_rows: int) -> range:
             f"{n_rows} rows do not divide evenly over {pc} processes")
     per = n_rows // pc
     return range(pi * per, (pi + 1) * per)
+
+
+def grid_groups(rows: int, cols: int):
+    """The sub-groups of a ``rows`` x ``cols`` grid of the process group's
+    ranks, rank = row * cols + col (row-major, as the JAX package lays out
+    its ``(data, sp)`` mesh): (this rank's row, ``cols`` ranks; this rank's
+    column, ``rows`` ranks). Every rank builds every group, in one order."""
+    if rows * cols != process_count():
+        raise ValueError(f"a {rows}x{cols} grid needs {rows * cols} ranks, "
+                         f"the process group has {process_count()}")
+    rank = process_index()
+    mine = [None, None]
+    for r in range(rows):
+        g = dist.new_group([r * cols + c for c in range(cols)])
+        if rank // cols == r:
+            mine[0] = g
+    for c in range(cols):
+        g = dist.new_group([r * cols + c for r in range(rows)])
+        if rank % cols == c:
+            mine[1] = g
+    return mine[0], mine[1]
 
 
 def collective_device() -> torch.device:

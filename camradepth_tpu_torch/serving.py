@@ -19,10 +19,14 @@ Counterpart of the dense path of ``camradepth_tpu/serving.py``:
   (``:59-95``, ``:141-183``);
 - with ``forward_fn``, the engine serves a prebuilt forward, the
   ``torch.export`` serving artifact of ``interop/export.py``
-  (``:99-176``, ``load_engine`` ``:428-442``).
-
-The mesh arguments of the JAX engine are not ported yet (ROADMAP queue 1
-item 10b).
+  (``:99-176``, ``load_engine`` ``:428-442``);
+- with ``mesh`` (a ``parallel/mesh.ServingMesh``), the engine serves on a
+  ``data`` x ``sp`` layout of ranks, one per process (``:99-177``): every
+  rank is handed the same batch, each ``data`` group takes its rows of it
+  and each ``sp`` rank its rows of the image (``parallel/spatial.py``), and
+  the maps are gathered to rank 0, whose results are the whole batch's;
+  the other ranks' results are empty. Every rank calls the engine in the
+  same order (``serving_http.follow`` does it for a server).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from camradepth_tpu_torch.config import ExperimentConfig
 from camradepth_tpu_torch.data import wire as wire_codec
 from camradepth_tpu_torch.interop.flax_convert import load_reference_checkpoint
 from camradepth_tpu_torch.models.camradepth import create_model
+from camradepth_tpu_torch.parallel import spatial
 
 
 class ServingForward(torch.nn.Module):
@@ -139,6 +144,7 @@ class DepthEngine:
         wire_plan=None,
         decode_depth: bool = True,
         forward_fn=None,
+        mesh=None,
     ):
         """Serve ``model`` (a port ``CamRaDepth``, moved to ``device``) at
         a fixed ``batch_size``, depth in metres, or with ``decode_depth``
@@ -148,7 +154,10 @@ class DepthEngine:
         model's forward with a prebuilt ``fwd(x) -> {depth, seg}`` on
         ``device`` (a serving artifact, whose weights and ``decode_depth``
         are baked in; ``model`` may then be None); it takes no wire plan,
-        as an artifact bakes a dense input signature. Raises when
+        as an artifact bakes a dense input signature. ``mesh`` serves on a
+        layout of ranks (module docstring); it takes no artifact, whose
+        partitioning is fixed at export time, and a wire plan only without
+        spatial sharding, as the wire decode is frame-local. Raises when
         ``device`` is CUDA and no card is there."""
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -167,6 +176,22 @@ class DepthEngine:
                 raise ValueError(
                     f"wire plan carries 3+{wire_plan.n_radar_ch} channels "
                     f"but the model expects {cfg.model.input_channels}")
+        if mesh is not None:
+            if forward_fn is not None:
+                raise ValueError(
+                    "forward_fn (deployment artifact) and mesh are mutually "
+                    "exclusive: an artifact's partitioning is fixed at export "
+                    "time")
+            if wire_plan is not None and mesh.rows is not None:
+                raise ValueError(
+                    "wire_plan cannot be combined with spatial sharding: the "
+                    "on-device scatter decode is frame-local; use batch "
+                    "(data) sharding only")
+            if batch_size % mesh.layout.data:
+                raise ValueError(
+                    f"batch {batch_size} is not divisible by data_parallel "
+                    f"{mesh.layout.data}")
+        self.mesh = mesh
         self.model = None if model is None else model.to(self.device).eval()
         if forward_fn is not None:
             self._fwd = forward_fn
@@ -177,6 +202,14 @@ class DepthEngine:
                                                   decode_depth)
         else:
             self._fwd = make_serving_forward(cfg, self.model, decode_depth)
+        if mesh is not None and mesh.rows is not None:
+            whole = self._fwd
+
+            def rows_fwd(x):
+                with spatial.sharded(mesh.rows):
+                    return whole(x)
+
+            self._fwd = rows_fwd
         self.frames_served = 0
         self.batches_served = 0
         self._warmed = False
@@ -196,7 +229,8 @@ class DepthEngine:
     def warmup(self) -> None:
         """One forward on zeros, outside the serving timers; on the card
         it also builds the kernels."""
-        self._fwd(self._to_device(self._warm_input()))["depth"].cpu()
+        self._fwd(self._to_device(self._share(self._warm_input())))[
+            "depth"].cpu()
         self._warmed = True
 
     def _copy(self, a: np.ndarray) -> torch.Tensor:
@@ -204,6 +238,18 @@ class DepthEngine:
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
         return x
+
+    def _share(self, features: Item) -> Item:
+        """This rank's rows of a whole batch: its ``data`` rows, and of
+        each frame its ``sp`` rows."""
+        if self.mesh is None:
+            return features
+        b = self.mesh.batch_rows(self.batch_size)
+        if isinstance(features, dict):
+            return {k: v[b] for k, v in features.items()}
+        if self.mesh.rows is None:
+            return features[b]
+        return features[b, self.mesh.rows.rows(features.shape[1])]
 
     def _to_device(self, features: Item):
         """A dense stack as the fp32 input of the forward, a wire
@@ -245,7 +291,7 @@ class DepthEngine:
         if self._t_start is None:
             self._t_start = time.perf_counter()
         t0 = time.perf_counter()
-        out = self._fwd(self._to_device(features))
+        out = self._fwd(self._to_device(self._share(features)))
         return out, n, t0
 
     def _materialize(self, handle) -> Dict[str, np.ndarray]:
@@ -253,9 +299,14 @@ class DepthEngine:
         the tail padding. The recorded batch time spans dispatch to
         materialization."""
         out, n, t0 = handle
-        result = {"depth": out["depth"][:n].cpu().numpy()}
-        if out["seg"] is not None:
-            result["seg"] = out["seg"][:n].cpu().numpy()
+        if self.mesh is not None:
+            out = {k: None if v is None else self.mesh.gather(v)
+                   for k, v in out.items()}
+        result = {}
+        if out["depth"] is not None:  # None off rank 0 of a mesh
+            result["depth"] = out["depth"][:n].cpu().numpy()
+            if out["seg"] is not None:
+                result["seg"] = out["seg"][:n].cpu().numpy()
         self._batch_times.append(time.perf_counter() - t0)
         self.frames_served += n
         self.batches_served += 1
@@ -318,8 +369,9 @@ class DepthEngine:
         pending: deque = deque()
 
         def drain_one():
-            out = self._materialize(pending.popleft())
-            for i in range(out["depth"].shape[0]):
+            handle = pending.popleft()
+            out = self._materialize(handle)
+            for i in range(handle[1]):
                 yield {k: v[i] for k, v in out.items()}
 
         while True:
@@ -372,11 +424,14 @@ def load_engine(
     batch_size: int = 8,
     device="cuda",
     wire_plan=None,
+    mesh=None,
 ) -> DepthEngine:
     """A warmed-up engine serving a reference ``.pth`` checkpoint, dense or
     (with ``wire_plan``) over compact wire requests, or a serving artifact
     of ``cli export --format artifact`` (``interop/export.py``), dense
-    only: its input signature is fixed at export time."""
+    only: its input signature is fixed at export time. ``mesh`` (a
+    ``parallel/mesh.ServingMesh``) serves the checkpoint on a layout of
+    ranks; every rank calls this."""
     from camradepth_tpu_torch.interop.export import (
         artifact_engine,
         is_artifact,
@@ -389,11 +444,11 @@ def load_engine(
                 "serving artifacts bake a dense input signature: wire "
                 "serving needs a .pth checkpoint")
         engine = artifact_engine(checkpoint, cfg, batch_size=batch_size,
-                                 device=dev)
+                                 device=dev, mesh=mesh)
     else:
         state = load_reference_checkpoint(checkpoint)
         model = create_model(cfg.model, device=dev, state_dict=state)
         engine = DepthEngine(cfg, model, batch_size=batch_size, device=dev,
-                             wire_plan=wire_plan)
+                             wire_plan=wire_plan, mesh=mesh)
     engine.warmup()
     return engine

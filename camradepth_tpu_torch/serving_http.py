@@ -28,6 +28,11 @@ batch window of 0 a lock serializes the handlers' device calls instead.
 The engine's forward enters ``torch.inference_mode`` itself, in whichever
 thread calls it. The ThreadingHTTPServer keeps I/O (request reads,
 response writes) concurrent.
+
+An engine on a serving mesh (``DepthEngine(mesh=...)``, one process per
+rank) is served by rank 0 alone, through :class:`MeshLeader`: each batch
+it serves (a coalesced round of the aggregator) is first broadcast to the
+other ranks, which :func:`follow` it until a stop message.
 """
 
 from __future__ import annotations
@@ -147,6 +152,53 @@ class BatchAggregator:
         for r in leftover:  # unblock anything still queued
             r["error"] = RuntimeError("server shutting down")
             r["event"].set()
+
+
+def _broadcast(message=None):
+    """Rank 0's ``message`` on every rank of the process group."""
+    import torch.distributed as dist
+
+    box = [message]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class MeshLeader:
+    """Rank 0's engine on a serving mesh, as the front end calls it: each
+    batch (and a warm-up) is broadcast to the other ranks before rank 0
+    runs it, so that every rank runs the same forward; :meth:`stop` ends
+    the other ranks' :func:`follow`. Other attributes are the engine's."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def warmup(self) -> None:
+        if not self.engine._warmed:
+            _broadcast(("warmup", None))
+            self.engine.warmup()
+
+    def infer_batch(self, features):
+        _broadcast(("batch", features))
+        return self.engine.infer_batch(features)
+
+    def stop(self) -> None:
+        _broadcast(("stop", None))
+
+
+def follow(engine) -> None:
+    """A rank other than 0 of a serving mesh: run each batch rank 0's
+    :class:`MeshLeader` broadcasts, until its stop message."""
+    while True:
+        kind, features = _broadcast()
+        if kind == "stop":
+            return
+        if kind == "warmup":
+            engine.warmup()
+        else:
+            engine.infer_batch(features)
 
 
 def make_handler(engine, cfg, aggregator: Optional[BatchAggregator] = None):
@@ -332,7 +384,25 @@ def start_server(engine, cfg, host: str = "0.0.0.0", port: int = 8080,
 
 def serve_forever(engine, cfg, host: str, port: int,
                   batch_window_ms: float = 3.0) -> None:
-    """Blocking CLI entry: serve until SIGINT, then print final stats."""
+    """Blocking CLI entry: serve until SIGINT, then print final stats. On
+    a serving mesh rank 0 serves through a :class:`MeshLeader` and stops
+    the other ranks at the end; they follow it."""
+    from camradepth_tpu_torch.parallel import multihost
+
+    if getattr(engine, "mesh", None) is not None:
+        if not multihost.is_primary():
+            follow(engine)
+            return
+        leader = MeshLeader(engine)
+        try:
+            _serve_until_interrupted(leader, cfg, host, port, batch_window_ms)
+        finally:
+            leader.stop()
+        return
+    _serve_until_interrupted(engine, cfg, host, port, batch_window_ms)
+
+
+def _serve_until_interrupted(engine, cfg, host, port, batch_window_ms):
     srv, t = start_server(engine, cfg, host, port,
                           batch_window_ms=batch_window_ms)
     print(json.dumps({

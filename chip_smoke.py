@@ -111,7 +111,29 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       (m2), on the host's CPUs with gloo, parallel/gradcheck.py's check of
       2-rank DDP, 2-rank FSDP2 and 4-rank data 2 x fsdp 2 against the
       single-process step (grad_parity, two steps with uneven valid-GT
-      counts and dropout, a supervised_seg step).
+      counts and dropout, a supervised_seg step);
+  (n) spatial parallel and mesh serving, on two ranks that share the one
+      card over gloo (NCCL refuses two ranks on one card), after (m3)'s
+      processes end: (n1) the fp32 golden forward with the image's rows
+      sharded over sp = 2 (TF32 off), the gathered maps against the
+      416x800 golden's limits and within rtol 1e-4 of the single-process
+      fp32 forward, 34 + 5 launches per rank, then fp32 batch-8 engines
+      (load_engine on a mesh) with the frames' rows over sp and with the
+      batch over data, each within the same limit of the single-process
+      fp32 engine; (n2) a bf16 batch-8 engine on
+      them: within the bf16 serving limit of the fp32 forward, its mean and
+      max difference from the single-process bf16 engine (beside the
+      single-process batch-4 engine's from the batch-8 one), 34 / 5 / 53
+      launches per rank per forward, each kernel's every call on its shard
+      shapes against its plain version, and the single-frame latency (two
+      ranks sharing one card: not a scaling figure); (n4) 8 concurrent
+      POSTs to an HTTP server on rank 0 (the other rank following it), each
+      answer = infer_batch of its frame, bit for bit; (n3) cli serve
+      --spatial-parallel 2 and --data-parallel 2 on (g)'s corpus against
+      (g)'s single-process maps. `python3 chip_smoke.py --phase n` runs
+      (a), (c) and (n) alone, with (d)'s engine and (g)'s corpus made
+      again; tools/port_spatial_nccl.py runs (n) over NCCL on several
+      cards.
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -637,8 +659,7 @@ def phase_e(engine, frames, stream_stats, counters, reset_counters,
         engine.model(x)
         torch.cuda.synchronize()
         reset_counters()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             engine.model(x)
             torch.cuda.synchronize()
@@ -664,18 +685,35 @@ def phase_e(engine, frames, stream_stats, counters, reset_counters,
               f" time), x{sum(e.count for e in sel)}")
 
 
+@dataclasses.dataclass
+class DeviceKernel:
+    """A device kernel's launches in a profile, summed by name (the fields
+    the profiler's own averages name so)."""
+
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0  # microseconds
+
+
 def device_kernels(prof):
     """The profile's device kernels, summed by name, largest first. A
     user annotation (such as the optimizer's ``Optimizer.step#...`` range)
     also shows on the device timeline, spanning the kernels inside it; it
     is not a kernel and is left out, so the sum is the device's busy
-    time."""
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
-    kernels.sort(key=lambda e: -e.self_device_time_total)
-    return kernels
+    time. Read from the profile's raw events: ``prof.key_averages()``
+    first builds a Python object for every event and their tree (18 s for
+    200,000 events on an 8-core x86 host), longer than a profiled training
+    step itself takes."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation()
+                or e.name().startswith(("Optimizer.", "ProfilerStep"))):
+            continue
+        k = by_name.setdefault(e.name(), DeviceKernel(e.name()))
+        k.count += 1
+        k.self_device_time_total += e.duration_ns() / 1e3
+    return sorted(by_name.values(), key=lambda k: -k.self_device_time_total)
 
 
 def bf16_ulps(got, want) -> float:
@@ -1420,8 +1458,7 @@ def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(2)
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
@@ -1588,8 +1625,7 @@ def forward_busy(model, x):
     with torch.inference_mode():
         model(x)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             model(x)
             torch.cuda.synchronize()
     kernels = device_kernels(prof)
@@ -2963,10 +2999,491 @@ def phase_m(cfg, split, all_counters, reset_counters):
           f"(m3, beside (m2)) {time.perf_counter() - t_m3:.1f}")
 
 
+# ---------------------------------------------------------------- phase (n)
+# (n1): the fp32 forward sharded over sp = 2 ranks against the single-process
+# fp32 forward, TF32 off: GroupNorm's and the token mean's fp32 sums run in
+# another order across the ranks. rtol 1e-4, atol 1e-4 of the map's largest
+# magnitude (the depth heads' outputs cross zero); the fp32 engines on a
+# mesh, depth in metres, alike
+SP_FP32_RTOL = 1e-4
+# the ranks of (n): two on the one card, over gloo
+SP_RANKS = 2
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """{kernel: [its inputs at each call]} of the three forward kernels
+    during the enclosed forward, recorded where the model calls their
+    wrappers (the wrappers themselves, which count their launches, are
+    left as they are)."""
+    from camradepth_tpu_torch.models import encoder, layers
+
+    calls = {"attention": [], "bicubic": [], "gelu": []}
+    saved = {(mod, name): getattr(mod, name) for mod, name in (
+        (encoder, "maxpool_attention"), (layers, "upsample_bicubic_x2"),
+        (layers, "gelu_for_dtype"), (encoder, "gelu_for_dtype"))}
+
+    def attention(x, q, k, num_heads, scale):
+        calls["attention"].append((q, k, num_heads, scale))
+        return saved[encoder, "maxpool_attention"](x, q, k, num_heads, scale)
+
+    def bicubic(x):
+        calls["bicubic"].append((x,))
+        return saved[layers, "upsample_bicubic_x2"](x)
+
+    def gelu(x):
+        if x.dtype == torch.bfloat16:  # the kernel's dtype
+            calls["gelu"].append((x,))
+        return saved[layers, "gelu_for_dtype"](x)
+
+    for (mod, name), fn in zip(saved, (attention, bicubic, gelu, gelu)):
+        setattr(mod, name, fn)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def shard_kernels_vs_plain(calls):
+    """Each recorded call's kernel against its plain version on the same
+    shard-shaped inputs: {kernel: (calls, max abs error, shapes)}; the
+    bicubic and GELU kernels bit for bit, the attention within
+    ATTN_TOL."""
+    from camradepth_tpu_torch.ops.attention import (
+        maxpool_attention_scores,
+        maxpool_attention_scores_reference,
+    )
+    from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_reference
+    from camradepth_tpu_torch.ops.resize import (
+        upsample_bicubic_x2,
+        upsample_bicubic_x2_reference,
+    )
+
+    out = {}
+    with torch.inference_mode():
+        for key, kernel, plain in (
+                ("attention", maxpool_attention_scores,
+                 maxpool_attention_scores_reference),
+                ("bicubic", upsample_bicubic_x2,
+                 upsample_bicubic_x2_reference),
+                ("gelu", gelu_bf16, gelu_bf16_reference)):
+            err, shapes = 0.0, set()
+            for args in calls[key]:
+                got, want = kernel(*args), plain(*args)
+                if key == "attention":
+                    torch.testing.assert_close(got, want, **ATTN_TOL)
+                else:
+                    require(same_bits(got, want), (key, args[0].shape))
+                err = max(err, (got.float() - want.float()).abs().max()
+                          .item())
+                shapes.add(tuple(args[0].shape))
+            out[key] = (len(calls[key]), err, sorted(shapes))
+    torch.cuda.synchronize()
+    return out
+
+
+def n_rank(argv):
+    """One rank of phase (n) (``chip_smoke.py --rank-n RANK WORLD PORT
+    CLI_PORT TMP SPLIT PTH``): (n1) the fp32 golden forward on sp ranks,
+    then fp32 batch-8 engines (``load_engine(mesh=...)``) with the frames'
+    rows over sp and with the batch over data, (n2) a bf16 batch-8 engine
+    on sp (launches, each kernel on its shard shapes against its plain
+    version, single-frame latency), (n4) an HTTP server on rank 0 with the
+    others following it, then (n3) `cli serve --spatial-parallel` and
+    `--data-parallel` over (g)'s corpus. Rank 0 writes the gathered maps;
+    every rank its report."""
+    import threading
+
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.interop.golden import golden_input
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.parallel import multihost, spatial
+    from camradepth_tpu_torch.parallel.mesh import ServingLayout, ServingMesh
+    from camradepth_tpu_torch.serving import DepthEngine, load_engine
+    from camradepth_tpu_torch.serving_http import (
+        MeshLeader,
+        follow,
+        start_server,
+    )
+
+    rank, world = int(argv[0]), int(argv[1])
+    port, cli_ports = int(argv[2]), [int(v) for v in argv[3].split(",")]
+    tmp, split, pth = Path(argv[4]), argv[5], argv[6]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset("base")
+    h = cfg.model.img_size[0]
+    report, seconds = {}, {}
+    t0 = time.perf_counter()
+    # gloo when the ranks outnumber the cards (NCCL refuses two on one)
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cuda")
+    mesh = ServingMesh(ServingLayout(1, world), h)
+    primary = rank == 0
+
+    # (n1) fp32, the golden's input and weights
+    model_cfg = dataclasses.replace(cfg.model, compute_dtype="float32")
+    model = create_model(model_cfg, device="cuda",
+                         state_dict=torch.load(pth)["state_dict"])
+    x = torch.from_numpy(golden_input(model_cfg.img_size)).cuda()
+    with torch.inference_mode(), spatial.sharded(mesh.rows):
+        out, launches = counted(lambda: model(x[:, mesh.rows.rows(h)]))
+        maps = {"final": out["depth"]["final_depth"],
+                "inter2": out["depth"]["intermediate_depths"][2],
+                "inter3": out["depth"]["intermediate_depths"][3]}
+        maps = {k: mesh.gather(v) for k, v in maps.items()}
+    if primary:
+        for k, v in maps.items():
+            np.save(tmp / f"n1_{k}.npy", v.numpy())
+    report["n1_launches"] = launches
+    del model, out, maps
+    # fp32 engines on both axes: the rows of each frame, the batch's rows
+    frames = np.load(tmp / "n_frames.npy")
+    cfg32 = cfg.replace(model=model_cfg)
+    for kind, layout in (("spatial", ServingLayout(1, world)),
+                         ("data", ServingLayout(world, 1))):
+        engine = load_engine(cfg32, pth, batch_size=BATCH, device="cuda",
+                             mesh=ServingMesh(layout, h))
+        res = engine.infer_batch(frames)
+        if primary:
+            np.save(tmp / f"n1_engine_{kind}.npy", res["depth"])
+        del engine
+        torch.cuda.empty_cache()
+    seconds["n1"] = time.perf_counter() - t0
+
+    # (n2) bf16 batch 8: launches, each kernel on its shard shapes
+    t1 = time.perf_counter()
+    engine = load_engine(cfg, pth, batch_size=BATCH, device="cuda",
+                         mesh=mesh)
+    with recorded_calls() as calls:
+        res, launches = counted(lambda: engine.infer_batch(frames))
+    report["n2_launches"] = launches
+    if primary:
+        np.save(tmp / "n2_depth.npy", res["depth"])
+    report["n2_kernels"] = shard_kernels_vs_plain(calls)
+    del calls
+    one = DepthEngine(cfg, engine.model, batch_size=1, device="cuda",
+                      mesh=mesh)
+    one.warmup()
+    lat = []
+    for _ in range(5):
+        s = time.perf_counter()
+        one.infer_batch(frames[:1])
+        lat.append((time.perf_counter() - s) * 1e3)
+    report["n2_latency_ms"] = lat
+    seconds["n2"] = time.perf_counter() - t1
+
+    # (n4) HTTP on rank 0; the other ranks follow it
+    t2 = time.perf_counter()
+    if primary:
+        leader = MeshLeader(engine)
+        srv, _ = start_server(leader, cfg, "127.0.0.1", 0)
+        try:
+            engine.reset_stats()
+            barrier = threading.Barrier(HTTP_CLIENTS)
+
+            def one_post(i):
+                barrier.wait(timeout=300)
+                return http_post(srv.server_address[1], npy_bytes(frames[i]))
+
+            with ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+                answers = list(pool.map(one_post, range(HTTP_CLIENTS)))
+            report["n4_batches"] = engine.stats()["batches"]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            srv._camradepth_aggregator.close()
+        equal = []
+        for i, (code, body, _) in enumerate(answers):
+            got = np.load(io.BytesIO(body))["depth"]
+            want = leader.infer_batch(frames[i:i + 1])["depth"]
+            equal.append(code == 200 and bool(np.array_equal(got, want)))
+        report["n4_equal"] = equal
+        leader.stop()
+    else:
+        follow(engine)
+    del engine, one
+    torch.cuda.empty_cache()
+    multihost.shutdown()
+    seconds["n4"] = time.perf_counter() - t2
+
+    # (n3) cli serve on (g)'s corpus: sp over the ranks, then data
+    for kind, cli_port in zip(("spatial", "data"), cli_ports):
+        t3 = time.perf_counter()
+        argv_cli = ["serve", "--coordinator", f"127.0.0.1:{cli_port}",
+                    "--num-processes", str(world), "--process-id", str(rank),
+                    f"--{kind}-parallel", str(world),
+                    "--preset", "base", "--split", split, "--set",
+                    "data.mini_dataset=1", "--checkpoint", pth, "--out",
+                    str(tmp / f"n3_{kind}"), "--serve-batch", str(BATCH)]
+        (rc, text), launches = counted(lambda: run_cli(argv_cli))
+        report[f"n3_{kind}"] = {"rc": rc, "launches": launches,
+                                "stats": text.strip().splitlines()[-1]
+                                if primary and rc == 0 else text[-2000:]}
+        seconds[f"n3_{kind}"] = time.perf_counter() - t3
+    report["seconds"] = seconds
+    (tmp / f"n_rank{rank}.json").write_text(json.dumps(report))
+    print(f"[{rank}] DONE", flush=True)
+
+
+def n_references(cfg, ref_model, engine, tmp):
+    """The single-process references of (n), on the card before the ranks
+    start: the fp32 golden forward; of (n2)'s frames the depth of the bf16
+    engine, of a bf16 batch-4 engine (the witness of what another batch
+    shape alone changes in bf16), of an fp32 batch-8 engine and of the
+    fp32 forward; and the engine's single-frame latency."""
+    from camradepth_tpu_torch.interop.golden import golden_input
+    from camradepth_tpu_torch.serving import DepthEngine
+
+    frames = k_frames(cfg, BATCH, 71)
+    np.save(tmp / "n_frames.npy", frames)
+    refs = {}
+    x = torch.from_numpy(golden_input(cfg.model.img_size)).cuda()
+    with torch.inference_mode():
+        d = ref_model(x)["depth"]
+        refs["n1"] = {"final": d["final_depth"].cpu().numpy(),
+                      "inter2": d["intermediate_depths"][2].cpu().numpy(),
+                      "inter3": d["intermediate_depths"][3].cpu().numpy()}
+        d = ref_model(torch.from_numpy(frames).cuda())["depth"][
+            "final_depth"][..., 0].clamp(0.0, 1.0)
+        refs["fp32"] = (cfg.data.max_depth * (1.0 - d)).cpu().numpy()
+    refs["bf16"] = engine.infer_batch(frames)["depth"]
+    four = DepthEngine(cfg, engine.model, batch_size=BATCH // 2,
+                       device="cuda")
+    refs["bf16_b4"] = np.concatenate(
+        [four.infer_batch(frames[i:i + BATCH // 2])["depth"]
+         for i in range(0, BATCH, BATCH // 2)])
+    cfg32 = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  compute_dtype="float32"))
+    refs["fp32_engine"] = DepthEngine(cfg32, ref_model, batch_size=BATCH,
+                                      device="cuda").infer_batch(frames)[
+                                          "depth"]
+    one = DepthEngine(cfg, engine.model, batch_size=1, device="cuda")
+    one.warmup()
+    lat = []
+    for _ in range(5):
+        s = time.perf_counter()
+        one.infer_batch(frames[:1])
+        lat.append((time.perf_counter() - s) * 1e3)
+    refs["latency_ms"] = lat
+    # the ranks share the card: hand back what the references cached
+    del one, four
+    torch.cuda.empty_cache()
+    return refs
+
+
+def phase_n(cfg, ref_model, engine, golden, split, pth, tmp,
+            world=SP_RANKS):
+    """This slice's path: spatial parallel and mesh serving on ``world``
+    ranks (two on the one card over gloo; one card each over NCCL from
+    tools/port_spatial_nccl.py), held to the single-process forward and
+    served through cli serve and HTTP."""
+    import os
+
+    tmp = Path(tmp)
+    t0 = time.perf_counter()
+    refs = n_references(cfg, ref_model, engine, tmp)
+    ports = [str(free_port()), f"{free_port()},{free_port()}"]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-n", str(r),
+         str(world), *ports, str(tmp), str(split), str(pth)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0 and f"[{r}] DONE" in log,
+                (r, p.returncode, log[-4000:]))
+    reports = [json.loads((tmp / f"n_rank{r}.json").read_text())
+               for r in range(world)]
+    t_ranks = time.perf_counter()
+    where = (f"{world} ranks sharing one card over gloo"
+             if world > torch.cuda.device_count()
+             else f"{world} ranks on {world} cards over nccl")
+    # (n1)
+    fp32_want = (sum(cfg.model.depths), 5, 0, 0)
+    per_bf16 = per_forward(cfg, 1)
+    for r, rep in enumerate(reports):
+        require(tuple(rep["n1_launches"]) == fp32_want,
+                (r, rep["n1_launches"], fp32_want))
+        require(tuple(rep["n2_launches"]) == per_bf16,
+                (r, rep["n2_launches"], per_bf16))
+    got = {k: np.load(tmp / f"n1_{k}.npy") for k in refs["n1"]}
+    cy, cx = golden["crop_yx"]
+    for name, g, ref, rtol, atol in (
+            ("final_depth_crop", got["final"][:, cy:cy + 64, cx:cx + 128],
+             golden["final_depth_crop"], 2e-3, 5e-4),
+            ("final_depth_f16", got["final"],
+             golden["final_depth_f16"].astype(np.float32), 2e-3, 1.5e-3),
+            ("inter2", got["inter2"], golden["inter2"], 2e-3, 5e-4),
+            ("inter3_f16", got["inter3"],
+             golden["inter3_f16"].astype(np.float32), 2e-3, 1.5e-3)):
+        np.testing.assert_allclose(g, ref, rtol=rtol, atol=atol,
+                                   err_msg=f"(n1) {name}")
+    for k, want in refs["n1"].items():
+        err = np.abs(got[k] - want)
+        np.testing.assert_allclose(
+            got[k], want, rtol=SP_FP32_RTOL,
+            atol=SP_FP32_RTOL * np.abs(want).max(), err_msg=f"(n1) {k}")
+        print(f"(n1) fp32 sp {world} ({where}) vs single-process fp32, "
+              f"{k}: max abs {err.max():.3g}, max rel "
+              f"{(err / np.maximum(np.abs(want), 1e-30)).max():.3g} "
+              f"(rtol {SP_FP32_RTOL}, atol {SP_FP32_RTOL} x max |map|)")
+    print(f"(n1) the 416x800 golden's limits hold on the gathered maps; "
+          f"launches per rank {[r['n1_launches'] for r in reports]} "
+          f"(expected {fp32_want})")
+    want = refs["fp32_engine"]
+    for kind in ("spatial", "data"):
+        got = np.load(tmp / f"n1_engine_{kind}.npy")
+        err = np.abs(got - want)
+        np.testing.assert_allclose(
+            got, want, rtol=SP_FP32_RTOL,
+            atol=SP_FP32_RTOL * np.abs(want).max(),
+            err_msg=f"(n1) fp32 engine --{kind}-parallel")
+        print(f"(n1) fp32 batch-{BATCH} engine --{kind}-parallel {world} "
+              f"({where}) vs the single-process fp32 engine, depth in m: "
+              f"max abs {err.max():.3g}, mean {err.mean():.3g}, "
+              f"{np.mean(err == 0) * 100:.2f} % of pixels equal (rtol "
+              f"{SP_FP32_RTOL}, atol {SP_FP32_RTOL} x max |map|)")
+    # (n2)
+    got = np.load(tmp / "n2_depth.npy")
+    for i in range(BATCH):
+        own = np.abs(got[i] - refs["fp32"][i]).mean()
+        other = np.abs(got[i] - refs["fp32"][(i + 1) % BATCH]).mean()
+        require(own <= SERVE_MEAN_ABS_M and own < 0.25 * other,
+                (i, own, other))
+    diff = np.abs(got - refs["bf16"])
+    own = max(np.abs(got[i] - refs["fp32"][i]).mean() for i in range(BATCH))
+    print(f"(n2) bf16 batch {BATCH} sp {world}: mean |sharded - fp32| per "
+          f"frame <= {own:.4f} m "
+          f"(tol {SERVE_MEAN_ABS_M}); against the single-process bf16 "
+          f"engine mean {diff.mean():.4g} m, max {diff.max():.4g} m, "
+          f"{np.mean(diff == 0) * 100:.2f} % of pixels equal; launches per "
+          f"rank per forward {[r['n2_launches'] for r in reports]} "
+          f"(expected {per_bf16})")
+    diff = np.abs(refs["bf16_b4"] - refs["bf16"])
+    print(f"(n2) witness, one process: the bf16 batch-{BATCH // 2} engine "
+          f"against the bf16 batch-{BATCH} engine on the same frames: mean "
+          f"{diff.mean():.4g} m, max {diff.max():.4g} m, "
+          f"{np.mean(diff == 0) * 100:.2f} % of pixels equal")
+    for r, rep in enumerate(reports):
+        for key, (n, err, shapes) in rep["n2_kernels"].items():
+            print(f"(n2) rank {r} {key} kernel = plain version on its "
+                  f"{n} shard-shaped calls (max abs {err:.3g}; shapes "
+                  f"{[tuple(s) for s in shapes][:6]}"
+                  f"{' ...' if len(shapes) > 6 else ''})")
+    lat_sp = [float(np.median(r["n2_latency_ms"])) for r in reports]
+    print(f"(n2) single-frame latency (batch-1 engine, median of 5): "
+          f"{lat_sp[0]:.1f} ms on {where} (not a scaling figure), "
+          f"{np.median(refs['latency_ms']):.1f} ms on one process")
+    # (n4)
+    rep0 = reports[0]
+    require(all(rep0["n4_equal"]) and len(rep0["n4_equal"]) == HTTP_CLIENTS,
+            rep0["n4_equal"])
+    require(rep0["n4_batches"] < HTTP_CLIENTS, rep0["n4_batches"])
+    print(f"(n4) HTTP on sp {world}: {HTTP_CLIENTS} concurrent single-frame "
+          f"POSTs served in {rep0['n4_batches']:.0f} batch(es); each answer "
+          f"= infer_batch of its frame, bit for bit")
+    # (n3)
+    single = sorted((tmp / "served").glob("*_depth.npy"))
+    require(len(single) == 32, len(single))
+    for kind in ("spatial", "data"):
+        for r, rep in enumerate(reports):
+            run = rep[f"n3_{kind}"]
+            require(run["rc"] == 0, (kind, r, run))
+            # 4 batches of 8 and the warm-up, a (1/world) share of each
+            require(tuple(run["launches"]) == per_forward(cfg, 5),
+                    (kind, r, run["launches"]))
+        maps = sorted((tmp / f"n3_{kind}").glob("*_depth.npy"))
+        require([p.name for p in maps] == [p.name for p in single],
+                (kind, len(maps)))
+        worst, top, same = 0.0, 0.0, 0
+        for g, w in zip(maps, single):
+            d = np.abs(np.load(g) - np.load(w))
+            worst, top = max(worst, d.mean()), max(top, d.max())
+            same += int(d.max() == 0)
+        require(worst <= SERVE_MEAN_ABS_M, (kind, worst))
+        stats = json.loads(reports[0][f"n3_{kind}"]["stats"])
+        print(f"(n3) cli serve --{kind}-parallel {world} ({where}): "
+              f"{len(maps)} maps vs single-process cli serve: largest mean "
+              f"|diff| per frame {worst:.4g} m (tol {SERVE_MEAN_ABS_M}), "
+              f"max {top:.4g} m, {same}/{len(maps)} bit for bit; "
+              f"frames_per_sec={stats['frames_per_sec']:.2f}; launches per "
+              f"rank {reports[0][f'n3_{kind}']['launches']}")
+    sec = reports[0]["seconds"]
+    setup = t_ranks - t0 - sum(sec.values())
+    print(f"(n) phase seconds: references {setup:.1f} and rank start-up, "
+          + ", ".join(f"({k}) {v:.1f}" for k, v in sec.items())
+          + f"; total {time.perf_counter() - t0:.1f}")
+
+
+def n_corpus(cfg, weights, tmp):
+    """(g)'s 32-frame corpus, its .pth and single-process `cli serve` maps
+    (``tmp/served``), made again where (g) did not run."""
+    from camradepth_tpu_torch.data import synthetic
+
+    h, w = cfg.model.img_size
+    split = synthetic.generate(tmp / "data", num_frames=32, hw=(h, w),
+                               seed=0, rain_every=4)
+    pth = tmp / "base_synth.pth"
+    torch.save({"state_dict": {k: torch.from_numpy(v)
+                               for k, v in weights.items()}}, pth)
+    rc, out = run_cli(["serve", "--split", str(split), "--out",
+                       str(tmp / "served"), "--limit", "32", "--serve-batch",
+                       str(BATCH), "--preset", "base", "--set",
+                       "data.mini_dataset=1", "--checkpoint", str(pth)])
+    require(rc == 0, (rc, out))
+    return split, pth
+
+
+def phase_n_alone(worlds=(SP_RANKS,)):
+    """(n) with what it needs from the earlier phases and nothing else:
+    the kernels' build, the golden, the fp32 model of (c), a bf16 batch-8
+    engine as (d)'s, and (g)'s corpus and maps (``python3 chip_smoke.py
+    --phase n``; tools/port_spatial_nccl.py on several cards), once for
+    each rank count of ``worlds``."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.ops import _build
+    from camradepth_tpu_torch.serving import load_engine
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_a()
+    cfg = preset("base")
+    golden, weights = golden_weights()
+    ref_model = phase_c(cfg, golden, weights, forward_counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        split, pth = n_corpus(cfg, weights, tmp)
+        engine = load_engine(cfg, str(pth), batch_size=BATCH, device="cuda")
+        for world in worlds:
+            run = tmp / f"ranks{world}"
+            run.mkdir()
+            (run / "served").symlink_to(tmp / "served")
+            phase_n(cfg, ref_model, engine, golden, split, pth, run,
+                    world=world)
+            print(f"chip_smoke: phase (n) passed ({world} ranks; kernels "
+                  f"in {_build.build_dir()})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--rank-n"]:  # a rank of phase (n)
+        n_rank(sys.argv[2:])
+        return
+    if sys.argv[1:] == ["--phase", "n"]:
+        phase_n_alone()
+        return
+    if sys.argv[1:]:
+        sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
     from camradepth_tpu_torch.config import preset
     from camradepth_tpu_torch.ops.attention import (
         maxpool_attention_scores,
@@ -3026,13 +3543,16 @@ def main() -> None:
     phase_l(cfg, split, pth, Path(corpus.name), counters, reset_counters)
     t11 = time.perf_counter()
     phase_m(cfg, split, all_counters, reset_counters)
-    corpus.cleanup()
     t12 = time.perf_counter()
+    # (n)'s ranks start after (m3)'s processes have ended
+    phase_n(cfg, ref_model, engine, golden, split, pth, Path(corpus.name))
+    corpus.cleanup()
+    t13 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
           f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}, "
-          f"(m) {t12 - t11:.1f}")
+          f"(m) {t12 - t11:.1f}, (n) {t13 - t12:.1f}")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

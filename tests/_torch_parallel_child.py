@@ -1,7 +1,8 @@
-"""One rank of tests/test_torch_parallel.py's gloo group (CPU, fp32).
+"""One rank of tests/test_torch_parallel.py's gloo group (CPU, fp32),
+forked by tests/torch_ranks.py:
 
-Run as: python _torch_parallel_child.py <rank> <world> <port> <cli_port>
-<split.npy> <out_dir>
+    python tests/torch_ranks.py tests._torch_parallel_child 2 <port>
+        <cli_port> <split.npy> <out_dir>
 
 The rank joins a process group of ``world`` ranks and runs, against the
 port's single-process step over the joined microbatches (computed once,
@@ -22,18 +23,15 @@ Writes ``rank<rank>.json`` (and on rank 0 ``step_params.pt``) into
 ``out_dir``.
 """
 
-import json
 import sys
 from pathlib import Path
 
-rank, world, port, cli_port = (int(v) for v in sys.argv[1:5])
-split, out_dir = sys.argv[5], Path(sys.argv[6])
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 # the metric writer would import TensorBoard, which pulls in TensorFlow
 # here (~17 s); it then writes its JSONL alone
 sys.modules["tensorboard"] = None
 
 import dataclasses  # noqa: E402
+import json  # noqa: E402
 
 import torch  # noqa: E402
 
@@ -47,10 +45,6 @@ from camradepth_tpu_torch.train.step import (  # noqa: E402
     build_gt,
     prepare_microbatch,
 )
-
-torch.set_num_threads(1)
-LAYOUTS = {"ddp": Layout(world, 1), "fsdp": Layout(1, world)}
-BATCH = 2 * world
 
 
 def per_rank_loss(cfg, model, micro, generator):
@@ -72,43 +66,49 @@ def summary(r):
                               "metrics")}
 
 
-out = {}
-multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
-cfg = gc.check_config(dropout=True, supervised_seg=True)
-cfg = cfg.replace(train=dataclasses.replace(cfg.train, seg_inter_loss=True))
-mbs = gc.parity_microbatches(cfg, 2, BATCH, seed=7, ranks=world)
-ref = gc.reference_steps(cfg, mbs)
-out["reference"] = ref[1]
-for kind, layout in LAYOUTS.items():
-    out[kind] = summary(gc.step_parity(layout, cfg, mbs, reference=ref))
-out["per_rank"] = summary(gc.step_parity(
-    LAYOUTS["ddp"], cfg, mbs, reference=ref, loss_fn=per_rank_loss))
-for kind, layout in LAYOUTS.items():
-    out[f"grad_parity_{kind}"] = gc.grad_parity(layout)
-multihost.shutdown()
+def main(rank, world, argv):
+    torch.set_num_threads(1)
+    port, cli_port = int(argv[0]), int(argv[1])
+    split, out_dir = argv[2], Path(argv[3])
+    layouts = {"ddp": Layout(world, 1), "fsdp": Layout(1, world)}
+    out = {}
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cpu")
+    cfg = gc.check_config(dropout=True, supervised_seg=True)
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                seg_inter_loss=True))
+    mbs = gc.parity_microbatches(cfg, 2, 2 * world, seed=7, ranks=world)
+    ref = gc.reference_steps(cfg, mbs)
+    out["reference"] = ref[1]
+    for kind, layout in layouts.items():
+        out[kind] = summary(gc.step_parity(layout, cfg, mbs, reference=ref))
+    out["per_rank"] = summary(gc.step_parity(
+        layouts["ddp"], cfg, mbs, reference=ref, loss_fn=per_rank_loss))
+    for kind, layout in layouts.items():
+        out[f"grad_parity_{kind}"] = gc.grad_parity(layout)
+    multihost.shutdown()
 
+    class Recording(trainer_mod.Trainer):
+        def train(self):
+            best = super().train()
+            state = multihost.full_state(self.model, None)["state_dict"]
+            if multihost.is_primary():
+                torch.save(state, out_dir / "step_params.pt")
+            out["cli_writer"] = type(self.writer).__name__
+            out["cli_steps"] = self.training_steps
+            return best
 
-class Recording(trainer_mod.Trainer):
-    def train(self):
-        best = super().train()
-        state = multihost.full_state(self.model, None)["state_dict"]
-        if multihost.is_primary():
-            torch.save(state, out_dir / "step_params.pt")
-        out["cli_writer"] = type(self.writer).__name__
-        out["cli_steps"] = self.training_steps
-        return best
-
-
-trainer_mod.Trainer = Recording
-out["cli_rc"] = cli.main([
-    "train", "--coordinator", f"127.0.0.1:{cli_port}", "--num-processes",
-    str(world), "--process-id", str(rank), "--fsdp", str(world),
-    "--split", split, "--train-val-split", "2,2", "--batch-size",
-    str(world), "--num-epochs", "1", "--run-dir", str(out_dir / "run"),
-    "--save-model", "--device", "cpu", "--compute-dtype", "float32",
-    "--set", "data.num_workers=1", "--set", "train.log_every=1",
-    "--set", "model.img_size=32,64", "--set", "model.dims=16,32,32,64",
-    "--set", "model.ff_expansion=2,2,2,2", "--set", "model.depths=1,1,1,1",
-    "--set", "model.mid_channels=32", "--set", "data.image_dimension=32,64"])
-(out_dir / f"rank{rank}.json").write_text(json.dumps(out))
-print(f"[{rank}] DONE", flush=True)
+    trainer_mod.Trainer = Recording
+    out["cli_rc"] = cli.main([
+        "train", "--coordinator", f"127.0.0.1:{cli_port}",
+        "--num-processes", str(world), "--process-id", str(rank), "--fsdp",
+        str(world), "--split", split, "--train-val-split", "2,2",
+        "--batch-size", str(world), "--num-epochs", "1", "--run-dir",
+        str(out_dir / "run"), "--save-model", "--device", "cpu",
+        "--compute-dtype", "float32", "--set", "data.num_workers=1",
+        "--set", "train.log_every=1", "--set", "model.img_size=32,64",
+        "--set", "model.dims=16,32,32,64", "--set",
+        "model.ff_expansion=2,2,2,2", "--set", "model.depths=1,1,1,1",
+        "--set", "model.mid_channels=32", "--set",
+        "data.image_dimension=32,64"])
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    print(f"[{rank}] DONE", flush=True)

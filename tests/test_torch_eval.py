@@ -363,12 +363,14 @@ def test_cli_tpu_decoder_refuses_a_reference_checkpoint(corpus, capsys):
         assert err.startswith("error:") and "\n" not in err
 
 
+# serving on a mesh needs a rank per share (cli serve on one process has
+# one), and a mesh.* layout is training's: each refused in one line
 @pytest.mark.parametrize("extra,item", [
-    (["--http-port", "0", "--data-parallel", "2"], "item 10"),
-    (["--set", "mesh.spatial_parallel=2"], "item 10"),
-    (["--data-parallel", "2"], "item 10"),
-    (["--spatial-parallel", "2"], "item 10"),
-    (["--set", "mesh.data_parallel=2"], "item 10"),
+    (["--http-port", "0", "--data-parallel", "2"], "needs 2 ranks, have 1"),
+    (["--set", "mesh.spatial_parallel=2"], "--spatial-parallel"),
+    (["--data-parallel", "2"], "needs 2 ranks, have 1"),
+    (["--spatial-parallel", "2"], "needs 2 ranks, have 1"),
+    (["--set", "mesh.data_parallel=2"], "mesh.* layout"),
 ])
 def test_cli_refuses_options_of_later_slices(corpus, capsys, extra, item):
     _, split, pth = corpus

@@ -65,7 +65,8 @@ def test_sources_import_no_jax():
             "camradepth_tpu_torch.interop.export",
             "camradepth_tpu_torch.parallel.multihost",
             "camradepth_tpu_torch.parallel.mesh",
-            "camradepth_tpu_torch.parallel.gradcheck"} <= set(MODULES)
+            "camradepth_tpu_torch.parallel.gradcheck",
+            "camradepth_tpu_torch.parallel.spatial"} <= set(MODULES)
 
 
 def test_entry_points_default_to_cuda():

@@ -1,10 +1,11 @@
 """Multi-device training of the port (camradepth_tpu_torch.parallel) on the
 CPU, against its single-process step and the JAX package's rules.
 
-The module starts one gloo group of two spawned processes
-(``tests/_torch_parallel_child.py``, one torch thread each, tiny widths,
-fp32) when it starts, runs its tests that need no process meanwhile, and
-then reads what each rank reports. The single-process reference is the
+The module starts one gloo group of two processes
+(``tests/_torch_parallel_child.py``, forked by ``tests/torch_ranks.py``
+from one process that imports their code once; one torch thread each,
+tiny widths, fp32) when it starts, runs its tests that need no process
+meanwhile, and then reads what each rank reports. The single-process reference is the
 port's own step over the joined microbatch: tests/test_torch_train.py
 holds that step to the JAX one, so no JAX step is compiled here. The
 model is supervised_seg with both focal CE terms on and dropout at the
@@ -37,9 +38,6 @@ against JAX ``make_loaders(process_shard=...)``, and the refusals.
 import dataclasses
 import json
 import socket
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -66,9 +64,10 @@ from camradepth_tpu_torch.parallel.mesh import (
 )
 from camradepth_tpu_torch.serving import load_engine
 from camradepth_tpu_torch.train.trainer import Trainer
+from tests import torch_ranks
 from tests.torch_port import one_torch_thread  # noqa: F401
 
-CHILD = Path(__file__).with_name("_torch_parallel_child.py")
+CHILD = "tests._torch_parallel_child"
 WORLD = 2
 LAYOUTS = ("ddp", "fsdp")
 # the widths of the children's cli train (tests/_torch_parallel_child.py)
@@ -94,28 +93,19 @@ def spawned(corpus, tmp_path_factory):
     """The two ranks, started with the module: the tests that need no
     process run while they work."""
     out = tmp_path_factory.mktemp("ranks")
-    ports = [str(_free_port()), str(_free_port())]
-    procs = [subprocess.Popen(
-        [sys.executable, str(CHILD), str(r), str(WORLD), *ports,
-         str(corpus), str(out)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(WORLD)]
+    proc = torch_ranks.start(CHILD, WORLD, _free_port(), _free_port(),
+                             corpus, out)
     try:
-        yield procs, out
+        yield proc, out
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        torch_ranks.stop(proc)
 
 
 @pytest.fixture(scope="module")
 def ranks(spawned):
     """Both ranks' reports and the run directory of their ``cli train``."""
-    procs, out = spawned
-    logs = [p.communicate(timeout=600)[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0 and f"[{r}] DONE" in log, log[-6000:]
+    proc, out = spawned
+    torch_ranks.wait(proc, WORLD)
     return [json.loads((out / f"rank{r}.json").read_text())
             for r in range(WORLD)], out
 
@@ -187,8 +177,9 @@ def test_training_layout_covers_every_rank():
         layout(4)  # batch 2: two ranks would hold no row
     with pytest.raises(ConfigError, match="needs 2 ranks, have 1"):
         layout(1, data_parallel=2)
-    with pytest.raises(ConfigError, match="item 10b"):
-        MeshConfig(spatial_parallel=2)
+    # sp serves (tests/test_torch_spatial.py); training with it is 10c
+    with pytest.raises(ConfigError, match="item 10c"):
+        training_layout(cfg.replace(mesh=MeshConfig(spatial_parallel=2)), 2)
 
 
 def test_process_shard_rows_match_jax_make_loaders(tmp_path):
@@ -225,6 +216,13 @@ def test_multi_process_trainer_refusals(corpus, monkeypatch, tmp_path):
         Trainer(wire, run_dir=str(tmp_path), device="cpu")
 
 
+# training with sp is item 10c; test scores on one process, as JAX's cli
+# test; serve on one process has no second rank for its sp group
+SP_REFUSALS = {"train": "item 10c", "distill": "item 10c",
+               "test": "test scores on one process",
+               "serve": "needs 2 ranks, have 1"}
+
+
 @pytest.mark.parametrize("command", ["train", "distill", "test", "serve"])
 def test_spatial_parallel_is_refused_naming_item_10b(command, corpus, capsys):
     extra = {"distill": ["--teacher-checkpoint", "t.pth"],
@@ -232,7 +230,7 @@ def test_spatial_parallel_is_refused_naming_item_10b(command, corpus, capsys):
              "serve": ["--checkpoint", "w.pth"]}.get(command, [])
     assert cli.main([command, "--split", str(corpus), "--device", "cpu",
                      "--spatial-parallel", "2"] + extra) == 2
-    assert "item 10b" in capsys.readouterr().err
+    assert SP_REFUSALS[command] in capsys.readouterr().err
 
 
 # --------------------------------------------------- the two ranks

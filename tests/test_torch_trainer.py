@@ -31,6 +31,7 @@ from camradepth_tpu_torch.config import (
 )
 from camradepth_tpu_torch.config import preset as preset_config
 from camradepth_tpu_torch.data import synthetic
+from camradepth_tpu_torch.parallel.mesh import training_layout
 from camradepth_tpu_torch.serving import load_engine
 from camradepth_tpu_torch.train.step import eval_step
 from camradepth_tpu_torch.train.trainer import Trainer
@@ -309,12 +310,12 @@ def test_cli_train_then_serve_the_seg_tpu_decoder_variant(corpus, tmp_path,
 
 
 # why each multi-device flag is refused in a one-process run: a layout
-# needs as many ranks as it covers; spatial parallel is ROADMAP item 10b;
+# needs as many ranks as it covers; spatial parallel is ROADMAP item 10c;
 # --multihost reads torchrun's environment; --coordinator needs the rest
 _MULTI_DEVICE_REFUSALS = {
     "--data-parallel": "needs 2 ranks, have 1",
     "--fsdp": "needs 2 ranks, have 1",
-    "--spatial-parallel": "item 10b",
+    "--spatial-parallel": "item 10c",
     "--multihost": "torchrun",
     "--coordinator": "requires --num-processes and --process-id",
 }
@@ -344,7 +345,10 @@ def test_train_overrides_and_epoch_count():
     assert apply_overrides(cfg, ["mesh.data_parallel=2",
                                  "mesh.fsdp_parallel=2"]).mesh.fsdp_parallel \
         == 2
-    with pytest.raises(ValueError, match="item 10b"):
-        apply_overrides(cfg, ["mesh.spatial_parallel=2"])
+    # sp is a serving layout; training refuses it (ROADMAP item 10c)
+    sp = apply_overrides(cfg, ["mesh.spatial_parallel=2"])
+    assert sp.mesh.spatial_parallel == 2
+    with pytest.raises(ValueError, match="item 10c"):
+        training_layout(sp, 2)
     with pytest.raises(ValueError, match="multiple of batch_size"):
         apply_overrides(cfg, ["train.desired_batch_size=7"])
