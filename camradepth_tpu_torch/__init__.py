@@ -13,7 +13,11 @@ import torch
 
 def resolve_device(device) -> torch.device:
     """The ``torch.device`` an entry point runs on. Never drops to the CPU
-    on its own: asking for CUDA without a card raises."""
+    on its own: asking for CUDA without a card raises. A CUDA device
+    without an index is pinned to the calling thread's current card: a
+    worker thread (the trainer's prefetch) starts on card 0, so a rank of
+    a process group that runs on another card would copy its batches
+    there."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -22,4 +26,6 @@ def resolve_device(device) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -7,6 +7,8 @@
       --multihost --data-parallel N|--fsdp N --run-dir R ...
   python -m camradepth_tpu_torch.cli train --coordinator HOST:PORT \\
       --num-processes N --process-id I --data-parallel N --run-dir R ...
+  torchrun --nproc-per-node 2 -m camradepth_tpu_torch.cli train \\
+      --multihost --spatial-parallel 2 --run-dir R ...
   python -m camradepth_tpu_torch.cli distill --tpu-decoder --split S.npy \\
       --teacher-checkpoint T.pth [--alpha 0.7] [--run-dir R] [--save-model]
   python -m camradepth_tpu_torch.cli test  --preset base --split S.npy \\
@@ -34,9 +36,12 @@ checkpoints are ``.pth`` files that ``test``, ``serve`` and ``export``
 load. Both train on one device, or on several processes, one device
 each: ``--multihost`` (under ``torchrun``) or ``--coordinator`` with
 ``--num-processes`` and ``--process-id`` start the process group (NCCL on
-the card, gloo on the CPU) before anything touches the device, and
-``--data-parallel`` / ``--fsdp`` size the layout (``parallel/mesh.py``:
-DDP, FSDP2, or both as HSDP), as the JAX flags do. ``distill`` trains a
+the card, gloo on the CPU, and gloo for ranks that outnumber the host's
+cards) before anything touches the device, and ``--data-parallel`` /
+``--fsdp`` / ``--spatial-parallel`` size the layout (``parallel/mesh.py``:
+DDP, FSDP2, both as HSDP, or sp = 2 alone, each rank running its rows of
+every image), as the JAX flags do, with the JAX package's refusals
+(``_auto_mesh``). ``distill`` trains a
 student (usually
 ``--tpu-decoder``) against a frozen parity teacher
 (:class:`train.distill.DistillTrainer`) from a reference ``.pth``, a port
@@ -70,11 +75,9 @@ artifacts, which take dense batches.
 ``--checkpoint`` is a reference-format ``.pth``, loaded strictly (for
 ``train``: a warm start, shape-matching, or a full trainer checkpoint),
 or for ``test`` and ``serve`` a serving artifact. An Orbax checkpoint of
-the JAX package reaches the port as a ``.pth`` written by
-``camradepth_tpu.cli export --format pth``. One flag is new: ``--device``
-(default ``cuda``, which raises without a card). ``--spatial-parallel`` on
-``train`` and ``distill`` is refused with the ROADMAP item that brings it
-(queue 1 item 10c).
+the JAX package reaches the port as a ``.pth`` (``_ORBAX_ROUTE``). One
+flag is new: ``--device`` (default ``cuda``, which raises without a
+card).
 """
 
 from __future__ import annotations
@@ -95,7 +98,9 @@ class UserError(ValueError):
 
 # How an Orbax checkpoint of the JAX package reaches the port.
 _ORBAX_ROUTE = ("an Orbax checkpoint of the JAX package comes across as a "
-                ".pth written by `camradepth_tpu.cli export --format pth`")
+                ".pth written by `camradepth_tpu.cli export --format pth`, "
+                "or for any variant, --tpu-decoder included, by `python "
+                "tools/orbax_to_pth.py --checkpoint RUN --out W.pth`")
 
 
 def _add_tpu_decoder_flag(p: argparse.ArgumentParser) -> None:
@@ -234,6 +239,8 @@ def _build_train_config(args):
             mesh_kw["data_parallel"] = args.data_parallel
         if args.fsdp is not None:
             mesh_kw["fsdp_parallel"] = args.fsdp
+        if args.spatial_parallel is not None:
+            mesh_kw["spatial_parallel"] = args.spatial_parallel
         if mesh_kw:
             cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, **mesh_kw))
         cfg = _with_tpu_decoder(cfg, args)
@@ -249,12 +256,7 @@ def _start_processes(args) -> bool:
     ``serve`` (``camradepth_tpu/cli.py:313-330``), before anything touches
     the device; True when this call started it."""
     from camradepth_tpu_torch.parallel import multihost
-    from camradepth_tpu_torch.parallel.mesh import ITEM_10C
 
-    if args.command != "serve" and args.spatial_parallel:
-        raise UserError(f"--spatial-parallel is not ported to training yet "
-                        f"(ROADMAP queue 1 {ITEM_10C}); it serves (cli serve "
-                        "--spatial-parallel)")
     if not (args.multihost or args.coordinator):
         if args.num_processes is not None or args.process_id is not None:
             raise UserError("--num-processes and --process-id need "
@@ -354,9 +356,12 @@ def cmd_distill(args) -> int:
         DistillTrainer,
         check_pairing,
     )
+    from camradepth_tpu_torch.train.trainer import run_layout
 
     def make_trainer():
         cfg = _build_train_config(args)
+        # the layout's refusals before the teacher loads
+        run_layout(cfg, args.run_dir)
         teacher_cfg = cfg.replace(model=dataclasses.replace(
             cfg.model, tpu_decoder=args.teacher_tpu_decoder,
             # remat changes only the backward; the teacher never trains
@@ -789,7 +794,9 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                    help="fsdp-axis ranks (FSDP2: parameters, gradients and "
                         "optimizer state sharded)")
     p.add_argument("--spatial-parallel", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="sp-axis ranks (2, alone, as the JAX package "
+                        "trains): every rank holds the whole batch and "
+                        "runs its rows of each image, partitioned at /32")
     _add_process_flags(p)
 
 

@@ -226,10 +226,11 @@ class MeshConfig:
     ranks, parameters and optimizer state over ``fsdp`` (FSDP2), replicated
     over ``data`` (DDP when ``fsdp`` is 1). ``data_parallel = -1`` sizes the
     data axis from the world size and the batch (``parallel/mesh.py``).
-    ``spatial_parallel`` is taken as the JAX package takes it; serving on a
-    mesh takes its layout from ``cli serve``'s flags
-    (``parallel/mesh.serving_layout``), and training with sp > 1 is refused
-    by ``parallel/mesh.training_layout`` (ROADMAP queue 1 item 10c)."""
+    ``spatial_parallel`` is taken as the JAX package takes it: training
+    shards each image's rows over sp = 2 ranks alone, with the JAX
+    package's refusals of the rest (``parallel/mesh.training_layout``);
+    serving on a mesh takes its layout from ``cli serve``'s flags
+    (``parallel/mesh.serving_layout``)."""
 
     data_axis: str = "data"
     fsdp_axis: str = "fsdp"

@@ -131,6 +131,9 @@ class CamRaDepth(nn.Module):
     # this rank's rows of the global batch (parallel/multihost.BatchShard);
     # None on one device
     batch_shard = None
+    # this rank's rows of every image under spatially sharded training
+    # (parallel/spatial.RowShard, set by parallel/mesh.wrap); None else
+    row_shard = None
 
     def set_generator(self, generator: Optional[torch.Generator]) -> None:
         """Draw every dropout mask (DropPath, Dropout2d) from
@@ -142,7 +145,9 @@ class CamRaDepth(nn.Module):
     def set_batch_shard(self, shard) -> None:
         """Run on rows ``shard.index`` of ``shard.count`` equal shares of
         the global batch (``parallel/mesh.wrap``): every dropout mask is
-        drawn for the global batch and cut to these rows."""
+        drawn for the global batch and cut to these rows. Not for an sp
+        group, whose ranks each hold the whole batch and draw the whole
+        batch's masks (:attr:`row_shard`)."""
         self.batch_shard = shard
         for mod in self.modules():
             if isinstance(mod, (DropPath, Dropout2d)):

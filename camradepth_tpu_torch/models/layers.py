@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from camradepth_tpu_torch.ops.gelu import gelu_for_dtype
 from camradepth_tpu_torch.ops.groupnorm import group_norm
@@ -188,11 +188,18 @@ def remat(module: nn.Module, *args):
     generator), not a ``torch.Generator`` object, so a dropout mask drawn
     from the run's generator would be drawn anew. The generators of the
     module's dropout layers are therefore rewound to their state at the
-    forward for the recompute, and put back after it."""
+    forward for the recompute, and put back after it.
+
+    The recompute runs in the backward pass, on the card in the autograd
+    engine's own thread, where the forward's spatial shard
+    (``parallel/spatial.sharded``) is not set: it runs under the shard
+    captured at the forward, and in full (no early stop), so that every
+    rank of the sp group makes the same collectives in it."""
     gens = {id(m.generator): m.generator for m in module.modules()
             if isinstance(m, (DropPath, Dropout2d))
             and m.generator is not None}
     saved = [(g, g.get_state()) for g in gens.values()]
+    shard = spatial.active()
     calls = [0]
 
     def run(*a):
@@ -203,12 +210,14 @@ def remat(module: nn.Module, *args):
         for g, state in saved:
             g.set_state(state)
         try:
-            return module(*a)
+            with spatial.sharded(shard):
+                return module(*a)
         finally:
             for g, state in now:
                 g.set_state(state)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    with set_checkpoint_early_stop(shard is None):
+        return checkpoint(run, *args, use_reentrant=False)
 
 
 class ConvLayer(nn.Module):

@@ -6,12 +6,11 @@ Counterpart of ``camradepth_tpu/parallel/mesh.py``, of the trainer's
 ``serving_mesh`` (``camradepth_tpu/serving.py:382-410``). Each rank holds
 one device. Serving (:class:`ServingMesh`) shards a batch's rows over
 ``data`` and the image's rows over ``sp`` (``parallel/spatial.py``).
-Training takes no ``sp`` axis yet (ROADMAP queue 1 item 10c).
 
 In training the global microbatch (``train.batch_size`` rows) shards
 jointly over ``data`` x ``fsdp`` ranks, as the JAX package's batch does
-(``camradepth_tpu/parallel/mesh.py:95-100``), so the layout covers every
-rank:
+(``camradepth_tpu/parallel/mesh.py:95-100``), or each image's rows over
+``sp`` ranks, so the layout covers every rank:
 
 - ``data`` only: DDP, a full replica on each rank, the gradients
   all-reduced once per optimizer step;
@@ -19,7 +18,21 @@ rank:
   every decoder stage and then the root each a unit whose parameters,
   gradients and optimizer state are sharded over the ranks;
 - ``data`` x ``fsdp``: FSDP2 on the 2-D mesh ``("data", "fsdp")`` (HSDP),
-  replicated over ``data`` and sharded over ``fsdp``.
+  replicated over ``data`` and sharded over ``fsdp``;
+- ``sp`` (2, alone: the one case the JAX package trains, its GSPMD conv
+  gradients being wrong otherwise): every rank holds the whole microbatch,
+  the parameters and the optimizer state, and runs the forward and
+  backward on its rows of every feature map (``parallel/spatial.py``; the
+  model unwrapped, its :attr:`row_shard` set). Its spatial collectives run
+  on a process group of their own, so the gradient sum, on the default
+  group, never interleaves with a halo exchange.
+
+One convention for the gradients: each rank's backward gives its terms of
+the global gradient, and the gradient of the step is their sum over the
+ranks, in fp32, once per optimizer step, after the last microbatch's
+backward. DDP and FSDP2 take the mean over the ranks, so their ranks scale
+the loss by the rank count (``train/step.py``); under sp the ranks' terms
+are summed as they are (:func:`sum_over_ranks`).
 
 JAX's ``param_sharding_rule`` picks the axis to shard per parameter to suit
 GSPMD, and keeps parameters under 2**16 elements and depthwise kernels
@@ -41,20 +54,18 @@ from camradepth_tpu_torch.config import ConfigError
 from camradepth_tpu_torch.parallel import multihost
 
 
-# the ROADMAP item that brings an sp axis to training
-ITEM_10C = "item 10c (spatially sharded training)"
-
-
 @dataclass(frozen=True)
 class Layout:
-    """``data`` x ``fsdp`` ranks. ``wrap`` names the wrapper ("ddp" or
-    "fsdp"); empty, it follows from the sizes (FSDP2 when ``fsdp`` > 1,
-    else DDP). An explicit wrapper is how a one-rank DDP or FSDP2 run is
-    driven (``Trainer(layout=...)``)."""
+    """``data`` x ``fsdp`` ranks, or ``sp`` ranks alone. ``wrap`` names
+    the wrapper ("ddp" or "fsdp"); empty, it follows from the sizes (sp
+    when ``sp`` > 1, FSDP2 when ``fsdp`` > 1, else DDP). An explicit
+    wrapper is how a one-rank DDP or FSDP2 run is driven
+    (``Trainer(layout=...)``)."""
 
     data: int = 1
     fsdp: int = 1
     wrap: str = ""
+    sp: int = 1
 
     def __post_init__(self):
         if self.wrap not in ("", "ddp", "fsdp"):
@@ -62,13 +73,18 @@ class Layout:
                               f"{self.wrap!r}")
         if self.wrap == "ddp" and self.fsdp != 1:
             raise ConfigError("a DDP layout has no fsdp axis")
+        if self.sp > 1 and (self.data * self.fsdp > 1 or self.wrap):
+            raise ConfigError("an sp layout has no data or fsdp axis and "
+                              "no wrapper")
 
     @property
     def size(self) -> int:
-        return self.data * self.fsdp
+        return self.data * self.fsdp * self.sp
 
     @property
     def kind(self) -> str:
+        if self.sp > 1:
+            return "sp"
         return self.wrap or ("fsdp" if self.fsdp > 1 else "ddp")
 
 
@@ -99,10 +115,13 @@ def mesh_shape(data_parallel: int, fsdp_parallel: int, spatial_parallel: int,
     if sp > 1 and data * fsdp > 1:
         raise ConfigError(
             "spatial_parallel cannot be combined with data/fsdp axes in "
-            "training (the JAX package's GSPMD conv-gradient fault)")
+            "training: the JAX package's GSPMD miscomputes conv gradients "
+            "when spatially-sharded activations are partially replicated "
+            "across other mesh axes")
     if sp > 2:
-        raise ConfigError("spatial_parallel > 2 in training gives wrong conv "
-                          "gradients in the JAX package")
+        raise ConfigError(
+            "spatial_parallel > 2 in training produces wrong conv gradients "
+            "in the JAX package (gradcheck-verified safe: sp=2 sole axis)")
     if batch_size % (data * fsdp):
         raise ConfigError(
             f"batch_size {batch_size} is not divisible by data_parallel*"
@@ -122,14 +141,13 @@ def training_layout(cfg, world: Optional[int] = None) -> Optional[Layout]:
     """The layout of ``cfg.mesh`` over ``world`` ranks (default: the
     process group's size), or None for one unwrapped device. A process
     group of more than one rank needs a layout that covers every rank:
-    each rank holds its share of the batch."""
+    each rank holds its share of the batch, or of every image's rows. The
+    refusals are ``mesh_shape``'s, then the port's own limit on sp
+    (``spatial.partition``: rows at /32, at least one a rank)."""
+    from camradepth_tpu_torch.parallel.spatial import partition
+
     world = multihost.process_count() if world is None else world
     m = cfg.mesh
-    if m.spatial_parallel > 1:
-        raise ConfigError(
-            "spatially sharded training is not ported yet (ROADMAP queue 1 "
-            f"{ITEM_10C}); spatial_parallel serves (cli serve "
-            "--spatial-parallel)")
     shape = mesh_shape(m.data_parallel, m.fsdp_parallel, m.spatial_parallel,
                        world, cfg.train.batch_size, cfg.model.img_size[0])
     if shape is None:
@@ -140,13 +158,16 @@ def training_layout(cfg, world: Optional[int] = None) -> Optional[Layout]:
                 f"{m.fsdp_parallel} gives one rank; size --data-parallel / "
                 "--fsdp (and the batch) to the ranks")
         return None
-    data, fsdp, _ = shape
-    if data * fsdp != world:
+    data, fsdp, sp = shape
+    if sp > 1:
+        partition(cfg.model.img_size[0], sp)
+    if data * fsdp * sp != world:
         raise ConfigError(
-            f"layout {data}x{fsdp} covers {data * fsdp} of {world} ranks; a "
-            "rank without a share of the batch would stall the others: "
-            "size --data-parallel / --fsdp (and the batch) to the ranks")
-    return Layout(data, fsdp)
+            f"layout {data}x{fsdp}x{sp} covers {data * fsdp * sp} of {world} "
+            "ranks; a rank without a share of the batch would stall the "
+            "others: size --data-parallel / --fsdp (and the batch) to the "
+            "ranks")
+    return Layout(sp=sp) if sp > 1 else Layout(data, fsdp)
 
 
 def create_mesh(layout: Layout, device_type: str):
@@ -180,16 +201,28 @@ def fsdp_units(model):
 def wrap(model, layout: Layout):
     """``model`` (a CamRaDepth on this rank's device, the same weights on
     every rank) under ``layout``'s wrapper, its dropout drawn for this
-    rank's rows of the global batch. Needs a process group of
+    rank's rows of the global batch; under sp the model itself, set to run
+    on this rank's rows of every image (its dropout drawn for the whole
+    batch, which every rank holds). Needs a process group of
     ``layout.size`` ranks."""
+    import torch.distributed as dist
     from torch.distributed.fsdp import fully_shard
     from torch.nn.parallel import DistributedDataParallel
 
+    from camradepth_tpu_torch.parallel.spatial import RowShard, partition
+
     world = multihost.process_count()
     if layout.size != world:
-        raise ConfigError(f"layout {layout.data}x{layout.fsdp} needs "
-                          f"{layout.size} ranks, the process group has "
-                          f"{world}")
+        raise ConfigError(f"layout {layout.data}x{layout.fsdp}x{layout.sp} "
+                          f"needs {layout.size} ranks, the process group "
+                          f"has {world}")
+    if layout.kind == "sp":
+        # the spatial collectives' own group (module docstring)
+        group = dist.new_group(list(range(world)))
+        model.row_shard = RowShard(partition(model.cfg.img_size[0],
+                                             layout.sp),
+                                   multihost.process_index(), group)
+        return model
     dev = next(model.parameters()).device
     model.set_batch_shard(multihost.BatchShard(multihost.process_index(),
                                                world))
@@ -227,8 +260,34 @@ def set_gradient_sync(model, enabled: bool) -> None:
 
 def batch_shard(model) -> Optional[multihost.BatchShard]:
     """The rows of the global batch that ``model`` (wrapped or not) runs
-    on this rank; None for one unwrapped device."""
+    on this rank; None for one unwrapped device and under sp."""
     return unwrap(model).batch_shard
+
+
+def row_shard(model):
+    """The rows of every image that ``model`` runs on this rank under sp
+    (a ``spatial.RowShard``); None else."""
+    return unwrap(model).row_shard
+
+
+def sum_over_ranks(tensors) -> None:
+    """Replace each of ``tensors`` (fp32, on one device, the same shapes on
+    every rank) by its sum over the process group's ranks, in rank order,
+    so every rank gets the same bits: one all-gather of them all,
+    flattened."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    x = flat.to(multihost.collective_device())
+    parts = [torch.empty_like(x) for _ in range(multihost.process_count())]
+    dist.all_gather(parts, x)
+    total = parts[0].to(flat.device)
+    for p in parts[1:]:
+        total += p.to(flat.device)
+    at = 0
+    for t in tensors:
+        t.copy_(total[at:at + t.numel()].view_as(t))
+        at += t.numel()
 
 
 @dataclass(frozen=True)

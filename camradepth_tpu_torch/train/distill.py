@@ -25,7 +25,11 @@ Under a multi-device layout the student is wrapped as the trainer's model
 is, after its warm start; the teacher stays whole and unwrapped on every
 rank (``camradepth_tpu/train/distill.py:311-320``) and runs on the rank's
 rows. The distillation mean and the GT terms are the global batch's
-(``train/losses.py``).
+(``train/losses.py``). Under sp teacher and student run on the rank's
+rows of every image, the teacher sharded too; each per-sample mean over
+the pixels is the sum over the sp group of the ranks' per-sample sums
+over the whole image's pixel count (the ranks' rows are uneven), so every
+rank holds the whole samples' terms.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ import torch.nn.functional as F
 
 from camradepth_tpu_torch.config import ExperimentConfig
 from camradepth_tpu_torch.models.camradepth import create_model
-from camradepth_tpu_torch.parallel.mesh import batch_shard, unwrap
+from camradepth_tpu_torch.parallel import spatial
+from camradepth_tpu_torch.parallel.mesh import batch_shard, row_shard, unwrap
 from camradepth_tpu_torch.train.losses import masked_mean, multitask_loss
 from camradepth_tpu_torch.train.step import (
-    build_gt,
+    model_inputs,
     prepare_microbatch,
     train_step,
 )
@@ -49,19 +54,30 @@ from camradepth_tpu_torch.train.trainer import Trainer
 from camradepth_tpu_torch.utils import checkpoint as ckpt_util
 
 
+def _per_sample_mean(v: torch.Tensor, shard=None) -> torch.Tensor:
+    """The mean over all pixels of each sample of ``v`` [B, h, ...] -> [B];
+    under an sp ``shard`` (``v`` this rank's rows) the sum over the group
+    of the ranks' per-sample sums over the whole image's pixel count."""
+    dims = tuple(range(1, v.ndim))
+    if shard is None:
+        return v.mean(dim=dims)
+    return shard.sum_grad(v.sum(dim=dims)) / shard.global_count(
+        v[0].numel())
+
+
 def _per_sample_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
-                          beta: float = 1.0) -> torch.Tensor:
+                          beta: float = 1.0, shard=None) -> torch.Tensor:
     """Dense SmoothL1, the mean over all pixels of each sample -> [B]: the
     teacher's prediction is a target at every pixel."""
     diff = torch.abs(target - pred)
     loss = torch.where(diff < beta, 0.5 * diff * diff / beta,
                        diff - 0.5 * beta)
-    return loss.mean(dim=tuple(range(1, loss.ndim)))
+    return _per_sample_mean(loss, shard)
 
 
 def _per_sample_kl(student_logits: torch.Tensor,
                    teacher_logits: torch.Tensor,
-                   temperature: float) -> torch.Tensor:
+                   temperature: float, shard=None) -> torch.Tensor:
     """KL(teacher || student) over the class axis (last, NHWC) of the
     logits divided by ``temperature``, times T^2 (Hinton et al. 2015), the
     mean over pixels of each sample -> [B]; in fp32."""
@@ -71,33 +87,38 @@ def _per_sample_kl(student_logits: torch.Tensor,
     log_t = F.log_softmax(t_logits, dim=-1)
     log_s = F.log_softmax(student_logits.float() / t, dim=-1)
     kl = torch.sum(p_t * (log_t - log_s), dim=-1) * (t * t)
-    return kl.mean(dim=tuple(range(1, kl.ndim)))
+    return _per_sample_mean(kl, shard)
 
 
 def distill_terms(student_pred: Mapping, teacher_pred: Mapping,
-                  cfg: ExperimentConfig, temperature: float = 1.0
+                  cfg: ExperimentConfig, temperature: float = 1.0,
+                  shard=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The per-sample distillation objective [B] and its scalar terms
     (``camradepth_tpu/train/distill.py:86-129``). The heads are weighted
     as in the GT multitask loss (``train.loss_weights``, normalized by
     their sum): the depth heads by dense SmoothL1, the seg heads by the
     temperature-scaled KL, zero where either side has no such head. The
-    argmax ``unsup_map`` is not distilled."""
+    argmax ``unsup_map`` is not distilled. Under an sp ``shard`` the
+    predictions are this rank's rows, and every term is the whole
+    image's."""
     w = cfg.train.loss_weights
     s_d, t_d = student_pred["depth"], teacher_pred["depth"]
     l_final = _per_sample_smooth_l1(s_d["final_depth"][..., 0],
-                                    t_d["final_depth"][..., 0])
+                                    t_d["final_depth"][..., 0], shard=shard)
     l_d4 = _per_sample_smooth_l1(s_d["intermediate_depths"][3][..., 0],
-                                 t_d["intermediate_depths"][3][..., 0])
+                                 t_d["intermediate_depths"][3][..., 0],
+                                 shard=shard)
     l_d3 = _per_sample_smooth_l1(s_d["intermediate_depths"][2][..., 0],
-                                 t_d["intermediate_depths"][2][..., 0])
+                                 t_d["intermediate_depths"][2][..., 0],
+                                 shard=shard)
     zeros = torch.zeros_like(l_final)
     s_seg, t_seg = student_pred["seg"], teacher_pred["seg"]
 
     def kl(key):
         if s_seg[key] is None or t_seg[key] is None:
             return zeros
-        return _per_sample_kl(s_seg[key], t_seg[key], temperature)
+        return _per_sample_kl(s_seg[key], t_seg[key], temperature, shard)
 
     l_seg, l_seg_i = kl("final_seg"), kl("intermediate_seg")
     total = (w[0] * l_final + w[1] * l_d4 + w[2] * l_d3 + w[3] * l_seg
@@ -122,21 +143,25 @@ def distill_loss(cfg: ExperimentConfig, model, micro: Dict,
               else micro["image_u8"]).shape[0]
     # teacher and student both read the padded, decoded features
     micro = prepare_microbatch(cfg, micro)
-    x = micro["features"]
+    x, gt, gt_shard = model_inputs(model, micro)
     b = x.shape[0]
     valid = (torch.arange(b, device=x.device) < orig_b).float()
-    with torch.no_grad():
-        teacher_pred = teacher(x)
+    rows = row_shard(model)
     unwrap(model).set_generator(generator)
-    pred = model(x)
-    per_sample, terms = distill_terms(pred, teacher_pred, cfg, temperature)
+    with spatial.sharded(rows):
+        with torch.no_grad():
+            teacher_pred = teacher(x)
+        pred = model(x)
+    per_sample, terms = distill_terms(pred, teacher_pred, cfg, temperature,
+                                      rows)
     del teacher_pred
     shard = batch_shard(model)
     if shard is not None:
         # each term is a mean over this rank's rows, as many on every rank
         terms = {k: shard.sum(v) / shard.count for k, v in terms.items()}
+    # under sp every rank holds the whole samples' terms: no shard here
     l_distill = masked_mean(per_sample, valid, shard)
-    l_gt, gt_metrics = multitask_loss(pred, build_gt(micro), cfg, shard)
+    l_gt, gt_metrics = multitask_loss(pred, gt, cfg, gt_shard)
     total = alpha * l_distill + (1.0 - alpha) * l_gt
     metrics = {"loss": total, "loss_distill": l_distill, "loss_gt": l_gt,
                "rmse_m": gt_metrics["rmse_m"], **terms}

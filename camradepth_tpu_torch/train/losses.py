@@ -14,9 +14,14 @@ whose gradient reaches each rank's own terms. The value is then the global
 batch's mean on every rank, and the ranks' gradients add up to its
 gradient, also when the ranks' valid-pixel counts differ (sparse lidar,
 padded rows). The focal CE's transform, which follows the mean, sees the
-global mean. ``smoothness_loss`` is a mean of per-sample means: over equal
-shares of the batch the global value is the mean of the ranks' values, so
-it needs no shard.
+global mean. Under spatially sharded training the shard is the sp group
+(``parallel/spatial.RowShard``, whose ``sum`` and ``sum_grad`` are those
+of a ``BatchShard``): each rank holds its rows of every map, the ranks'
+rows are uneven (7 and 6 at /32 for 416x800), and the masked sums and
+counts add up over the group alike. ``smoothness_loss`` is a mean of
+per-sample means: over equal shares of the batch the global value is the
+mean of the ranks' values, so it needs no shard (no training objective
+calls it).
 """
 
 from __future__ import annotations

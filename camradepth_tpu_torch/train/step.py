@@ -22,6 +22,16 @@ so the global microbatch has ranks times as many rows. The padded rows
 carry no weight in any global normalizer; the dropout masks are drawn for
 the padded global batch, so a real row's mask sits at another position
 of the draw than in a one-process step.
+
+Under the sp layout every rank holds the whole microbatch (padded alike on
+every rank) and runs the forward and backward on its rows of every image
+(``parallel/spatial.py``): the GT pyramid is built from the whole depth
+map, whose 3x3 windows reach one row past a rank's cut, and then every
+map is cut to the rank's rows. The losses' masked sums and counts add up
+over the sp group; the dropout masks are the whole batch's, as in one
+process. Each rank's backward gives its terms of the global gradient
+(``parallel/mesh.py``'s convention), and their sum over the ranks is taken
+once per optimizer step, in fp32, after the last microbatch's backward.
 """
 
 from __future__ import annotations
@@ -33,9 +43,12 @@ import torch.distributed as dist
 
 from camradepth_tpu_torch.data.wire import decode_wire_micro, is_wire_micro
 from camradepth_tpu_torch.ops.pooling import minpool_sparse
+from camradepth_tpu_torch.parallel import spatial
 from camradepth_tpu_torch.parallel.mesh import (
     batch_shard,
+    row_shard,
     set_gradient_sync,
+    sum_over_ranks,
     unwrap,
 )
 from camradepth_tpu_torch.parallel.multihost import is_dtensor
@@ -85,14 +98,37 @@ def prepare_microbatch(cfg, micro: Dict[str, torch.Tensor]
     return micro
 
 
+def gt_rows(gt: Dict[str, Optional[torch.Tensor]], shard
+            ) -> Dict[str, Optional[torch.Tensor]]:
+    """This rank's rows of every map of a :func:`build_gt` dict built from
+    the whole image (all of it for no ``shard``)."""
+    if shard is None:
+        return gt
+    return {k: None if v is None else shard.local(v) for k, v in gt.items()}
+
+
+def model_inputs(model, micro: Dict[str, torch.Tensor]):
+    """(the features ``model`` runs on, the GT targets, the losses' shard)
+    of a prepared microbatch: under sp this rank's rows of both and the
+    sp group; else the whole of both and the batch shard (or None)."""
+    shard = row_shard(model)
+    x = micro["features"]
+    gt = build_gt(micro)
+    if shard is None:
+        return x, gt, batch_shard(model)
+    return shard.local(x), gt_rows(gt, shard), shard
+
+
 def microbatch_loss(cfg, model, micro: Dict[str, torch.Tensor],
                     generator: Optional[torch.Generator] = None):
     """(loss, metrics) of one microbatch in train mode, its dropout drawn
     from ``generator``; the global batch's under a layout."""
     micro = prepare_microbatch(cfg, micro)
     unwrap(model).set_generator(generator)
-    pred = model(micro["features"])
-    return multitask_loss(pred, build_gt(micro), cfg, batch_shard(model))
+    x, gt, shard = model_inputs(model, micro)
+    with spatial.sharded(row_shard(model)):
+        pred = model(x)
+    return multitask_loss(pred, gt, cfg, shard)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -146,7 +182,10 @@ def train_step(cfg, model, optimizer, microbatches: List[Dict],
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            elif accum > 1:
+        if row_shard(model) is not None:
+            sum_over_ranks([p.grad for p in params])
+        if accum > 1:
+            for p in params:
                 p.grad.div_(accum)
         grad_norm = global_norm([p.grad for p in params])
     for group in optimizer.param_groups:
@@ -164,12 +203,15 @@ def eval_step(cfg, model, batch: Dict[str, torch.Tensor]
     """Per-frame metrics of a batch in eval mode, each [B]
     (``camradepth_tpu/train/step.py:152-179``): the loss terms of each
     frame alone, so the caller can drop the loader's padded tail frames
-    and weight the aggregate by frame."""
+    and weight the aggregate by frame. Under sp each rank scores its rows
+    with the sp group's sums: every rank gets the whole frames' metrics,
+    bit for bit the same."""
     if is_wire_micro(batch):
         batch = decode_wire_micro(batch)
-    pred = model(batch["features"])
-    gt = build_gt(batch)
-    n = batch["features"].shape[0]
+    x, gt, _ = model_inputs(model, batch)
+    with spatial.sharded(row_shard(model)):
+        pred = model(x)
+    n = x.shape[0]
 
     def frame(tree, i):
         if isinstance(tree, dict):
@@ -178,6 +220,6 @@ def eval_step(cfg, model, batch: Dict[str, torch.Tensor]
             return tuple(frame(v, i) for v in tree)
         return None if tree is None else tree[i:i + 1]
 
-    rows = [multitask_loss(frame(pred, i), frame(gt, i), cfg)[1]
-            for i in range(n)]
+    rows = [multitask_loss(frame(pred, i), frame(gt, i), cfg,
+                           row_shard(model))[1] for i in range(n)]
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}

@@ -43,7 +43,11 @@ run directory (metrics, config, snapshot, checkpoints gathered from every
 rank), the best-checkpoint and early-stopping decisions are the primary's,
 broadcast, and a SIGTERM on any rank stops every rank at the same step. A
 multi-process run needs an explicit run directory and takes dense batches
-(wire ``auto`` stays dense; ``on`` is refused).
+(wire ``auto`` stays dense; ``on`` is refused). Under the sp layout every
+rank loads the same full batches (no ``process_shard``, as the JAX
+trainer's sp-only mesh does) and cuts its rows of every map on the device
+(``train/step.py``); its eval scores its rows with the sp group's sums, so
+every rank reports the same val loss, bit for bit.
 """
 
 from __future__ import annotations
@@ -152,15 +156,15 @@ def snapshot_run(cfg: ExperimentConfig, run_dir: Path) -> None:
         shutil.copyfile(pkg / rel, snap / rel.replace("/", "__"))
 
 
-class Trainer:
-    def __init__(self, cfg: ExperimentConfig, loaders: Optional[Dict] = None,
-                 run_dir: Optional[str] = None, auto_resume: bool = False,
-                 device="cuda", layout: Optional[Layout] = None):
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.layout = layout if layout is not None else training_layout(cfg)
-        multi = multihost.is_multiprocess()
-        if multi and run_dir is None:
+def run_layout(cfg: ExperimentConfig, run_dir: Optional[str] = None,
+               layout: Optional[Layout] = None) -> Optional[Layout]:
+    """The layout a run of ``cfg`` trains on (``layout``, else
+    ``training_layout``), after the refusals of a multi-process run that
+    come before anything is built, as the JAX trainer makes them: no run
+    directory, and the compact wire format ``on``."""
+    layout = layout if layout is not None else training_layout(cfg)
+    if multihost.is_multiprocess():
+        if run_dir is None:
             # an auto-indexed directory would differ between the ranks
             raise ConfigError(
                 "multi-process training requires an explicit run_dir (pass "
@@ -168,12 +172,25 @@ class Trainer:
         # the compact wire format (camradepth_tpu/train/trainer.py:248-
         # 287): one process takes it for "auto" and "on"; several stay
         # dense, and refuse "on"
-        if multi and cfg.data.wire_format == "on":
+        if cfg.data.wire_format == "on":
             raise ConfigError(
-                "data.wire_format=on requires a single-process run; use "
-                "wire_format=auto or off")
+                "data.wire_format=on requires a single-process run without "
+                "sp sharding (the on-device scatter decode is frame-local); "
+                "use wire_format=auto or off")
+    return layout
+
+
+class Trainer:
+    def __init__(self, cfg: ExperimentConfig, loaders: Optional[Dict] = None,
+                 run_dir: Optional[str] = None, auto_resume: bool = False,
+                 device="cuda", layout: Optional[Layout] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.layout = run_layout(cfg, run_dir, layout)
+        multi = multihost.is_multiprocess()
         wire = cfg.data.wire_format != "off" and not multi
-        if loaders is None and multi:
+        sp = self.layout is not None and self.layout.kind == "sp"
+        if loaders is None and multi and not sp:
             world = multihost.process_count()
             if cfg.train.batch_size % world:
                 raise ConfigError(f"batch_size {cfg.train.batch_size} must "
@@ -256,18 +273,24 @@ class Trainer:
         its weights."""
 
     # ------------------------------------------------------------------
+    def _whole(self) -> bool:
+        """Whether the model is the single-device one on every rank: one
+        device, or the sp layout (parameters and optimizer state
+        replicated, nothing wrapped)."""
+        return self.layout is None or self.layout.kind == "sp"
+
     def state(self) -> Dict:
         """The training state as a host snapshot (model, optimizer,
         step), in the single-device layout under any layout: every rank
         calls it, the primary's holds the state."""
-        if self.layout is None:
+        if self._whole():
             return ckpt_util.host_snapshot(self.model, self.optimizer,
                                            self.training_steps)
         return {**multihost.full_state(self.model, self.optimizer),
                 "step": int(self.training_steps)}
 
     def _restore(self, state: Dict) -> None:
-        if self.layout is None:
+        if self._whole():
             self.model.load_state_dict(state["state_dict"], strict=True)
             if "optimizer" in state:
                 self.optimizer.load_state_dict(state["optimizer"])

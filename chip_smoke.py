@@ -1413,11 +1413,15 @@ def phase_h_train(cfg, counters, reset_counters):
     return launches
 
 
-def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None):
+def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None,
+                       layout=None, top=14, warm=True):
     """One bf16 optimizer step (batch 2 x 3) timed without the profiler,
     and one under it: device busy, the idle share, peak memory and the
-    largest kernels. With ``teacher_cfg``, a distill step (alpha 0.7,
-    temperature 1) against a teacher of that config."""
+    largest ``top`` kernels; returns (wall ms, busy ms, peak GiB). With
+    ``teacher_cfg``, a distill step (alpha 0.7, temperature 1) against a
+    teacher of that config; with ``layout``, the model wrapped for it on
+    this rank (``parallel/mesh.wrap``). Without ``warm`` no step runs
+    before the timed one (the caller ran one of the same shapes)."""
     import functools
 
     from torch.profiler import ProfilerActivity, profile
@@ -1438,6 +1442,10 @@ def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None):
     model = create_model(cfg.model, device="cuda", seed=0, train=True)
     casts = sum(1 for mod in model.modules() if not isinstance(mod, GroupNorm)
                 for _ in mod.parameters(recurse=False))
+    if layout is not None:
+        from camradepth_tpu_torch.parallel.mesh import wrap
+
+        model = wrap(model, layout)
     opt = DiffGradNorm(model.parameters(), lr=1e-5)
     micro = [step_inputs(cfg, TRAIN_BATCH, 40 + j, "cuda")
              for j in range(accum)]
@@ -1450,7 +1458,8 @@ def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None):
         return train_step(cfg, model, opt, micro, gens, 1e-5,
                           loss_fn=loss_fn)
 
-    step(0)
+    if warm:
+        step(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1469,7 +1478,7 @@ def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None):
           f"launches; device idle share {100 * (1 - busy_ms / wall_ms):.1f} %;"
           f" peak memory {peak_gb:.2f} GiB; fp32 weights cast at use: "
           f"{casts} tensors per microbatch forward")
-    for e in kernels[:14]:
+    for e in kernels[:top]:
         ms = e.self_device_time_total / 1e3
         print(f"{tag}   {ms:8.3f} ms {100 * ms / busy_ms:5.1f} % x{e.count:<5d} "
               f"{e.key[:100]}")
@@ -1482,6 +1491,7 @@ def profile_train_step(cfg, accum, tag="(h)", teacher_cfg=None):
               f" time), x{sum(e.count for e in sel)}")
     del model, opt, micro, loss_fn
     torch.cuda.empty_cache()
+    return wall_ms, busy_ms, peak_gb
 
 
 # ---------------------------------------------------------------- phase (i)
@@ -3472,6 +3482,597 @@ def phase_n_alone(worlds=(SP_RANKS,)):
                   f"in {_build.build_dir()})")
 
 
+# ---------------------------------------------------------------- phase (o)
+# (o1): one fp32 optimizer step of base at 416x800 (one microbatch of 2,
+# dropout on, TF32 off) at sp = 2 against the single-process fp32 step from
+# the same weights, microbatch and dropout generator, with remat off and
+# on: the fp32 sums run in another order across the ranks through 34 blocks
+# and the backward. Loss rtol 1e-5, each parameter's gradient relative L2
+# the card-vs-CPU step limit
+O_LOSS_RTOL = 1e-5
+# the ranks of (o): two on the one card, over gloo, as (n)'s
+O_SEED = 17
+# (o2): cli train at sp = 2, bf16, batch 2 x 3, two optimizer steps (12
+# train frames) and eval of 4 frames; (o3): cli distill, one step
+O_TRAIN, O_VAL, O_ACCUM = 12, 4, 3
+
+
+def training_counts():
+    """The training path's kernel launch counts of this process:
+    (attention, upsample, gelu, attention backward, upsample backward,
+    gelu backward)."""
+    from camradepth_tpu_torch.ops.attention import (
+        maxpool_attention_scores,
+        maxpool_attention_scores_backward,
+    )
+    from camradepth_tpu_torch.ops.gelu import gelu_bf16, gelu_bf16_backward
+    from camradepth_tpu_torch.ops.resize import (
+        upsample_bicubic_x2,
+        upsample_bicubic_x2_backward,
+    )
+
+    return tuple(fn.launches for fn in (
+        maxpool_attention_scores, upsample_bicubic_x2, gelu_bf16,
+        maxpool_attention_scores_backward, upsample_bicubic_x2_backward,
+        gelu_bf16_backward))
+
+
+def o_config(cfg, dtype, remat=False):
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype=dtype, remat_encoder=remat,
+        remat_decoder=remat))
+
+
+@contextlib.contextmanager
+def recorded_argmax(forced=None):
+    """[the argmax [B, h, N] (int32, on the host) of each attention call]
+    of the enclosed training step. With ``forced`` (such a list, the
+    sharded step's, its ranks' tokens joined) each call takes the forced
+    argmax instead, which may differ from its own only at near ties (the
+    top two unscaled fp32 dots within ARGMAX_TIE x (1 + |max|)): both are
+    then maxima, and the backward follows the sharded step's choice. The
+    list then holds (rows that differ, the largest gap at one of them
+    relative to 1 + |max|) per call."""
+    from camradepth_tpu_torch.ops import attention
+
+    out = []
+    fn = attention.maxpool_attention_scores_with_argmax
+
+    def recording(q, k, heads, scale):
+        s, amax = fn(q, k, heads, scale)
+        if forced is None:
+            out.append(amax.cpu())
+            return s, amax
+        want = forced[len(out)].to(amax.device)
+        diff = want != amax
+        widest = 0.0
+        if bool(diff.any()):
+            with torch.no_grad():
+                top2 = attention._dots(q, k, heads).topk(2, dim=-1).values
+                rel = ((top2[..., 0] - top2[..., 1])
+                       / (1 + top2[..., 0].abs()))[diff]
+            widest = float(rel.max())
+            require(widest <= ARGMAX_TIE, ("argmax differs off a tie",
+                                           len(out), widest))
+        out.append((int(diff.sum()), widest))
+        return s, want
+
+    attention.maxpool_attention_scores_with_argmax = recording
+    try:
+        yield out
+    finally:
+        attention.maxpool_attention_scores_with_argmax = fn
+
+
+def o_step(cfg, model, micro, argmax=False, forced=None):
+    """One optimizer step of ``model`` (wrapped for sp or not) on one
+    microbatch, dropout drawn from a generator seeded with O_SEED: its
+    metrics, every parameter's gradient (host copies), the launches and,
+    with ``argmax`` or ``forced``, ``recorded_argmax``'s list."""
+    from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+    from camradepth_tpu_torch.train.step import train_step
+
+    opt = DiffGradNorm(model.parameters(), lr=1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(O_SEED)
+    torch.cuda.synchronize()
+    before = training_counts()
+    with (recorded_argmax(forced) if argmax or forced is not None
+          else contextlib.nullcontext([])) as amax:
+        metrics = train_step(cfg, model, opt, [micro], [gen], 1e-3)
+        metrics = {k: float(v) for k, v in metrics.items()}
+    launches = tuple(a - b for a, b in zip(training_counts(), before))
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return metrics, grads, launches, amax
+
+
+def o_microbatch(cfg, tmp):
+    """(o1)'s microbatch of 2 (numpy, seeded): the GT of the second rank's
+    rows at most 10 % valid, the first's ~60 % (``parity_microbatches``
+    by image rows), written for the ranks."""
+    from camradepth_tpu_torch.parallel.gradcheck import parity_microbatches
+
+    micro = parity_microbatches(cfg, 1, TRAIN_BATCH, seed=O_SEED,
+                                ranks=SP_RANKS, image_rows=True)[0]
+    np.savez(tmp / "o_micro.npz", **micro)
+
+
+def o_load_micro(tmp):
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in np.load(tmp / "o_micro.npz").items()}
+
+
+@contextlib.contextmanager
+def recorded_training_calls():
+    """{kernel: [(inputs, outputs) of each call]} of the training path's
+    six kernels during the enclosed step, recorded at their autograd
+    functions (the forwards' outputs, the backwards' saved inputs and
+    cotangents); the wrappers, which count the launches, are untouched."""
+    from camradepth_tpu_torch.ops import attention, gelu, resize
+
+    calls = {k: [] for k in ("attention", "attention_bwd", "bicubic",
+                             "bicubic_bwd", "gelu", "gelu_bwd")}
+    saved = [(fn, name, getattr(fn, name)) for fn in (
+        attention._Scores, resize._Upsample, gelu._GeluBf16)
+        for name in ("forward", "backward")]
+
+    def scores_fwd(ctx, q, k, heads, scale):
+        s = saved[0][2](ctx, q, k, heads, scale)
+        calls["attention"].append(((q, k, heads, scale), s))
+        return s
+
+    def scores_bwd(ctx, g):
+        out = saved[1][2](ctx, g)
+        q, k, amax = ctx.saved_tensors
+        calls["attention_bwd"].append(((q, k, amax, g, ctx.num_heads,
+                                        ctx.scale), out[:2]))
+        return out
+
+    def up_fwd(ctx, x):
+        y = saved[2][2](ctx, x)
+        calls["bicubic"].append(((x,), y))
+        return y
+
+    def up_bwd(ctx, gy):
+        gx = saved[3][2](ctx, gy)
+        calls["bicubic_bwd"].append(((gy,), gx))
+        return gx
+
+    def gelu_fwd(ctx, x):
+        y = saved[4][2](ctx, x)
+        calls["gelu"].append(((x,), y))
+        return y
+
+    def gelu_bwd(ctx, g):
+        gx = saved[5][2](ctx, g)
+        (x,) = ctx.saved_tensors
+        calls["gelu_bwd"].append(((x, g), gx))
+        return gx
+
+    for (fn, name, _), new in zip(saved, (scores_fwd, scores_bwd, up_fwd,
+                                          up_bwd, gelu_fwd, gelu_bwd)):
+        setattr(fn, name, staticmethod(new))
+    try:
+        yield calls
+    finally:
+        for fn, name, old in saved:
+            setattr(fn, name, staticmethod(old))
+
+
+def training_kernels_vs_plain(calls):
+    """Each recorded call's kernel output against its plain version on the
+    same shard-shaped inputs: {kernel: (calls, max abs error, shapes)};
+    attention within ATTN_TOL with the argmax equal off near ties, dq bit
+    for bit and dk within 1 bf16 ulp (fp32: ATTN_BWD_TOL), the bicubic,
+    its adjoint, the GELU and its VJP bit for bit."""
+    from camradepth_tpu_torch.ops.attention import (
+        maxpool_attention_scores_argmax_reference,
+        maxpool_attention_scores_backward_reference,
+    )
+    from camradepth_tpu_torch.ops.gelu import (
+        gelu_bf16_backward_reference,
+        gelu_bf16_reference,
+    )
+    from camradepth_tpu_torch.ops.resize import (
+        upsample_bicubic_x2_backward_reference,
+        upsample_bicubic_x2_reference,
+    )
+
+    plain = {"bicubic": upsample_bicubic_x2_reference,
+             "bicubic_bwd": upsample_bicubic_x2_backward_reference,
+             "gelu": gelu_bf16_reference,
+             "gelu_bwd": gelu_bf16_backward_reference}
+    amax_of = {}
+    for args, _ in calls["attention_bwd"]:
+        amax_of[(args[0].data_ptr(), args[1].data_ptr())] = args[2]
+    out = {}
+    with torch.no_grad():
+        for key, recs in calls.items():
+            err, shapes, ties = 0.0, set(), 0
+            for args, got in recs:
+                if key == "attention":
+                    q, k, heads, scale = args
+                    want, want_amax = \
+                        maxpool_attention_scores_argmax_reference(*args)
+                    torch.testing.assert_close(got, want, **ATTN_TOL)
+                    amax = amax_of[(q.data_ptr(), k.data_ptr())]
+                    ties += argmax_near_ties(q, k, heads, amax)
+                    e = (got - want).abs().max().item()
+                elif key == "attention_bwd":
+                    q = args[0]
+                    wq, wk = maxpool_attention_scores_backward_reference(
+                        *args)
+                    require(torch.equal(got[0], wq), ("dq", q.shape))
+                    if q.dtype == torch.bfloat16:
+                        require(bf16_ulps(got[1], wk) <= 1.0, ("dk",
+                                                               q.shape))
+                    else:
+                        torch.testing.assert_close(got[1], wk,
+                                                   **ATTN_BWD_TOL)
+                    e = (got[1].float() - wk.float()).abs().max().item()
+                else:
+                    want = plain[key](*args)
+                    require(same_bits(got, want), (key, args[0].shape))
+                    e = 0.0
+                err = max(err, e)
+                shapes.add(tuple(args[0].shape))
+            out[key] = (len(recs), err, sorted(shapes), ties)
+    torch.cuda.synchronize()
+    return out
+
+
+def o_recorders():
+    """Record each step's and eval's metrics of the trainers in this
+    process (floats), per call: {"train": [...], "val": [...]}."""
+    from camradepth_tpu_torch.train.distill import DistillTrainer
+    from camradepth_tpu_torch.train.trainer import Trainer
+
+    rec = {"train": [], "val": []}
+    for cls in (Trainer, DistillTrainer):
+        step = cls.__dict__["_train_step"]
+
+        def wrapped(self, micro, gens, lr, step=step):
+            m = step(self, micro, gens, lr)
+            rec["train"].append({k: float(v) for k, v in m.items()})
+            return m
+
+        cls._train_step = wrapped
+    evaluate = Trainer.evaluate
+
+    def wrapped_eval(self):
+        m = evaluate(self)
+        rec["val"].append(dict(m))
+        return m
+
+    Trainer.evaluate = wrapped_eval
+    return rec
+
+
+def o_rank(argv):
+    """One rank of phase (o) (``chip_smoke.py --rank-o RANK WORLD PORT
+    CLI_PORTS TMP SPLIT PTH``): (o1) the fp32 sp step with remat off and on
+    (gradients to TMP from rank 0), a bf16 sp microbatch with every kernel
+    call recorded and held to its plain version, and the profiled bf16 sp
+    step; then (o2) `cli train --spatial-parallel` and (o3) `cli distill
+    --spatial-parallel` over (g)'s corpus. Every rank writes its report."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.parallel import multihost
+    from camradepth_tpu_torch.parallel.mesh import Layout, wrap
+
+    rank, world = int(argv[0]), int(argv[1])
+    port, cli_ports = int(argv[2]), [int(v) for v in argv[3].split(",")]
+    tmp, split, pth = Path(argv[4]), argv[5], argv[6]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset("base")
+    report, seconds = {}, {}
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device="cuda")
+    layout = Layout(sp=world)
+    micro = o_load_micro(tmp)
+
+    # (o1) fp32, remat off and on
+    for remat in (False, True):
+        c = o_config(cfg, "float32", remat)
+        model = wrap(create_model(c.model, device="cuda", seed=O_SEED,
+                                  train=True), layout)
+        metrics, grads, launches, amax = o_step(c, model, micro,
+                                                argmax=not remat)
+        report[f"o1_remat{int(remat)}"] = {"metrics": metrics,
+                                           "launches": launches}
+        if rank == 0:
+            torch.save(grads, tmp / f"o1_grads_remat{int(remat)}.pt")
+        if amax:
+            torch.save(amax, tmp / f"o1_amax{rank}.pt")
+        del model, grads, amax
+        torch.cuda.empty_cache()
+    seconds["o1_fp32"] = time.perf_counter() - t0
+    # (o1) bf16: each kernel call on its shard shapes
+    t1 = time.perf_counter()
+    c = o_config(cfg, "bfloat16")
+    model = wrap(create_model(c.model, device="cuda", seed=O_SEED,
+                              train=True), layout)
+    micro16 = dict(micro, features=micro["features"].to(torch.bfloat16))
+    with recorded_training_calls() as calls:
+        metrics, _, launches, _ = o_step(c, model, micro16)
+    report["o1_bf16"] = {"metrics": metrics, "launches": launches}
+    report["o1_kernels"] = training_kernels_vs_plain(calls)
+    del calls, model
+    torch.cuda.empty_cache()
+    # (o1)'s bf16 step ran these shapes: no warm-up step
+    report["o1_profiled"] = profile_train_step(
+        cfg, O_ACCUM, tag=f"(o) rank {rank}", layout=layout, top=0,
+        warm=False)
+    seconds["o1_bf16"] = time.perf_counter() - t1
+    multihost.shutdown()
+
+    # (o2) cli train, (o3) cli distill: sp over the ranks, in bf16
+    rec = o_recorders()
+    common = ["--coordinator", None, "--num-processes", str(world),
+              "--process-id", str(rank), "--spatial-parallel", str(world),
+              "--split", split, "--save-model", "--batch-size",
+              str(TRAIN_BATCH), "--desired-batch-size",
+              str(TRAIN_BATCH * O_ACCUM), "--num-epochs", "1", "--set",
+              "train.log_every=1"]
+    runs = (("o2", ["train", "--preset", "base", "--train-val-split",
+                    f"{O_TRAIN},{O_VAL}"]),
+            ("o3", ["distill", "--preset", "base", "--tpu-decoder",
+                    "--teacher-checkpoint", pth, "--train-val-split",
+                    f"{TRAIN_BATCH * O_ACCUM},{TRAIN_BATCH}"]))
+    for (name, head), cli_port in zip(runs, cli_ports):
+        t2 = time.perf_counter()
+        argv_cli = head + ["--run-dir", str(tmp / f"{name}_run")] + [
+            f"127.0.0.1:{cli_port}" if a is None else a for a in common]
+        before = training_counts()
+        rec["train"].clear()
+        rec["val"].clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rc, text = run_cli(argv_cli)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t2
+        report[name] = {
+            "rc": rc, "out": text[-3000:], "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": tuple(a - b for a, b in zip(training_counts(),
+                                                    before)),
+            "train": list(rec["train"]), "val": list(rec["val"])}
+        seconds[name] = wall
+    report["seconds"] = seconds
+    (tmp / f"o_rank{rank}.json").write_text(json.dumps(report))
+    print(f"[{rank}] DONE", flush=True)
+
+
+def o_reference(cfg, tmp, world):
+    """(o1)'s single-process fp32 step (remat off) on the card once the
+    ranks have ended, each attention call taking the sharded step's
+    argmax where the two differ at a near tie (``recorded_argmax``)."""
+    from camradepth_tpu_torch.models.camradepth import create_model
+
+    ranks = [torch.load(tmp / f"o1_amax{r}.pt") for r in range(world)]
+    forced = [torch.cat(calls, dim=-1) for calls in zip(*ranks)]
+    c = o_config(cfg, "float32")
+    model = create_model(c.model, device="cuda", seed=O_SEED, train=True)
+    out = o_step(c, model, o_load_micro(tmp), forced=forced)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def o_grad_errors(got, want):
+    """Every parameter's gradient error, relative L2, largest first:
+    [(error, name)]."""
+    errs = []
+    for name, w in want.items():
+        g = got[name].double()
+        w = w.double()
+        errs.append((float((g - w).norm() / w.norm().clamp_min(1e-30)),
+                     name))
+    return sorted(errs, reverse=True)
+
+
+def phase_o(cfg, split, pth, tmp, world=SP_RANKS):
+    """This slice's path: spatially sharded training on ``world`` ranks
+    (two on the one card over gloo), held to the single-process step and
+    driven through cli train and cli distill."""
+    import os
+
+    from camradepth_tpu_torch.serving import load_engine
+    from camradepth_tpu_torch.utils.checkpoint import best_checkpoint
+
+    tmp = Path(tmp)
+    t0 = time.perf_counter()
+    o_microbatch(o_config(cfg, "float32"), tmp)
+    single = [profile_train_step(cfg, O_ACCUM, tag="(o) single", top=0)]
+    ports = [str(free_port()), f"{free_port()},{free_port()}"]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t_refs = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-o", str(r),
+         str(world), *ports, str(tmp), str(split), str(pth)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0 and f"[{r}] DONE" in log,
+                (r, p.returncode, log[-4000:]))
+    t_ranks = time.perf_counter()
+    single.append(profile_train_step(cfg, O_ACCUM, tag="(o) single", top=0))
+    ref_metrics, ref_grads, ref_launches, ties = o_reference(cfg, tmp, world)
+    reports = [json.loads((tmp / f"o_rank{r}.json").read_text())
+               for r in range(world)]
+    where = (f"{world} ranks sharing one card over gloo"
+             if world > torch.cuda.device_count()
+             else f"{world} ranks on {world} cards over nccl")
+    # (o1) fp32 against the single-process step
+    n_attn = sum(cfg.model.depths)
+    fp32_want = (n_attn, 5, 0, n_attn, 5, 0)
+    require(ref_launches == fp32_want, (ref_launches, fp32_want))
+    failed = []
+    print(f"(o1) attention argmax, sp {world} against single-process (fp32, "
+          f"remat off): {sum(n for n, _ in ties)} rows of {len(ties)} calls "
+          f"differ, each a near tie (the top two single-process dots within "
+          f"{max(w for _, w in ties):.3g} x (1 + |max|), tol {ARGMAX_TIE}), "
+          "where the single-process step takes the sharded step's key")
+    for remat in (0, 1):
+        got = torch.load(tmp / f"o1_grads_remat{remat}.pt")
+        errs = o_grad_errors(got, ref_grads)
+        worst, name = errs[0]
+        print(f"(o1) remat {'on' if remat else 'off'}: the worst parameters' "
+              "gradient rel L2 " + ", ".join(f"{n} {e:.3g}"
+                                             for e, n in errs[:8])
+              + f"; {sum(e > STEP_GRAD_REL_L2 for e, _ in errs)} of "
+              f"{len(errs)} past {STEP_GRAD_REL_L2}")
+        for r, rep in enumerate(reports):
+            m = rep[f"o1_remat{remat}"]["metrics"]
+            for key in ("loss", "grad_norm"):
+                rel = abs(m[key] - ref_metrics[key]) / abs(ref_metrics[key])
+                require(rel <= (O_LOSS_RTOL if key == "loss"
+                                else STEP_RTOL), (remat, r, key, rel))
+            require(m == reports[0][f"o1_remat{remat}"]["metrics"],
+                    ("ranks differ", remat, r))
+        if worst > STEP_GRAD_REL_L2:
+            failed.append(("(o1) gradient", remat, name, worst))
+        m = reports[0][f"o1_remat{remat}"]["metrics"]
+        print(f"(o1) fp32 sp {world} step of base 416x800 ({where}), remat "
+              f"{'on' if remat else 'off'}: loss {m['loss']:.8g} vs "
+              f"single-process {ref_metrics['loss']:.8g} (rel "
+              f"{abs(m['loss'] - ref_metrics['loss']) / ref_metrics['loss']:.3g}"
+              f", tol {O_LOSS_RTOL}); grad_norm rel "
+              f"{abs(m['grad_norm'] - ref_metrics['grad_norm']) / ref_metrics['grad_norm']:.3g}"
+              f"; worst parameter gradient rel L2 {worst:.3g} ({name}; tol "
+              f"{STEP_GRAD_REL_L2}); launches per rank "
+              f"{[r[f'o1_remat{remat}']['launches'] for r in reports]}; "
+              "the ranks' metrics bit for bit")
+    for r, rep in enumerate(reports):
+        require(tuple(rep["o1_remat0"]["launches"]) == fp32_want,
+                (r, rep["o1_remat0"]["launches"], fp32_want))
+    # (o1) bf16 microbatch: launches and each kernel call
+    bf16_want = per_microbatch(cfg, 1, 0)
+    bf16_want = bf16_want[:2] + bf16_want[3:]  # no conv
+    for r, rep in enumerate(reports):
+        require(tuple(rep["o1_bf16"]["launches"]) == bf16_want,
+                (r, rep["o1_bf16"]["launches"], bf16_want))
+        for key, (n, err, shapes, ties) in rep["o1_kernels"].items():
+            require(n > 0, (r, key))
+            print(f"(o1) rank {r} {key} kernel = plain version on its {n} "
+                  f"shard-shaped calls of a bf16 sp step (max abs "
+                  f"{err:.3g}{f', {ties} near-tied argmax rows' if ties else ''}"
+                  f"; shapes {[tuple(s) for s in shapes][:4]}"
+                  f"{' ...' if len(shapes) > 4 else ''})")
+    print(f"(o1) bf16 launches per rank per microbatch (attention, upsample, "
+          f"gelu, their backwards) {[r['o1_bf16']['launches'] for r in reports]}"
+          f" (expected {bf16_want}: one process's, 34 + 34, 5 + 5, 53 + 53)")
+    for r, rep in enumerate(reports):
+        wall, busy, peak = rep["o1_profiled"]
+        print(f"(o1) profiled bf16 sp step (batch {TRAIN_BATCH} x {O_ACCUM}) "
+              f"rank {r} ({where}): {wall:.2f} ms wall, device busy "
+              f"{busy:.2f} ms, peak memory {peak:.2f} GiB")
+    for i, (wall, busy, peak) in enumerate(single):
+        print(f"(o1) profiled bf16 single-process step ({'before' if i == 0 else 'after'} "
+              f"the ranks): {wall:.2f} ms wall, device busy {busy:.2f} ms, "
+              f"peak memory {peak:.2f} GiB")
+    # (o2) cli train
+    for r, rep in enumerate(reports):
+        run = rep["o2"]
+        require(run["rc"] == 0, (r, run["out"]))
+        require(len(run["train"]) == O_TRAIN // (TRAIN_BATCH * O_ACCUM)
+                and len(run["val"]) == 1, (r, run["train"], run["val"]))
+        require(run["train"] == reports[0]["o2"]["train"]
+                and run["val"] == reports[0]["o2"]["val"], ("ranks", r))
+        require(all(np.isfinite(m["loss"]) for m in run["train"] +
+                    run["val"]), (r, run["train"], run["val"]))
+        want = per_microbatch(cfg, len(run["train"]) * O_ACCUM,
+                              -(-O_VAL // TRAIN_BATCH))
+        want = want[:2] + want[3:]
+        require(tuple(run["launches"]) == want, (r, run["launches"], want))
+    best = best_checkpoint(tmp / "o2_run")
+    require(best is not None, "(o2) no best checkpoint")
+    engine = load_engine(cfg, str(best), batch_size=TRAIN_BATCH,
+                         device="cuda")
+    h, w = cfg.model.img_size
+    d = engine.infer_batch(np.random.default_rng(6).standard_normal(
+        (TRAIN_BATCH, h, w, cfg.model.input_channels),
+        dtype=np.float32))["depth"]
+    require(d.shape == (TRAIN_BATCH, h, w) and np.isfinite(d).all(), d.shape)
+    del engine
+    torch.cuda.empty_cache()
+    r0 = reports[0]["o2"]
+    print(f"(o2) cli train --spatial-parallel {world} ({where}), bf16 batch "
+          f"{TRAIN_BATCH} x {O_ACCUM}: {len(r0['train'])} steps, losses "
+          f"{[round(m['loss'], 6) for m in r0['train']]}, val loss "
+          f"{r0['val'][0]['loss']:.6f}, the same bits on every rank; "
+          f"launches per rank {[r['o2']['launches'] for r in reports]}; "
+          f"best checkpoint {best.name} served by load_engine (depth "
+          f"{d.min():.3f} .. {d.max():.3f} m)")
+    for r, rep in enumerate(reports):
+        print(f"(o2) rank {r}: {rep['o2']['wall_s']:.1f} s wall for the "
+              f"command (start-up, loader and eval included), peak memory "
+              f"{rep['o2']['peak_gib']:.2f} GiB")
+    # (o3) cli distill
+    for r, rep in enumerate(reports):
+        run = rep["o3"]
+        require(run["rc"] == 0, (r, run["out"]))
+        require(len(run["train"]) == 1 and len(run["val"]) == 1,
+                (r, run["train"], run["val"]))
+        require(run["train"] == reports[0]["o3"]["train"], ("ranks", r))
+        require(all(np.isfinite(v) for m in run["train"] + run["val"]
+                    for v in m.values()), (r, run["train"]))
+    warm = "teacher warm start: {}/{} param tensors".format(
+        *DISTILL_WARM_START)
+    require(warm in reports[0]["o3"]["out"], reports[0]["o3"]["out"])
+    r0 = reports[0]["o3"]
+    print(f"(o3) cli distill --spatial-parallel {world} ({where}), base into "
+          f"base + tpu_decoder, bf16: {warm}; loss "
+          f"{r0['train'][0]['loss']:.6f} (distill "
+          f"{r0['train'][0]['loss_distill']:.6f}), val loss "
+          f"{r0['val'][0]['loss']:.6f}; launches per rank "
+          f"{[r['o3']['launches'] for r in reports]}; "
+          f"{r0['wall_s']:.1f} s wall, peak {r0['peak_gib']:.2f} GiB (rank 0)")
+    require(not failed, failed)
+    sec = reports[0]["seconds"]
+    print(f"(o) phase seconds: references {t_refs - t0:.1f}, ranks "
+          f"{t_ranks - t_refs:.1f} ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in sec.items())
+          + f"), total {time.perf_counter() - t0:.1f}")
+
+
+def phase_o_alone(worlds=(SP_RANKS,)):
+    """(o) with what it needs from the earlier phases and nothing else:
+    the kernels' build, the golden's weights as a .pth and a 16-frame
+    416x800 corpus (``python3 chip_smoke.py --phase o``;
+    tools/port_spatial_nccl.py on several cards)."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.data import synthetic
+    from camradepth_tpu_torch.ops import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_a()
+    cfg = preset("base")
+    _, weights = golden_weights()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        h, w = cfg.model.img_size
+        split = synthetic.generate(tmp / "data", num_frames=O_TRAIN + O_VAL,
+                                   hw=(h, w), seed=0, rain_every=4)
+        pth = tmp / "base_synth.pth"
+        torch.save({"state_dict": {k: torch.from_numpy(v)
+                                   for k, v in weights.items()}}, pth)
+        for world in worlds:
+            run = tmp / f"ranks{world}"
+            run.mkdir()
+            phase_o(cfg, split, pth, run, world=world)
+            print(f"chip_smoke: phase (o) passed ({world} ranks; kernels "
+                  f"in {_build.build_dir()})")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
@@ -3479,8 +4080,14 @@ def main() -> None:
     if sys.argv[1:2] == ["--rank-n"]:  # a rank of phase (n)
         n_rank(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--rank-o"]:  # a rank of phase (o)
+        o_rank(sys.argv[2:])
+        return
     if sys.argv[1:] == ["--phase", "n"]:
         phase_n_alone()
+        return
+    if sys.argv[1:] == ["--phase", "o"]:
+        phase_o_alone()
         return
     if sys.argv[1:]:
         sys.exit(f"chip_smoke: unknown arguments {sys.argv[1:]}")
@@ -3546,13 +4153,19 @@ def main() -> None:
     t12 = time.perf_counter()
     # (n)'s ranks start after (m3)'s processes have ended
     phase_n(cfg, ref_model, engine, golden, split, pth, Path(corpus.name))
-    corpus.cleanup()
     t13 = time.perf_counter()
+    print(f"chip_smoke: {t13 - t0:.1f} s before (o) (limit 1200 s)")
+    del engine, ref_model
+    torch.cuda.empty_cache()
+    phase_o(cfg, split, pth, Path(corpus.name))
+    corpus.cleanup()
+    t14 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
           f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}, "
-          f"(m) {t12 - t11:.1f}, (n) {t13 - t12:.1f}")
+          f"(m) {t12 - t11:.1f}, (n) {t13 - t12:.1f}, (o) {t14 - t13:.1f}; "
+          f"total {t14 - t0:.1f} s (limit 1200 s)")
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

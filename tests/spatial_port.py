@@ -8,7 +8,7 @@ gloo ranks, tests/_torch_spatial_child.py).
   heads, by name;
 - :class:`ThreadShard` and :func:`on_threads` run an sp group's ranks as
   threads of one process, their collectives through a barrier, for the
-  tests that start no process.
+  tests that start no process (forwards, and backwards with ``grad``).
 """
 
 import collections
@@ -105,9 +105,10 @@ class ThreadShard(spatial.RowShard):
         return [p.clone() for p in self.hub.exchange(self.index, t)]
 
 
-def on_threads(fn, height: int, sp: int) -> list:
+def on_threads(fn, height: int, sp: int, grad: bool = False) -> list:
     """``fn(shard)`` on each rank of an sp group over an image ``height``
-    rows tall, each rank a thread under its shard; the ranks' results."""
+    rows tall, each rank a thread under its shard (with autograd on when
+    ``grad``); the ranks' results."""
     counts = spatial.partition(height, sp)
     hub = _Hub(sp)
     results, errors = [None] * sp, []
@@ -118,7 +119,7 @@ def on_threads(fn, height: int, sp: int) -> list:
         torch.set_num_threads(1)
         shard = ThreadShard(counts, i, None, hub)
         try:
-            with spatial.sharded(shard), torch.no_grad():
+            with spatial.sharded(shard), torch.set_grad_enabled(grad):
                 results[i] = fn(shard)
         except BaseException as e:  # noqa: BLE001 (re-raised below)
             errors.append(e)

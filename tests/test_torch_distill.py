@@ -438,7 +438,7 @@ def test_cli_distill_refuses_in_one_line(corpus, tmp_path, capsys):
             (["--teacher-checkpoint", str(path), "--data-parallel", "2"],
              "needs 2 ranks, have 1"),
             (["--teacher-checkpoint", str(path), "--spatial-parallel", "2"],
-             "item 10c"),
+             "needs 2 ranks, have 1"),
             (["--teacher-checkpoint", str(orbax)],
              "camradepth_tpu.cli export --format pth"),
             # a parity checkpoint is no tpu_decoder teacher

@@ -177,9 +177,9 @@ def test_training_layout_covers_every_rank():
         layout(4)  # batch 2: two ranks would hold no row
     with pytest.raises(ConfigError, match="needs 2 ranks, have 1"):
         layout(1, data_parallel=2)
-    # sp serves (tests/test_torch_spatial.py); training with it is 10c
-    with pytest.raises(ConfigError, match="item 10c"):
-        training_layout(cfg.replace(mesh=MeshConfig(spatial_parallel=2)), 2)
+    # sp = 2 alone trains (tests/test_torch_spatial_train.py)
+    sp = training_layout(cfg.replace(mesh=MeshConfig(spatial_parallel=2)), 2)
+    assert sp == Layout(sp=2) and sp.kind == "sp" and sp.size == 2
 
 
 def test_process_shard_rows_match_jax_make_loaders(tmp_path):
@@ -216,14 +216,14 @@ def test_multi_process_trainer_refusals(corpus, monkeypatch, tmp_path):
         Trainer(wire, run_dir=str(tmp_path), device="cpu")
 
 
-# training with sp is item 10c; test scores on one process, as JAX's cli
-# test; serve on one process has no second rank for its sp group
-SP_REFUSALS = {"train": "item 10c", "distill": "item 10c",
-               "test": "test scores on one process",
+# test scores on one process, as JAX's cli test; serve on one process has
+# no second rank for its sp group (train and distill take sp = 2:
+# tests/test_torch_spatial_train.py)
+SP_REFUSALS = {"test": "test scores on one process",
                "serve": "needs 2 ranks, have 1"}
 
 
-@pytest.mark.parametrize("command", ["train", "distill", "test", "serve"])
+@pytest.mark.parametrize("command", ["test", "serve"])
 def test_spatial_parallel_is_refused_naming_item_10b(command, corpus, capsys):
     extra = {"distill": ["--teacher-checkpoint", "t.pth"],
              "test": ["--checkpoint", "w.pth"],

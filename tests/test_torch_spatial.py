@@ -62,9 +62,7 @@ from camradepth_tpu.models.camradepth import CamRaDepth as JaxCamRaDepth
 from camradepth_tpu_torch import cli
 from camradepth_tpu_torch.config import (
     ConfigError,
-    MeshConfig,
     ModelConfig,
-    preset,
 )
 from camradepth_tpu_torch.data import synthetic
 from camradepth_tpu_torch.interop.flax_convert import state_dict_from_flax
@@ -77,7 +75,6 @@ from camradepth_tpu_torch.parallel.mesh import (
     ServingLayout,
     serving_layout,
     serving_mesh,
-    training_layout,
 )
 from tests import torch_ranks
 from tests.spatial_port import count_calls, model_outputs, on_threads
@@ -366,12 +363,6 @@ def test_ranks_on_this_host_pick_the_backend(monkeypatch, env, coordinator,
     assert multihost._local_ranks(coordinator, world) == ranks
 
 
-def test_training_with_sp_is_refused_naming_10c():
-    cfg = preset("base").replace(mesh=MeshConfig(spatial_parallel=2))
-    with pytest.raises(ConfigError, match="item 10c"):
-        training_layout(cfg, 2)
-
-
 # the refusals of cli serve that the JAX CLI makes too, each before
 # anything loads (camradepth_tpu/cli.py:679-723), and the text each
 # names in both CLIs
@@ -490,6 +481,63 @@ def test_cli_serve_on_a_mesh_equals_single_process(ranks, served_single,
         # depth in metres (0..100 m): atol 1e-5 of the range
         np.testing.assert_allclose(np.load(g), np.load(w), rtol=1e-5,
                                    atol=1e-3, err_msg=g.name)
+
+
+# tools/orbax_to_pth.py's flags for the seg_tpu variant's widths
+ORBAX_FLAGS = ["--preset", "sup_unsup_seg", "--tpu-decoder"] + [
+    a for kv in ("model.img_size=64,128", "model.dims=16,32,32,64",
+                 "model.ff_expansion=2,2,2,2", "model.depths=1,1,1,1",
+                 "model.mid_channels=32", "model.drop_path_rate=0.0",
+                 "model.compute_dtype=float32") for a in ("--set", kv)]
+
+
+def test_orbax_tpu_decoder_checkpoint_reaches_the_port(inputs, jax_forwards,
+                                                       tmp_path, capsys):
+    """tools/orbax_to_pth.py on an Orbax checkpoint of a JAX run of the
+    seg_tpu variant (sup_unsup_seg + tpu_decoder, which the JAX package's
+    export --format pth refuses): the port's forward on the written .pth
+    against the JAX forward of the same parameters, fp32 1e-4, argmax
+    maps equal; a checkpoint of another variant is refused, rc 2."""
+    import importlib.util
+
+    from camradepth_tpu.train.diffgrad import diffgrad_norm
+    from camradepth_tpu.train.step import TrainState
+    from camradepth_tpu.utils.checkpoint import save_checkpoint
+
+    spec = importlib.util.spec_from_file_location(
+        "orbax_to_pth", Path(__file__).resolve().parents[1] / "tools" /
+        "orbax_to_pth.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    _, params, xs, _ = inputs
+    p = params["seg_tpu"]
+    # a trainer's state: the parameters, diffGradNorm's state (its tree
+    # and shapes, zeros) and the step
+    opt = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), jax.eval_shape(
+        diffgrad_norm(1e-3).init, p))
+    save_checkpoint(tmp_path / "run", TrainState(p, opt, np.int32(3)),
+                    epoch=0, eval_loss=0.5)
+    out = tmp_path / "w.pth"
+    assert tool.main(["--checkpoint", str(tmp_path / "run"), "--out",
+                      str(out)] + ORBAX_FLAGS) == 0
+    model = create_model(ModelConfig(**_model_cfg("seg_tpu")), device="cpu",
+                         state_dict=torch.load(out)["state_dict"])
+    with torch.no_grad():
+        got = {k: v.numpy() for k, v in model_outputs(
+            model, torch.from_numpy(xs["seg_tpu"])).items()}
+    want = jax_forwards["seg_tpu"].result()
+    _assert_no_near_ties(_heads(got), _heads(want),
+                         ModelConfig(**_model_cfg("seg_tpu")))
+    for key in ("final_seg", "intermediate_seg"):
+        np.testing.assert_array_equal(got[key].argmax(-1),
+                                      want[key].argmax(-1), err_msg=key)
+    _close(got, want, JAX_TOL, "orbax .pth vs JAX")
+    # the same checkpoint for the parity variant: refused, nothing written
+    assert tool.main(["--checkpoint", str(tmp_path / "run"), "--out",
+                      str(tmp_path / "x.pth")] + ORBAX_FLAGS[:2] +
+                     ORBAX_FLAGS[3:]) == 2
+    assert "does not fit" in capsys.readouterr().err
+    assert not (tmp_path / "x.pth").exists()
 
 
 def test_http_on_a_mesh_answers_infer_batch(ranks):

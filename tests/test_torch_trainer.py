@@ -310,12 +310,13 @@ def test_cli_train_then_serve_the_seg_tpu_decoder_variant(corpus, tmp_path,
 
 
 # why each multi-device flag is refused in a one-process run: a layout
-# needs as many ranks as it covers; spatial parallel is ROADMAP item 10c;
-# --multihost reads torchrun's environment; --coordinator needs the rest
+# needs as many ranks as it covers, spatial parallel too (it trains at
+# sp = 2 on two ranks); --multihost reads torchrun's environment;
+# --coordinator needs the rest
 _MULTI_DEVICE_REFUSALS = {
     "--data-parallel": "needs 2 ranks, have 1",
     "--fsdp": "needs 2 ranks, have 1",
-    "--spatial-parallel": "item 10c",
+    "--spatial-parallel": "needs 2 ranks, have 1",
     "--multihost": "torchrun",
     "--coordinator": "requires --num-processes and --process-id",
 }
@@ -345,10 +346,12 @@ def test_train_overrides_and_epoch_count():
     assert apply_overrides(cfg, ["mesh.data_parallel=2",
                                  "mesh.fsdp_parallel=2"]).mesh.fsdp_parallel \
         == 2
-    # sp is a serving layout; training refuses it (ROADMAP item 10c)
+    # sp = 2 trains on two ranks (tests/test_torch_spatial_train.py), and
+    # is refused on one
     sp = apply_overrides(cfg, ["mesh.spatial_parallel=2"])
     assert sp.mesh.spatial_parallel == 2
-    with pytest.raises(ValueError, match="item 10c"):
-        training_layout(sp, 2)
+    assert training_layout(sp, 2).kind == "sp"
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+        training_layout(sp, 1)
     with pytest.raises(ValueError, match="multiple of batch_size"):
         apply_overrides(cfg, ["train.desired_batch_size=7"])
