@@ -1,5 +1,6 @@
 """Command-line interface of the PyTorch/CUDA port: ``train``,
-``distill``, ``test``, ``serve``, ``export`` and ``validate-data``.
+``distill``, ``search``, ``test``, ``serve``, ``export`` and
+``validate-data``.
 
   python -m camradepth_tpu_torch.cli train --preset base --split S.npy \\
       [--run-dir R] [--save-model] [--set train.num_epochs=1] [--device ..]
@@ -11,6 +12,9 @@
       --multihost --spatial-parallel 2 --run-dir R ...
   python -m camradepth_tpu_torch.cli distill --tpu-decoder --split S.npy \\
       --teacher-checkpoint T.pth [--alpha 0.7] [--run-dir R] [--save-model]
+  python -m camradepth_tpu_torch.cli search --split S.npy --vmap-trials \\
+      [--halving --min-steps 1] [--num-trials 8] [--trial-steps 50] \\
+      [--data-parallel N --coordinator HOST:PORT ...]
   python -m camradepth_tpu_torch.cli test  --preset base --split S.npy \\
       --checkpoint W.pth|A.pt2 [--report-json R.json] [--device cuda|cpu]
   python -m camradepth_tpu_torch.cli serve --preset base --split S.npy \\
@@ -28,7 +32,7 @@
 
 The counterparts of ``camradepth_tpu.cli``'s ``cmd_train``
 (``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
-``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``), ``cmd_export``
+``cmd_search`` (``:568-652``), ``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``), ``cmd_export``
 (``:514-565``) and ``cmd_validate_data``
 (``:930-958``), with the same flags where they apply. ``train`` runs
 :class:`train.trainer.Trainer` and prints the best validation loss; its
@@ -382,6 +386,97 @@ def cmd_distill(args) -> int:
             run_dir=args.run_dir, device=args.device)
 
     return _train_and_report(args, make_trainer)
+
+
+# the default search space (camradepth_tpu/cli.py:590-595): log-spaced
+# around the published learning rate 6e-5
+_DEFAULT_SPACES = {"learning_rate": ((1e-5, 1e-3), "log"),
+                   "weight_decay": ((1e-6, 1e-2), "log")}
+
+
+def cmd_search(args) -> int:
+    """Hyperparameter search (``camradepth_tpu/cli.py:568-652``): sample
+    configs from typed spaces, train each for ``--trial-steps`` optimizer
+    steps through the Trainer (``--halving``: successive halving), or all
+    at once as one vmapped program (``--vmap-trials``, optimizer
+    hyperparameters only), the trial axis sharded over the process group's
+    ranks with ``--data-parallel``; one JSON line per result, then the
+    best config."""
+    from camradepth_tpu_torch.config import ConfigError
+    from camradepth_tpu_torch.parallel import multihost
+    from camradepth_tpu_torch.train import search
+
+    trial_ranks = args.data_parallel
+    cfg = _build_train_config(argparse.Namespace(
+        **{**vars(args), "data_parallel": None}))
+    cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, num_steps=args.trial_steps, save_model=False))
+    if args.space:
+        try:
+            spaces = {k: (tuple(v[0]), v[1])
+                      for k, v in json.loads(args.space).items()}
+        except (ValueError, TypeError, IndexError, AttributeError) as e:
+            raise UserError(f"--space is not a JSON object of "
+                            f"[[lo, hi], mode] pairs: {e}") from e
+    else:
+        spaces = dict(_DEFAULT_SPACES)
+    if trial_ranks and not args.vmap_trials:
+        raise UserError("--data-parallel shards the trial axis of "
+                        "--vmap-trials; the sequential search takes none")
+    if args.vmap_trials:  # the refusals before any data loads
+        try:
+            search._check_vmap_spaces(spaces)
+        except ValueError as e:
+            raise UserError(str(e)) from e
+        search.check_vmappable(cfg)
+    started = _start_processes(args)
+    try:
+        if trial_ranks and multihost.process_count() != trial_ranks:
+            raise UserError(
+                f"--data-parallel {trial_ranks} shards the trials over "
+                f"{trial_ranks} processes, the process group has "
+                f"{multihost.process_count()} (start them with "
+                "--coordinator/--num-processes/--process-id or --multihost)")
+        if args.vmap_trials:
+            from camradepth_tpu_torch.data.pipeline import make_loaders
+
+            loaders = make_loaders(cfg.data, cfg.train.batch_size)
+            kw = dict(num_trials=args.num_trials, seed=args.seed,
+                      loaders=loaders, shard_trials=bool(trial_ranks),
+                      device=args.device)
+            try:
+                if args.halving:
+                    best, best_loss, results = search.vmapped_halving(
+                        cfg, spaces, min_steps=args.min_steps,
+                        max_steps=args.trial_steps, **kw)
+                else:
+                    best, best_loss, results = search.vmapped_trials(
+                        cfg, spaces, num_steps=args.trial_steps, **kw)
+            except ValueError as e:
+                if isinstance(e, ConfigError) or not (
+                        "train split too small" in str(e)
+                        or "must divide" in str(e)):
+                    raise
+                print(f"error: {e}", file=sys.stderr)
+                return 2
+        elif args.halving:
+            best, best_loss, results = search.successive_halving_search(
+                cfg, spaces, num_trials=args.num_trials,
+                min_steps=args.min_steps, max_steps=args.trial_steps,
+                seed=args.seed, device=args.device)
+        else:
+            best, best_loss, results = search.random_search(
+                cfg, spaces, num_trials=args.num_trials, seed=args.seed,
+                device=args.device)
+        if multihost.is_primary():
+            for r in results:
+                print(json.dumps(r))
+            print(f"best config: {json.dumps(best)} "
+                  f"(val loss {best_loss:.6f})")
+    finally:
+        if started:
+            multihost.shutdown()
+    return 0
 
 
 def _check_args(args, artifacts: bool = True) -> None:
@@ -739,8 +834,10 @@ def cmd_validate_data(args) -> int:
     return 0 if r["ok"] else 1
 
 
-def _add_train_flags(p: argparse.ArgumentParser) -> None:
-    """The flags of ``train``, which ``distill`` shares."""
+def _add_train_flags(p: argparse.ArgumentParser,
+                     layout: bool = True) -> None:
+    """The flags of ``train``, which ``distill`` shares (``search`` takes
+    them without the layout flags)."""
     p.add_argument("--preset", default="base",
                    choices=["base", "base_rgb", "supervised_seg",
                             "unsupervised_seg", "sup_unsup_seg",
@@ -786,6 +883,10 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                    help="torch device to train on (default cuda; cpu runs "
                         "the kernels' plain versions); under a process "
                         "group each rank takes its own card")
+    _add_process_flags(p)
+    if not layout:
+        p.set_defaults(fsdp=None, spatial_parallel=None)
+        return
     p.add_argument("--data-parallel", type=int, default=None,
                    help="data-axis ranks (DDP; -1 sizes it from the ranks "
                         "and the batch); batches shard jointly over data x "
@@ -797,7 +898,6 @@ def _add_train_flags(p: argparse.ArgumentParser) -> None:
                    help="sp-axis ranks (2, alone, as the JAX package "
                         "trains): every rank holds the whole batch and "
                         "runs its rows of each image, partitioned at /32")
-    _add_process_flags(p)
 
 
 def _add_process_flags(p: argparse.ArgumentParser) -> None:
@@ -818,8 +918,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(
         prog="camradepth_tpu_torch",
-        description="CamRaDepth on PyTorch/CUDA: train, distill, test, "
-                    "serve, export and validate-data",
+        description="CamRaDepth on PyTorch/CUDA: train, distill, search, "
+                    "test, serve, export and validate-data",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -852,6 +952,35 @@ def main(argv=None) -> int:
                         "from the teacher (skipped anyway when --checkpoint "
                         "gives a student)")
     p.set_defaults(fn=cmd_distill)
+
+    p = sub.add_parser(
+        "search", help="hyperparameter search: random, successive halving, "
+                       "or every trial at once (--vmap-trials)")
+    _add_train_flags(p, layout=False)
+    p.add_argument("--num-trials", type=int, default=10,
+                   help="reference default args.random_search_num_trials")
+    p.add_argument("--trial-steps", type=int, default=50,
+                   help="optimizer-step budget per trial")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the sampled trials (numpy default_rng)")
+    p.add_argument("--space", default=None,
+                   help='JSON {"field": [[lo,hi],"log|float|int|item"], ...};'
+                        " model./data. prefixes route to those config trees")
+    p.add_argument("--halving", action="store_true",
+                   help="successive halving: all trials start at "
+                        "--min-steps, each rung keeps the best 1/3 with a "
+                        "3x budget up to --trial-steps")
+    p.add_argument("--vmap-trials", action="store_true",
+                   help="train every trial at once as one vmapped program "
+                        "(learning_rate/weight_decay only), the trial axis "
+                        "sharded over --data-parallel processes; with "
+                        "--halving survivors continue from their state")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="with --vmap-trials: shard the trial axis over this "
+                        "many processes (num-trials must divide)")
+    p.add_argument("--min-steps", type=int, default=10,
+                   help="rung-0 step budget for --halving")
+    p.set_defaults(fn=cmd_search)
 
     p = sub.add_parser("test", help="test-split metric report")
     p.add_argument("--report-json", default=None, metavar="PATH",

@@ -297,11 +297,15 @@ class _SigmoidBf16(torch.autograd.Function):
     operation rounded (XLA:CPU's optimized HLO of the bf16 train step;
     torch's ``sigmoid`` and its backward round once)."""
 
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
-        y = torch.reciprocal(1.0 + torch.exp(-x))  # 1.0 / t is two ops
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return torch.reciprocal(1.0 + torch.exp(-x))  # 1.0 / t is two ops
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
 
     @staticmethod
     def backward(ctx, g):

@@ -195,6 +195,37 @@ def register_op(name: str, schema: str, cpu, cuda, fake):
     return getattr(torch.ops.camradepth, name).default
 
 
+def register_vmap(name: str, rule) -> None:
+    """Give the operator ``torch.ops.camradepth.<name>`` its
+    ``torch.func.vmap`` rule ``rule(info, in_dims, *args) -> (outputs,
+    out_dims)``. The rules fold the vmapped dimension into the operator's
+    own batch dimension (``fold``/``unfold``), so a call over T trials of a
+    B-sample batch is one call over T*B samples: one kernel launch on the
+    card, the plain version on the CPU."""
+    import torch
+
+    torch.library.register_vmap(f"camradepth::{name}", rule)
+
+
+def batch_first(info, in_dims, *tensors):
+    """``tensors`` with their vmapped dimension first, an unbatched one
+    (its in_dim None) expanded to ``info.batch_size`` along it."""
+    return tuple(
+        t.movedim(d, 0) if d is not None
+        else t.expand(info.batch_size, *t.shape)
+        for t, d in zip(tensors, in_dims))
+
+
+def fold(t):
+    """[T, B, ...] -> [T*B, ...]."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+def unfold(t, trials: int):
+    """[T*B, ...] -> [T, B, ...]."""
+    return t.reshape(trials, t.shape[0] // trials, *t.shape[1:])
+
+
 def needs_grad(*tensors) -> bool:
     """Whether gradients must flow through a call on ``tensors``."""
     import torch

@@ -20,7 +20,12 @@ those are the forward kernel's ``_argmax`` entry points and
 ``csrc/maxpool_attention_scores_bwd.cu`` (two launches, chunks sized by
 :func:`scores_backward_plan`); on the CPU, the plain versions
 :func:`maxpool_attention_scores_argmax_reference` and
-:func:`maxpool_attention_scores_backward_reference`.
+:func:`maxpool_attention_scores_backward_reference`. Both are operators
+too (``scores_argmax_op``, ``scores_backward_op``). Each of the three
+operators has a ``torch.func.vmap`` rule that folds the vmapped dimension
+into the batch (``[T, B, ...]`` to ``[T*B, ...]``, one launch for every
+trial), and :class:`_Scores` takes its vmap rule from them, so a vmapped
+trial step (``train/search.py``) differentiates through the kernels.
 """
 
 from __future__ import annotations
@@ -227,27 +232,79 @@ def launch_backward(q, k, amax, g, dq, dk, num_heads, scale,
                   float(scale))
 
 
-def maxpool_attention_scores_with_argmax(q, k, num_heads: int, scale: float):
-    """(s [B, N] fp32, amax [B, h, N] int32): the kernel's ``_argmax``
-    entry point on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type == "cpu" and k.device.type == "cpu":
-        return maxpool_attention_scores_argmax_reference(q, k, num_heads,
-                                                         scale)
+def _scores_argmax_op_cuda(q, k, num_heads, scale):
     _check_cuda(q, k, num_heads)
     return _scores_cuda(q.contiguous(), k.contiguous(), num_heads, scale,
                         True)
+
+
+def _scores_argmax_fake(q, k, num_heads, scale):
+    b, n, _ = q.shape
+    return (q.new_empty((b, n), dtype=torch.float32),
+            q.new_empty((b, num_heads, n), dtype=torch.int32))
+
+
+def _scores_backward_op_cuda(q, k, amax, g, num_heads, scale):
+    _check_cuda(q, k, num_heads)
+    return _scores_backward_cuda(q.contiguous(), k.contiguous(),
+                                 amax.contiguous(), g, num_heads, scale)
+
+
+# the training forward and the backward as operators of their own, as the
+# no-grad forward (``scores_op``) below
+scores_argmax_op = _build.register_op(
+    "maxpool_attention_scores_argmax",
+    "(Tensor q, Tensor k, int num_heads, float scale) -> (Tensor, Tensor)",
+    cpu=maxpool_attention_scores_argmax_reference,
+    cuda=_scores_argmax_op_cuda, fake=_scores_argmax_fake)
+scores_backward_op = _build.register_op(
+    "maxpool_attention_scores_bwd",
+    "(Tensor q, Tensor k, Tensor amax, Tensor g, int num_heads, float scale)"
+    " -> (Tensor, Tensor)",
+    cpu=maxpool_attention_scores_backward_reference,
+    cuda=_scores_backward_op_cuda,
+    fake=lambda q, k, amax, g, num_heads, scale: (torch.empty_like(q),
+                                                  torch.empty_like(k)))
+
+
+def _per_sample_vmap(name):
+    """The vmap rule of the operator at module attribute ``name``, whose
+    tensors all lead with the batch dimension, each sample's keys its own:
+    [T, B, ...] folds to [T*B, ...], one call (one launch) for every
+    trial."""
+    def rule(info, in_dims, *args):
+        n = sum(1 for a in args if isinstance(a, torch.Tensor))
+        tensors = _build.batch_first(info, in_dims[:n], *args[:n])
+        out = globals()[name](*(_build.fold(t) for t in tensors), *args[n:])
+        trials = info.batch_size
+        if isinstance(out, tuple):
+            return tuple(_build.unfold(o, trials) for o in out), (0,) * len(
+                out)
+        return _build.unfold(out, trials), 0
+    return rule
+
+
+_build.register_vmap("maxpool_attention_scores_argmax",
+                     _per_sample_vmap("scores_argmax_op"))
+_build.register_vmap("maxpool_attention_scores_bwd",
+                     _per_sample_vmap("scores_backward_op"))
+
+
+def maxpool_attention_scores_with_argmax(q, k, num_heads: int, scale: float):
+    """(s [B, N] fp32, amax [B, h, N] int32): the kernel's ``_argmax``
+    entry point on a CUDA tensor, the plain version on a CPU tensor."""
+    if q.device.type != "cpu" or k.device.type != "cpu":
+        _check_cuda(q, k, num_heads)
+    return scores_argmax_op(q, k, num_heads, float(scale))
 
 
 def maxpool_attention_scores_backward(q, k, amax, g, num_heads: int,
                                       scale: float):
     """(dq, dk) of the scores for the cotangent ``g`` [B, N]: the backward
     kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return maxpool_attention_scores_backward_reference(
-            q, k, amax, g, num_heads, scale)
-    _check_cuda(q, k, num_heads)
-    return _scores_backward_cuda(q.contiguous(), k.contiguous(),
-                                 amax.contiguous(), g, num_heads, scale)
+    if q.device.type != "cpu":
+        _check_cuda(q, k, num_heads)
+    return scores_backward_op(q, k, amax, g, num_heads, float(scale))
 
 
 maxpool_attention_scores_backward.launches = 0
@@ -255,17 +312,24 @@ maxpool_attention_scores_backward.launches = 0
 
 class _Scores(torch.autograd.Function):
     """The scores with the JAX package's custom VJP: argmax saved in the
-    forward, gather and scatter-add in the backward."""
+    forward, gather and scatter-add in the backward. Under
+    ``torch.func.vmap`` both go through the operators' vmap rules."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, q, k, num_heads, scale):
-        s, amax = maxpool_attention_scores_with_argmax(q, k, num_heads, scale)
-        ctx.save_for_backward(q, k, amax)
+    def forward(q, k, num_heads, scale):
+        return maxpool_attention_scores_with_argmax(q, k, num_heads, scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, num_heads, scale = inputs
+        ctx.save_for_backward(q, k, output[1])
+        ctx.mark_non_differentiable(output[1])
         ctx.num_heads, ctx.scale = num_heads, scale
-        return s
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_amax):
         q, k, amax = ctx.saved_tensors
         dq, dk = maxpool_attention_scores_backward(q, k, amax, g,
                                                    ctx.num_heads, ctx.scale)
@@ -286,6 +350,8 @@ scores_op = _build.register_op(
     cpu=maxpool_attention_scores_reference, cuda=_scores_op_cuda,
     fake=lambda q, k, num_heads, scale: q.new_empty(q.shape[:2],
                                                     dtype=torch.float32))
+_build.register_vmap("maxpool_attention_scores",
+                     _per_sample_vmap("scores_op"))
 
 
 def maxpool_attention_scores(
@@ -304,7 +370,7 @@ def maxpool_attention_scores(
       without gradients through ``scores_op``).
     """
     if _build.needs_grad(q, k):
-        return _Scores.apply(q, k, num_heads, scale)
+        return _Scores.apply(q, k, num_heads, scale)[0]
     if q.device.type != "cpu" or k.device.type != "cpu":
         _check_cuda(q, k, num_heads)
     return scores_op(q, k, num_heads, float(scale))

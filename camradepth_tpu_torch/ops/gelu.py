@@ -24,7 +24,11 @@ gradients must flow it goes through :class:`_GeluBf16`, whose backward is
 the VJP as JAX evaluates it on bf16 (21 operations, each rounded; see
 :func:`gelu_bf16_backward_reference`), not torch's autograd of the eight
 forward operations, which rounds at other places: on the card the kernel's
-second entry point ``gelu_bf16_bwd``, on the CPU the plain version. Both
+second entry point ``gelu_bf16_bwd`` (the operator
+``torch.ops.camradepth.gelu_bf16_bwd``, ``gelu_bwd_op``), on the CPU the
+plain version. Under ``torch.func.vmap`` both operators run once on every
+trial's elements (their vmap rules, ``_build.register_vmap``), and
+:class:`_GeluBf16` takes its vmap rule from them. Both
 kernels read what depends on x through tanh from tables of the inputs in
 ``TABLE_FIELDS``, with shortcuts outside them (tests/test_torch_gelu.py
 checks both on every bf16 input). Each kernel's first launch on a card
@@ -112,21 +116,21 @@ gelu_op = _build.register_op("gelu_bf16", "(Tensor x) -> Tensor",
                              fake=torch.empty_like)
 
 
+def _gelu_vmap(info, in_dims, x):
+    # elementwise: one launch over every trial's elements
+    return gelu_op(x), in_dims[0]
+
+
+_build.register_vmap("gelu_bf16", _gelu_vmap)
+
+
 def _forward(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cpu":
         _check_cuda(x)
     return gelu_op(x)
 
 
-def gelu_bf16_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The bf16 GELU's VJP at ``x`` for the cotangent ``g`` (bf16, the
-    shape of x): the kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
-        raise TypeError(f"gelu_bf16_backward takes bf16, got {x.dtype} and "
-                        f"{g.dtype}")
-    if x.device.type == "cpu":
-        return gelu_bf16_backward_reference(x, g)
+def _gelu_bwd_op_cuda(x, g):
     _check_cuda(x)
     x = x.contiguous()
     g = g.contiguous()
@@ -139,14 +143,46 @@ def gelu_bf16_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# the VJP as an operator of its own, as the forward
+gelu_bwd_op = _build.register_op(
+    "gelu_bf16_bwd", "(Tensor x, Tensor g) -> Tensor",
+    cpu=gelu_bf16_backward_reference, cuda=_gelu_bwd_op_cuda,
+    fake=lambda x, g: torch.empty_like(x))
+
+
+def _gelu_bwd_vmap(info, in_dims, x, g):
+    x, g = _build.batch_first(info, in_dims, x, g)
+    return gelu_bwd_op(x, g), 0
+
+
+_build.register_vmap("gelu_bf16_bwd", _gelu_bwd_vmap)
+
+
+def gelu_bf16_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The bf16 GELU's VJP at ``x`` for the cotangent ``g`` (bf16, the
+    shape of x): the kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError(f"gelu_bf16_backward takes bf16, got {x.dtype} and "
+                        f"{g.dtype}")
+    if x.device.type != "cpu":
+        _check_cuda(x)
+    return gelu_bwd_op(x, g)
+
+
 gelu_bf16_backward.launches = 0
 
 
 class _GeluBf16(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
-        ctx.save_for_backward(x)
+    def forward(x):
         return _forward(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
 
     @staticmethod
     def backward(ctx, g):

@@ -26,7 +26,11 @@ fp32, rounded to the input dtype, then the pads folded into the edge rows
 by rounded adds, the W axis first, then H; on the card
 ``csrc/upsample_bicubic_x2_bwd.cu`` (one launch for both axes, blocks sized
 by :func:`upsample_backward_plan`), on the CPU
-:func:`upsample_bicubic_x2_backward_reference`, bit for bit alike.
+:func:`upsample_bicubic_x2_backward_reference`, bit for bit alike, through
+the operator ``torch.ops.camradepth.upsample_bicubic_x2_bwd``
+(``upsample_bwd_op``). Both operators have ``torch.func.vmap`` rules that
+fold the vmapped dimension into the batch of images (one launch for every
+trial), from which :class:`_Upsample` takes its own.
 """
 
 from __future__ import annotations
@@ -280,6 +284,18 @@ upsample_op = _build.register_op(
     fake=_upsample_op_fake)
 
 
+def _per_image_vmap(op):
+    """The vmap rule of an operator that works image by image: the trial
+    dimension folds into the batch dimension."""
+    def rule(info, in_dims, x):
+        (x,) = _build.batch_first(info, in_dims, x)
+        return _build.unfold(op(_build.fold(x)), x.shape[0]), 0
+    return rule
+
+
+_build.register_vmap("upsample_bicubic_x2", _per_image_vmap(upsample_op))
+
+
 def _forward(x: torch.Tensor) -> torch.Tensor:
     """The forward on either device, outside autograd."""
     if x.device.type != "cpu":
@@ -287,17 +303,16 @@ def _forward(x: torch.Tensor) -> torch.Tensor:
     return upsample_op(x)
 
 
-def upsample_bicubic_x2_backward(gy: torch.Tensor) -> torch.Tensor:
-    """The adjoint of the upsample for the cotangent ``gy`` [B, 2H, 2W, C]:
-    the backward kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
-    if gy.device.type == "cpu":
-        return upsample_bicubic_x2_backward_reference(gy)
-    _check_cuda(gy)
+def _adjoint_shape(gy: torch.Tensor):
     b, h2, w2, c = gy.shape
     if h2 % 2 or w2 % 2:
         raise ValueError(f"gy must be [B, 2H, 2W, C], got {tuple(gy.shape)}")
-    h, w = h2 // 2, w2 // 2
+    return b, h2 // 2, w2 // 2, c
+
+
+def _upsample_bwd_op_cuda(gy):
+    _check_cuda(gy)
+    b, h, w, c = _adjoint_shape(gy)
     gy = gy.contiguous()
     gx = torch.empty((b, h, w, c), dtype=gy.dtype, device=gy.device)
     index = gy.device.index
@@ -306,6 +321,28 @@ def upsample_bicubic_x2_backward(gy: torch.Tensor) -> torch.Tensor:
     launch_backward(gy, gx, plan)
     upsample_bicubic_x2_backward.launches += 1
     return gx
+
+
+def _upsample_bwd_fake(gy):
+    return gy.new_empty(_adjoint_shape(gy))
+
+
+# the adjoint as an operator of its own, as the forward
+upsample_bwd_op = _build.register_op(
+    "upsample_bicubic_x2_bwd", "(Tensor gy) -> Tensor",
+    cpu=upsample_bicubic_x2_backward_reference, cuda=_upsample_bwd_op_cuda,
+    fake=_upsample_bwd_fake)
+_build.register_vmap("upsample_bicubic_x2_bwd",
+                     _per_image_vmap(upsample_bwd_op))
+
+
+def upsample_bicubic_x2_backward(gy: torch.Tensor) -> torch.Tensor:
+    """The adjoint of the upsample for the cotangent ``gy`` [B, 2H, 2W, C]:
+    the backward kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if gy.device.type != "cpu":
+        _check_cuda(gy)
+    return upsample_bwd_op(gy)
 
 
 def launch_backward(gy: torch.Tensor, gx: torch.Tensor,
@@ -324,9 +361,15 @@ upsample_bicubic_x2_backward.launches = 0
 
 
 class _Upsample(torch.autograd.Function):
+    generate_vmap_rule = True
+
     @staticmethod
-    def forward(ctx, x):
+    def forward(x):
         return _forward(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, gy):

@@ -82,21 +82,43 @@ class DiffGradNorm(torch.optim.Optimizer):
             _local(state[k]) for k in ("exp_avg", "exp_avg_sq",
                                        "previous_grad"))
         state["step"] += 1
-        t = float(state["step"])
-        egn = 0.95 * state["exp_grad_norm"] + 0.05 * gn
-        g1 = torch.where(egn > gn, g * egn / (gn + 1e-8), g)
-        m = b1 * exp_avg + (1 - b1) * g1
-        v = b2 * exp_avg_sq + (1 - b2) * torch.square(g)
-        bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t
-        bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** t
-        step_size = (torch.sqrt(bc2) / (bc1 + 1e-8)).to(p.device)
-        dfc = torch.sigmoid(torch.abs(previous_grad - g))
-        direction = step_size * (m * dfc) / (torch.sqrt(v) + eps)
+        step_size = diffgrad_step_size(float(state["step"]), b1,
+                                       b2).to(p.device)
+        direction, m, v, egn = diffgrad_direction(
+            g, gn, exp_avg, exp_avg_sq, previous_grad,
+            state["exp_grad_norm"], step_size, b1, b2, eps)
         p.add_((-lr * direction).to(p.dtype))
         state["exp_avg"] = _like(m, sharded)
         state["exp_avg_sq"] = _like(v, sharded)
         state["previous_grad"] = _like(g, sharded)
         state["exp_grad_norm"] = egn
+
+
+def diffgrad_step_size(t: float, b1: float, b2: float) -> torch.Tensor:
+    """sqrt(1 - b2**t) / (1 - b1**t + 1e-8) for step count ``t``, in fp32,
+    a 0-d tensor on the CPU."""
+    bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** t
+    bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** t
+    return torch.sqrt(bc2) / (bc1 + 1e-8)
+
+
+def diffgrad_direction(g, gn, exp_avg, exp_avg_sq, previous_grad,
+                       exp_grad_norm, step_size, b1: float, b2: float,
+                       eps: float):
+    """The rule without its learning rate, shared by :class:`DiffGradNorm`
+    and the vmapped search's trial step (``train/search.py``): for the fp32
+    gradient ``g`` (weight decay added), its L2 norm ``gn`` and the state,
+    returns (direction, exp_avg, exp_avg_sq, exp_grad_norm), the last three
+    updated; the new ``previous_grad`` is ``g``. ``gn`` and
+    ``exp_grad_norm`` broadcast against ``g``: 0-d for one tensor, one
+    norm per trial ([T, 1, ...]) for a stack of trials."""
+    egn = 0.95 * exp_grad_norm + 0.05 * gn
+    g1 = torch.where(egn > gn, g * egn / (gn + 1e-8), g)
+    m = b1 * exp_avg + (1 - b1) * g1
+    v = b2 * exp_avg_sq + (1 - b2) * torch.square(g)
+    dfc = torch.sigmoid(torch.abs(previous_grad - g))
+    direction = step_size * (m * dfc) / (torch.sqrt(v) + eps)
+    return direction, m, v, egn
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:

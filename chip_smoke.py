@@ -133,7 +133,29 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       (g)'s single-process maps. `python3 chip_smoke.py --phase n` runs
       (a), (c) and (n) alone, with (d)'s engine and (g)'s corpus made
       again; tools/port_spatial_nccl.py runs (n) over NCCL on several
-      cards.
+      cards;
+  (o) spatially sharded training on the two ranks (`--phase o`);
+  (p) hyperparameter search, the trials vmapped through the kernels:
+      (p1) each of the six training launch points under torch.func.vmap
+      over 4 trials at every shape of a base 416x800 batch-2 microbatch
+      and a ragged one, one launch per vmapped call, against the plain
+      version on the folded batch at (h)'s limits; (p2) one fp32 vmapped
+      step of 3 trials (base at 128x256, TF32 off) against the port's CPU
+      run and against one unvmapped torch.func step per trial on the card
+      (near-tie argmax rows forced to the vmapped keys); (p3) this
+      slice's main path, cli search --vmap-trials at base 416x800 bf16,
+      batch 2 x 3, 4 trials x 3 steps on (g)'s corpus split 24/8, with
+      34 + 34, 5 + 5, 53 + 53 launches per vmapped microbatch, then the
+      vmapped step and cli train's one-trial step in turns and one
+      profiled vmapped step; (p4) --vmap-trials --halving (rungs of 4 and
+      2, survivors continuing); (p5) the sequential search and --halving
+      through the Trainer; (p6) --vmap-trials --data-parallel 2 on two
+      ranks sharing the card over gloo against one process (`--phase p`);
+  (q) the prep estimators on synthesized official-key weights, fp32, TF32
+      off: RAFT-large (904x1600, 20 iterations), the Panoptic-DeepLab
+      classmap (900x1600, padded to 929x1601), lk_flow and
+      rasterize_radar at 900x1600: finite, two runs equal, ms per frame,
+      and each at a small size against the port's CPU run (`--phase q`).
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -1525,9 +1547,12 @@ FORWARD_LAUNCHES = {
 
 def variant_counts(model_cfg):
     """(attention, bicubic, bf16 GELU) launches of one forward of the model
-    for ``model_cfg`` (FORWARD_LAUNCHES; no GELU kernel in fp32)."""
+    for ``model_cfg`` (FORWARD_LAUNCHES at base's 34 encoder blocks, each
+    block one attention and one GELU; no GELU kernel in fp32)."""
     use_seg = model_cfg.supervised_seg or model_cfg.unsupervised_seg
     n_attn, n_up, n_gelu = FORWARD_LAUNCHES[use_seg, model_cfg.tpu_decoder]
+    cut = n_attn - sum(model_cfg.depths)
+    n_attn, n_gelu = n_attn - cut, n_gelu - cut
     return n_attn, n_up, (n_gelu if model_cfg.compute_dtype == "bfloat16"
                           else 0)
 
@@ -2203,24 +2228,33 @@ def k_export(tag, argv, out):
                              f"{header['platforms']}")
 
 
+# (k1)'s dynamic-batch tpu_decoder artifact: base's widths at one encoder
+# block a stage (its export and load grow with the graph's nodes: 94 s and
+# 35 s at base's 34 blocks on a slow host)
+K_DYNAMIC_DEPTHS = (1, 1, 1, 1)
+
+
 def k_job_tpu_dynamic(tmp):
     """(k1, worker) a bf16 base + tpu_decoder artifact with a dynamic
-    batch, exported on the card, served at batches 3 and 8 against the
-    live engine; 34, 3 and 53 launches per forward."""
+    batch (K_DYNAMIC_DEPTHS), exported on the card, served at batches 3
+    and 8 against the live engine; 4, 3 and 23 launches per forward."""
     from camradepth_tpu_torch.config import preset
     from camradepth_tpu_torch.interop.export import load_serving_artifact
     from camradepth_tpu_torch.models.camradepth import create_model
     from camradepth_tpu_torch.serving import DepthEngine
 
     cfg = preset("base")
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, tpu_decoder=True))
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, tpu_decoder=True, depths=K_DYNAMIC_DEPTHS))
     sd = create_model(cfg.model, device="cpu", seed=7,
                       train=True).state_dict()
     pth, art = Path(tmp) / "tpu_decoder.pth", Path(tmp) / "tpu_dyn.pt2"
     torch.save({"state_dict": sd}, pth)
+    depths = ",".join(str(d) for d in K_DYNAMIC_DEPTHS)
     _, _, line = k_export("(k1) tpu_decoder bf16 dynamic batch", [
         "--tpu-decoder", "--checkpoint", str(pth), "--artifact-dtype",
-        "bfloat16", "--dynamic-batch"], art)
+        "bfloat16", "--dynamic-batch", "--set",
+        f"model.depths={depths}"], art)
     lines = [line]
     t0 = time.perf_counter()
     call, header = load_serving_artifact(str(art), "cuda")
@@ -3615,20 +3649,20 @@ def recorded_training_calls():
         attention._Scores, resize._Upsample, gelu._GeluBf16)
         for name in ("forward", "backward")]
 
-    def scores_fwd(ctx, q, k, heads, scale):
-        s = saved[0][2](ctx, q, k, heads, scale)
+    def scores_fwd(q, k, heads, scale):
+        s, amax = saved[0][2](q, k, heads, scale)
         calls["attention"].append(((q, k, heads, scale), s))
-        return s
+        return s, amax
 
-    def scores_bwd(ctx, g):
-        out = saved[1][2](ctx, g)
+    def scores_bwd(ctx, g, g_amax):
+        out = saved[1][2](ctx, g, g_amax)
         q, k, amax = ctx.saved_tensors
         calls["attention_bwd"].append(((q, k, amax, g, ctx.num_heads,
                                         ctx.scale), out[:2]))
         return out
 
-    def up_fwd(ctx, x):
-        y = saved[2][2](ctx, x)
+    def up_fwd(x):
+        y = saved[2][2](x)
         calls["bicubic"].append(((x,), y))
         return y
 
@@ -3637,8 +3671,8 @@ def recorded_training_calls():
         calls["bicubic_bwd"].append(((gy,), gx))
         return gx
 
-    def gelu_fwd(ctx, x):
-        y = saved[4][2](ctx, x)
+    def gelu_fwd(x):
+        y = saved[4][2](x)
         calls["gelu"].append(((x,), y))
         return y
 
@@ -4073,6 +4107,776 @@ def phase_o_alone(worlds=(SP_RANKS,)):
                   f"in {_build.build_dir()})")
 
 
+# ---------------------------------------------------------------- phase (p)
+# hyperparameter search with the trials vmapped through the kernels
+P_TRIALS = 4
+P_ACCUM = 3
+P_TRAIN, P_VAL = 24, 8  # (g)'s 32-frame corpus, split as (h) splits it
+# (p2): one fp32 vmapped step at 128x256 against three unvmapped steps on
+# the card (the card-vs-CPU limits are (h)'s STEP_RTOL, STEP_GRAD_REL_L2)
+P2_TRIALS = 3
+P2_HW = (128, 256)
+P2_LOSS_RTOL = 1e-5
+P2_GRAD_REL_L2 = 1e-4
+P2_LRS = (1e-4, 3e-4, 1e-3)
+P2_WDS = (0.0, 1e-4, 1e-2)
+# (p6): the trial axis over two ranks against one process (JAX's limit,
+# tests/test_search_profiling.py:495-502)
+P6_RTOL = 1e-5
+
+
+def trial_fold(t):
+    """[T, B, ...] -> [T*B, ...], the batch a vmap rule launches on."""
+    return t.reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+def randn_card(shape, seed, dtype):
+    """N(0, 1) drawn on the card from a seeded generator (numpy's draw on
+    the host takes seconds at (p1)'s sizes)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+def equal_bits(got, want) -> bool:
+    """Bit for bit in either dtype (bf16 NaNs as ``same_bits`` takes
+    them)."""
+    if got.dtype == torch.bfloat16:
+        return same_bits(got, want)
+    return torch.equal(got, want)
+
+
+def phase_p1(cfg):
+    """Each of the six kernel launch points under torch.func.vmap over
+    P_TRIALS trials, at every shape of a base 416x800 batch-2 microbatch
+    and a ragged one, bf16 and fp32: one launch per vmapped call, held to
+    the plain version on the folded batch at (h)'s limits."""
+    from camradepth_tpu_torch.ops import attention, gelu, resize
+
+    vmap, t_n = torch.func.vmap, P_TRIALS
+    m = cfg.model
+    h, w = m.img_size
+    b = TRAIN_BATCH
+    attn = []
+    for i in range(4):
+        fh, fw = m.feature_shape(i)
+        sr = m.sr_ratios[i]
+        attn.append((b, fh * fw, (fh // sr) * (fw // sr), m.dims[i],
+                     m.heads[i]))
+    attn.append((3, 1001, 77, 120, 3))
+    mid = m.mid_channels
+    up = [(b, *m.feature_shape(3), m.dims[3]), (b, *m.feature_shape(2), mid),
+          (b, *m.feature_shape(1), mid), (b, *m.feature_shape(0), mid + 1),
+          (b, h // 2, w // 2, mid + 1), (3, 7, 9, 129)]
+    gel = [(b,) + shape[1:] for shape, _ in gelu_forward_shapes(cfg)]
+    gel.append((3, 5, 7, 13))
+    wrappers = {"attention": attention.maxpool_attention_scores,
+                "attention bwd": attention.maxpool_attention_scores_backward,
+                "upsample": resize.upsample_bicubic_x2,
+                "upsample bwd": resize.upsample_bicubic_x2_backward,
+                "gelu": gelu.gelu_bf16, "gelu bwd": gelu.gelu_bf16_backward}
+    calls = dict.fromkeys(wrappers, 0)
+
+    def once(name, fn, *args):
+        before = wrappers[name].launches
+        out = vmap(fn)(*args)
+        torch.cuda.synchronize()
+        require(wrappers[name].launches == before + 1,
+                (name, "vmapped call not one launch",
+                 wrappers[name].launches - before))
+        calls[name] += 1
+        return out
+
+    t0 = time.perf_counter()
+    ties, dk_ulps, dk_err = 0, 0.0, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for seed, (bb, n, mm, c, heads) in enumerate(attn):
+            q = randn_card((t_n, bb, n, c), 800 + seed, dtype)
+            k = randn_card((t_n, bb, mm, c), 850 + seed, dtype)
+            g = randn_card((t_n, bb, n), 900 + seed, torch.float32)
+            scale = (c // heads) ** -0.5
+            s, amax = once("attention", lambda a, kk: (
+                attention.maxpool_attention_scores_with_argmax(
+                    a, kk, heads, scale)), q, k)
+            s0 = once("attention", lambda a, kk: (
+                attention.maxpool_attention_scores(a, kk, heads, scale)),
+                q, k)
+            dq, dk = once("attention bwd", lambda a, kk, i, gg: (
+                attention.maxpool_attention_scores_backward(
+                    a, kk, i, gg, heads, scale)), q, k, amax, g)
+            fq, fk, fa, fg = (trial_fold(x) for x in (q, k, amax, g))
+            torch.testing.assert_close(
+                trial_fold(s), attention.maxpool_attention_scores_reference(
+                    fq, fk, heads, scale), **ATTN_TOL)
+            require(torch.equal(s, s0), "argmax launch changed the scores")
+            ties += argmax_near_ties(fq, fk, heads, fa)
+            wq, wk = attention.maxpool_attention_scores_backward_reference(
+                fq, fk, fa, fg, heads, scale)
+            require(torch.equal(trial_fold(dq), wq), ("dq", n, c, dtype))
+            if dtype == torch.bfloat16:
+                ulps = bf16_ulps(trial_fold(dk), wk)
+                require(ulps <= 1.0, ("dk", n, c, ulps))
+                dk_ulps = max(dk_ulps, ulps)
+            else:
+                torch.testing.assert_close(trial_fold(dk), wk,
+                                           **ATTN_BWD_TOL)
+                dk_err = max(dk_err, (trial_fold(dk) - wk).abs().max()
+                             .item())
+        for seed, shape in enumerate(up):
+            x = randn_card((t_n,) + shape, 950 + seed, dtype)
+            y = once("upsample", resize.upsample_bicubic_x2, x)
+            require(equal_bits(trial_fold(y),
+                              resize.upsample_bicubic_x2_reference(
+                                  trial_fold(x))), ("upsample", shape))
+            bb, hh, ww, c = shape
+            gy = randn_card((t_n, bb, 2 * hh, 2 * ww, c), 980 + seed, dtype)
+            gx = once("upsample bwd", resize.upsample_bicubic_x2_backward, gy)
+            require(equal_bits(trial_fold(gx),
+                              resize.upsample_bicubic_x2_backward_reference(
+                                  trial_fold(gy))), ("adjoint", shape))
+        if dtype == torch.bfloat16:
+            for seed, shape in enumerate(gel):
+                x = randn_card((t_n,) + shape, 1000 + seed, dtype) * 3
+                gy = randn_card((t_n,) + shape, 1050 + seed, dtype)
+                y = once("gelu", gelu.gelu_bf16, x)
+                require(same_bits(trial_fold(y), gelu.gelu_bf16_reference(
+                    trial_fold(x))), ("gelu", shape))
+                gx = once("gelu bwd", gelu.gelu_bf16_backward, x, gy)
+                require(same_bits(trial_fold(gx),
+                                  gelu.gelu_bf16_backward_reference(
+                                      trial_fold(x), trial_fold(gy))),
+                        ("gelu vjp", shape))
+            del x, gy, y, gx
+    print(f"(p1) the six launch points under torch.func.vmap over {t_n} "
+          f"trials at every shape of a base 416x800 batch-{TRAIN_BATCH} "
+          f"microbatch and a ragged one (bf16 and fp32; GELU bf16): vmapped "
+          f"calls {calls}, each one launch; against the plain version on "
+          f"the folded batch: attention scores within {ATTN_TOL}, argmax "
+          f"equal off {ties} near ties (tol {ARGMAX_TIE}), dq bit for bit, "
+          f"dk {dk_ulps:.2f} bf16 ulps (tol 1) and {dk_err:.3g} in fp32 "
+          f"(tol {ATTN_BWD_TOL}); bicubic, its adjoint, GELU and its VJP "
+          f"bit for bit; {time.perf_counter() - t0:.1f} s")
+
+
+@contextlib.contextmanager
+def recorded_folded_argmax(folded):
+    """[the argmax [T*B, h, N] (int32, host) of each attention call that a
+    vmap rule folded to ``folded`` samples] of the enclosed vmapped step
+    (the rule looks the operator up at each call)."""
+    from camradepth_tpu_torch.ops import attention
+
+    out = []
+    op = attention.scores_argmax_op
+
+    def recording(q, k, heads, scale):
+        s, amax = op(q, k, heads, scale)
+        if q.shape[0] == folded:  # the rule's call, outside the vmap
+            out.append(amax.cpu())
+        return s, amax
+
+    attention.scores_argmax_op = recording
+    try:
+        yield out
+    finally:
+        attention.scores_argmax_op = op
+
+
+def p2_config(cfg):
+    mcfg = dataclasses.replace(cfg.model, img_size=P2_HW,
+                               compute_dtype="float32", drop_path_rate=0.0,
+                               dropout_rate=0.0)
+    return cfg.replace(model=mcfg)
+
+
+def p2_step(cfg, dev, argmax=None):
+    """(p2)'s vmapped step on ``dev``: (losses, each trial's gradient with
+    its weight decay, launches), and with ``argmax`` (a list) the folded
+    argmax of every attention call recorded into it; on the card also
+    (model, stacked initial params, the microbatch)."""
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.train.search import _vmapped_machinery
+
+    scfg = p2_config(cfg)
+    t_n, b = P2_TRIALS, TRAIN_BATCH
+    model = create_model(scfg.model, device=dev, seed=3, train=True)
+    v_step, _, make_state = _vmapped_machinery(scfg, model, 3,
+                                               torch.device(dev))
+    micro = {k: v[None] for k, v in step_inputs(scfg, b, 31, dev).items()}
+    params, opt = make_state(t_n)
+    lrs = torch.tensor(P2_LRS, device=dev)
+    wds = torch.tensor(P2_WDS, device=dev)
+    card = dev == "cuda"
+    with (recorded_folded_argmax(t_n * b) if card
+          else contextlib.nullcontext([])) as amax:
+        before = training_counts()
+        _, opt1, losses = v_step(params, opt, lrs, wds, micro, [None], 0)
+        if card:
+            torch.cuda.synchronize()
+        launches = tuple(a - c for a, c in zip(training_counts(), before))
+    if argmax is not None:
+        argmax.extend(amax)
+    out = (losses.double().cpu(), {n: g.double().cpu() for n, g in
+                                   opt1["previous_grad"].items()}, launches)
+    return out + ((model, params, micro) if card else ())
+
+
+def phase_p2(cfg, cpu_run):
+    """One fp32 vmapped trial step (P2_TRIALS trials, base at 128x256, TF32
+    off, dropout off): on the card against the port's CPU run of the same
+    step (``cpu_run``, a future of ``p2_step`` on the CPU, run beside
+    (p1)), and against one unvmapped step per trial on the card that takes
+    the vmapped step's argmax where the two differ at a near tie."""
+    from torch.func import functional_call, grad_and_value
+
+    from camradepth_tpu_torch.train.losses import multitask_loss
+    from camradepth_tpu_torch.train.step import build_gt
+
+    scfg = p2_config(cfg)
+    t_n, b = P2_TRIALS, TRAIN_BATCH
+    t0 = time.perf_counter()
+    # the CPU run first: the card run records at a module attribute the
+    # CPU run's vmap rule would also reach
+    lp, gp, _ = cpu_run.result()
+    t_cpu = time.perf_counter() - t0
+    amax = []
+    lc, gc, launches, model, params, micro = p2_step(cfg, "cuda", amax)
+    n_attn = sum(scfg.model.depths)
+    require(launches == (n_attn, 5, 0, n_attn, 5, 0), launches)
+
+    def rel(a, b_):
+        return float((a - b_).norm() / b_.norm().clamp_min(1e-30))
+
+    worst_cpu = max((rel(gc[n][t], gp[n][t]), t, n) for n in gp
+                    for t in range(t_n))
+    require(bool(((lc - lp).abs() <= STEP_RTOL * lp.abs()).all()),
+            (lc, lp))
+    require(worst_cpu[0] <= STEP_GRAD_REL_L2, worst_cpu)
+    # one unvmapped step per trial on the card, the vmapped argmax forced
+    mb = {k: v[0] for k, v in micro.items()}
+    gt = build_gt(mb)
+
+    def loss_fn(p):
+        return multitask_loss(functional_call(model, p, (mb["features"],)),
+                              gt, scfg)[0]
+
+    worst, flips = (0.0, None, None), []
+    for t in range(t_n):
+        forced = [a[t * b:(t + 1) * b] for a in amax]
+        p_t = {n: v[t] for n, v in params.items()}
+        with recorded_argmax(forced) as diffs:
+            g, loss = grad_and_value(loss_fn)(p_t)
+        flips += diffs
+        require(abs(loss.item() - lc[t].item())
+                <= P2_LOSS_RTOL * abs(loss.item()), (t, loss.item(),
+                                                     lc[t].item()))
+        for n, v in g.items():
+            want = (v + P2_WDS[t] * p_t[n]).double().cpu()
+            worst = max(worst, (rel(gc[n][t], want), t, n))
+    require(worst[0] <= P2_GRAD_REL_L2, worst)
+    n_flip = sum(n for n, _ in flips)
+    print(f"(p2) one fp32 vmapped step of base at {P2_HW[0]}x{P2_HW[1]}, "
+          f"{t_n} trials x batch {b} (lr {P2_LRS}, wd {P2_WDS}), launches "
+          f"{launches} (one call per layer for every trial): card vs CPU "
+          f"losses {[round(v, 7) for v in lc.tolist()]} vs "
+          f"{[round(v, 7) for v in lp.tolist()]} (rtol {STEP_RTOL}), worst "
+          f"trial gradient relative L2 {worst_cpu[0]:.3g} (trial "
+          f"{worst_cpu[1]}, {worst_cpu[2]}; tol {STEP_GRAD_REL_L2}); "
+          f"against {t_n} unvmapped steps on the card: losses within rtol "
+          f"{P2_LOSS_RTOL}, worst gradient {worst[0]:.3g} (trial {worst[1]},"
+          f" {worst[2]}; tol {P2_GRAD_REL_L2}), {n_flip} argmax rows at near"
+          f" ties forced to the vmapped keys (largest gap "
+          f"{max([gap for _, gap in flips] + [0.0]):.3g}, tol {ARGMAX_TIE});"
+          f" waited {t_cpu:.1f} s for the CPU run, "
+          f"{time.perf_counter() - t0:.1f} s")
+    del model, params, micro
+    torch.cuda.empty_cache()
+
+
+def search_argv(split, *extra):
+    """cli search at base 416x800 bf16 on (g)'s corpus, batch 2 x 3."""
+    return ["search", "--split", str(split), "--train-val-split",
+            f"{P_TRAIN},{P_VAL}", "--batch-size", str(TRAIN_BATCH),
+            "--desired-batch-size", str(TRAIN_BATCH * P_ACCUM), *extra]
+
+
+def search_results(out):
+    """(the result dicts, the best config's overrides) of cli search's
+    printed lines."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    best = [ln for ln in out.splitlines() if ln.startswith("best config: ")]
+    require(len(best) == 1, out[-2000:])
+    text = best[0].removeprefix("best config: ")
+    return [json.loads(ln) for ln in lines], json.loads(
+        text[:text.rindex(" (val loss")])
+
+
+def training_launches(micro, evals, n_attn=34, n_gelu=53):
+    """training_counts()'s tuple for ``micro`` bf16 training microbatches
+    and ``evals`` forwards."""
+    fwd = micro + evals
+    return (fwd * n_attn, fwd * 5, fwd * n_gelu, micro * n_attn, micro * 5,
+            micro * n_gelu)
+
+
+def phase_p3(cfg, split):
+    """This slice's main path: cli search --vmap-trials at base 416x800
+    bf16, batch 2 x 3, P_TRIALS trials x 3 steps; then the vmapped step and
+    cli train's one-trial step timed in turns, and one profiled vmapped
+    step."""
+    t0 = time.perf_counter()
+    steps = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = training_counts()
+    t_run = time.perf_counter()
+    rc, out = run_cli(search_argv(split, "--vmap-trials", "--num-trials",
+                                  str(P_TRIALS), "--trial-steps",
+                                  str(steps)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = tuple(a - c for a, c in zip(training_counts(), before))
+    require(rc == 0, out[-2000:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    results, best = search_results(out)
+    vals = [r["val_loss"] for r in results]
+    require(len(results) == P_TRIALS and all(np.isfinite(vals))
+            and len(set(vals)) == P_TRIALS, vals)
+    require(best == results[int(np.argmin(vals))]["overrides"], best)
+    micro = steps * P_ACCUM
+    want = training_launches(micro, 1)
+    require(launches == want, (launches, want))
+    print(f"(p3) cli search --vmap-trials, base 416x800 bf16, batch "
+          f"{TRAIN_BATCH} x {P_ACCUM}, {P_TRIALS} trials x {steps} steps on "
+          f"the {P_TRAIN}/{P_VAL} split: val losses "
+          f"{[round(v, 6) for v in vals]}, best = argmin; launches "
+          f"(attention, upsample, gelu, attention bwd, upsample bwd, gelu "
+          f"bwd) {launches} = 34 + 34, 5 + 5, 53 + 53 per vmapped microbatch "
+          f"for {micro} microbatches, whatever the trial count, and one "
+          f"vmapped val forward; {wall:.1f} s, peak memory {peak:.2f} GiB")
+    p_step_rates(cfg)
+    print(f"(p3) {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def p_step_rates(cfg):
+    """The vmapped step of P_TRIALS trials and the one-trial train step
+    (cli train's) on the same microbatches, timed in turns, then one
+    vmapped step under the profiler: ms, per-trial steps/s, device busy,
+    idle share, peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.train.diffgrad import DiffGradNorm
+    from camradepth_tpu_torch.train.search import _vmapped_machinery
+    from camradepth_tpu_torch.train.step import train_step
+    from camradepth_tpu_torch.train.trainer import step_generator
+
+    dev = torch.device("cuda")
+    model = create_model(cfg.model, device=dev, seed=0, train=True)
+    v_step, _, make_state = _vmapped_machinery(cfg, model, 8, dev)
+    micro = [step_inputs(cfg, TRAIN_BATCH, 40 + j, "cuda")
+             for j in range(P_ACCUM)]
+    for mb in micro:
+        mb["features"] = mb["features"].to(torch.bfloat16)
+    stacked = {k: torch.stack([mb[k] for mb in micro]) for k in micro[0]}
+    params, opt = make_state(P_TRIALS)
+    lrs = torch.full((P_TRIALS,), 1e-5, device=dev)
+    wds = torch.zeros(P_TRIALS, device=dev)
+    single = create_model(cfg.model, device=dev, seed=0, train=True)
+    sopt = DiffGradNorm(single.parameters(), lr=1e-5)
+    state = {"i": 0}
+
+    def vmapped():
+        nonlocal params, opt
+        gens = [step_generator(dev, 0, 0, state["i"], j)
+                for j in range(P_ACCUM)]
+        params, opt, _ = v_step(params, opt, lrs, wds, stacked, gens,
+                                state["i"])
+        state["i"] += 1
+
+    def one_trial():
+        gens = [step_generator(dev, 0, 0, state["i"], j)
+                for j in range(P_ACCUM)]
+        train_step(cfg, single, sopt, micro, gens, 1e-5)
+
+    vmapped()
+    one_trial()  # warm-up of both
+    times = {"vmapped": [], "single": []}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        for name, fn in (("vmapped", vmapped), ("single", one_trial)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vmapped()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    v_ms, s_ms = np.mean(times["vmapped"]), np.mean(times["single"])
+    print(f"(p3) in turns (vmapped, single) x 2: vmapped step of "
+          f"{P_TRIALS} trials {[round(v, 2) for v in times['vmapped']]} ms, "
+          f"cli train's one-trial step {[round(v, 2) for v in times['single']]}"
+          f" ms: {1e3 * P_TRIALS / v_ms:.3f} trial-steps/s vmapped against "
+          f"{1e3 / s_ms:.3f} one trial at a time ({s_ms * P_TRIALS / v_ms:.2f}"
+          f"x); peak memory {peak:.2f} GiB (both models); one vmapped step "
+          f"under the profiler: {prof_wall:.2f} ms wall, device busy "
+          f"{busy:.2f} ms, {sum(e.count for e in kernels)} kernel launches, "
+          f"idle share {100 * (1 - busy / prof_wall):.1f} %")
+    for e in kernels[:8]:
+        ms = e.self_device_time_total / 1e3
+        print(f"(p3)   {ms:8.3f} ms {100 * ms / busy:5.1f} % x{e.count:<5d} "
+              f"{e.key[:100]}")
+    del model, single, sopt, params, opt, micro, stacked
+    torch.cuda.empty_cache()
+
+
+def phase_p4(split):
+    """cli search --vmap-trials --halving: rungs of 4 and 2 trials, the
+    survivors continuing from their state (3 steps in all, not 1 + 3)."""
+    t0 = time.perf_counter()
+    before = training_counts()
+    rc, out = run_cli(search_argv(split, "--vmap-trials", "--halving",
+                                  "--num-trials", "4", "--min-steps", "1",
+                                  "--trial-steps", "3"))
+    torch.cuda.synchronize()
+    launches = tuple(a - c for a, c in zip(training_counts(), before))
+    require(rc == 0, out[-2000:])
+    results, best = search_results(out)
+    rungs = [(r["rung"], r["steps"]) for r in results]
+    require(rungs == [(0, 1)] * 4 + [(1, 3)] * 2, rungs)
+    r0 = sorted(results[:4], key=lambda r: r["val_loss"])
+    require([r["overrides"] for r in r0[:2]]
+            == [r["overrides"] for r in results[4:]], "survivors")
+    require(best == min(results[4:], key=lambda r: r["val_loss"])[
+        "overrides"], best)
+    want = training_launches(3 * P_ACCUM, 2)
+    require(launches == want, (launches, want))
+    print(f"(p4) cli search --vmap-trials --halving (4 trials, min 1, max 3"
+          f" steps): rungs of 4 trials at 1 step and 2 at 3, the survivors "
+          f"rung 0's best two; {3 * P_ACCUM} vmapped microbatches in all, so "
+          f"the survivors continued (launches {launches}); val losses "
+          f"{[round(r['val_loss'], 6) for r in results]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_p5(split, tmp):
+    """The sequential cli search through the Trainer at base 416x800: 2
+    trials x 2 steps, and --halving over 3 trials (min 1, max 3), on a 6/2
+    split (one optimizer step an epoch)."""
+    t0 = time.perf_counter()
+    common = ["search", "--split", str(split), "--train-val-split", "6,2",
+              "--batch-size", str(TRAIN_BATCH), "--desired-batch-size",
+              str(TRAIN_BATCH * P_ACCUM), "--output-dir", str(tmp / "p5")]
+    rc, out = run_cli(common + ["--num-trials", "2", "--trial-steps", "2"])
+    require(rc == 0, out[-2000:])
+    results, best = search_results(out)
+    vals = [r["val_loss"] for r in results]
+    require(len(results) == 2 and all(np.isfinite(vals)), vals)
+    require(best == results[int(np.argmin(vals))]["overrides"], best)
+    rc, out = run_cli(common + ["--halving", "--num-trials", "3",
+                                "--min-steps", "1", "--trial-steps", "3"])
+    require(rc == 0, out[-2000:])
+    hres, hbest = search_results(out)
+    rungs = [(r["rung"], r["steps"]) for r in hres]
+    require(rungs == [(0, 1)] * 3 + [(1, 3)], rungs)
+    require(hres[3]["overrides"] == min(hres[:3], key=lambda r: r[
+        "val_loss"])["overrides"] == hbest, hres)
+    require(all(np.isfinite(r["val_loss"]) for r in hres), hres)
+    print(f"(p5) sequential cli search through the Trainer (base 416x800 "
+          f"bf16, 6/2 split): 2 trials x 2 steps, val losses "
+          f"{[round(v, 6) for v in vals]}; --halving 3 trials at 1 step, "
+          f"then the best at 3: {[round(r['val_loss'], 6) for r in hres]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def p6_argv(split):
+    """(p6)'s cli search: base 416x800 in fp32 (TF32 off), batch 1, 4
+    trials x 1 step, one val frame."""
+    return ["search", "--split", str(split), "--train-val-split", "2,2",
+            "--batch-size", "1", "--desired-batch-size", "1",
+            "--compute-dtype", "float32", "--vmap-trials", "--num-trials",
+            "4", "--trial-steps", "1"]
+
+
+def p_rank(argv):
+    """One rank of phase (p6) (``chip_smoke.py --rank-p RANK WORLD PORT
+    SPLIT``): cli search --vmap-trials --data-parallel WORLD with TF32 off,
+    its printed lines echoed with a rank prefix."""
+    rank, world, port, split = (int(argv[0]), int(argv[1]), int(argv[2]),
+                                argv[3])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rc, out = run_cli(p6_argv(split) + [
+        "--data-parallel", str(world), "--coordinator",
+        f"127.0.0.1:{port}", "--num-processes", str(world), "--process-id",
+        str(rank)])
+    for line in out.splitlines():
+        print(f"[{rank}] {line}")
+    require(rc == 0, (rank, rc))
+    print(f"[{rank}] DONE", flush=True)
+
+
+def start_p6(split, world=2):
+    """(p6)'s ranks: cli search --vmap-trials --data-parallel ``world`` on
+    ``world`` ranks sharing the card over gloo, started beside (p5)."""
+    import os
+
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    port = str(free_port())
+    return time.perf_counter(), [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-p", str(r),
+         str(world), port, str(split)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def finish_p6(split, started):
+    """(p6): the ranks' val losses against the single-process run of the
+    same cli search, which runs once they have ended."""
+    t0, procs = started
+    world = len(procs)
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        require(p.returncode == 0 and f"[{r}] DONE" in log,
+                (r, p.returncode, log[-4000:]))
+    t_ranks = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rc, out = run_cli(p6_argv(split))
+    require(rc == 0, out[-2000:])
+    single, _ = search_results(out)
+    ranked = [ln.removeprefix("[0] ") for ln in logs[0].splitlines()
+              if ln.startswith("[0] ")]
+    sharded, _ = search_results("\n".join(ranked))
+    require(not any(ln.startswith("[1] {") for ln in logs[1].splitlines()),
+            "rank 1 printed results")
+    require([r["overrides"] for r in sharded]
+            == [r["overrides"] for r in single], "trial order")
+    got = np.array([r["val_loss"] for r in sharded])
+    want = np.array([r["val_loss"] for r in single])
+    rel = np.abs(got - want) / np.abs(want)
+    require(bool((rel <= P6_RTOL).all()), (got, want))
+    print(f"(p6) cli search --vmap-trials --data-parallel {world} (base "
+          f"416x800 fp32, batch 1, 4 trials x 1 step) on {world} ranks "
+          f"sharing the card over gloo, 2 trials each: val losses "
+          f"{got.tolist()} against one process's {want.tolist()}, largest "
+          f"relative difference {rel.max():.3g} (tol {P6_RTOL}); ranks "
+          f"{t_ranks:.1f} s (beside (p5)), one process "
+          f"{time.perf_counter() - t1:.1f} s")
+
+
+def phase_p(cfg, split, tmp):
+    """This slice's path: hyperparameter search with the trials vmapped
+    through the kernels, and the sequential search through the Trainer."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        # (p2)'s CPU reference step, beside (p1) on the card
+        cpu_run = pool.submit(p2_step, cfg, "cpu")
+        phase_p1(cfg)
+        phase_p2(cfg, cpu_run)
+    launches = phase_p3(cfg, split)
+    phase_p4(split)
+    ranks = start_p6(split)
+    phase_p5(split, Path(tmp))
+    finish_p6(split, ranks)
+    print(f"chip_smoke: phase (p) passed in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------- phase (q)
+# the prep estimators at nuScenes' 900x1600
+Q_HW = (900, 1600)
+Q_RAFT_HW = (904, 1600)  # padded to /8, as dataprep/adapters.py pads
+Q_RAFT_ITERS = 20
+Q_RADAR_POINTS = 4096
+
+
+def q_synth_state(model, seed):
+    """Seeded random weights for ``model``'s every state_dict tensor (its
+    official key set), BatchNorm running statistics included; conv kernels
+    ~ N(0, 1.5 / fan_in), the rest ~ N(0, 0.2), variances 0.5 + U(0, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(1000)
+        elif k.endswith("running_var"):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=g)
+        elif v.ndim == 4:
+            fan = max(1, v.shape[1] * v.shape[2] * v.shape[3])
+            sd[k] = torch.randn(v.shape, generator=g) * (1.5 / fan) ** 0.5
+        else:
+            sd[k] = torch.randn(v.shape, generator=g) * 0.2
+    return sd
+
+
+def q_textured(h, w, seed):
+    """A smooth random uint8 RGB image (a 5x5 box blur of noise)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0, 255, (3, h + 4, w + 4)).astype(
+        np.float32))
+    x = F.avg_pool2d(x[None], 5, stride=1)[0]
+    return x.permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def q_time(fn, iters=3):
+    """(ms per call over ``iters`` calls after one warm-up, the last
+    output)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters, out
+
+
+def phase_q():
+    """The prep estimators and geometry on synthesized official-key weights,
+    fp32, TF32 off: each at nuScenes' 900x1600 (finite, two runs equal, ms
+    per frame) and at a small size against the port's CPU run."""
+    from camradepth_tpu_torch.geometry import raster
+    from camradepth_tpu_torch.models import panoptic_deeplab as pdl
+    from camradepth_tpu_torch.models import raft
+    from camradepth_tpu_torch.ops.optical_flow import lk_flow
+
+    t0 = time.perf_counter()
+    h, w = Q_HW
+    # RAFT-large: the official key set, 'module.'-prefixed as saved
+    state = {f"module.{k}": v for k, v in
+             q_synth_state(raft.RAFT(), 40).items()}
+    im1 = q_textured(*Q_RAFT_HW, 41)
+    im2 = np.roll(im1, (3, -5), axis=(0, 1))
+    run = raft.raft_flow_fn(state, iters=Q_RAFT_ITERS, device="cuda")
+    ms, flow = q_time(lambda: run(im1[None], im2[None]), iters=2)
+    again = run(im1[None], im2[None])
+    require(flow.shape == (1, *Q_RAFT_HW, 2)
+            and bool(torch.isfinite(flow).all()), flow.shape)
+    require(torch.equal(flow, again), "RAFT: two runs differ")
+    sm1, sm2 = im1[:128, :256], im2[:128, :256]
+    f_card = raft.raft_flow_fn(state, iters=4, device="cuda")(
+        sm1[None], sm2[None]).cpu()
+    f_cpu = raft.raft_flow_fn(state, iters=4, device="cpu")(sm1[None],
+                                                            sm2[None])
+    raft_err = (f_card - f_cpu).abs().max().item() / f_cpu.abs().max().item()
+    require(raft_err <= 1e-4, ("RAFT card vs CPU", raft_err))
+    print(f"(q) RAFT-large ({len(state)} official keys), "
+          f"{Q_RAFT_HW[0]}x{Q_RAFT_HW[1]}, {Q_RAFT_ITERS} iterations: finite,"
+          f" two runs equal, {ms:.2f} ms per frame pair; 128x256 with 4 "
+          f"iterations against the CPU: {raft_err:.3g} of the largest flow "
+          f"(tol 1e-4)")
+    del run, flow, again
+    torch.cuda.empty_cache()
+    # Panoptic-DeepLab R101-os32
+    model = pdl.PanopticDeepLab()
+    model.load_state_dict(q_synth_state(model, 42))
+    im = q_textured(h, w, 43)
+    est = pdl.classmap_fn(model, device="cuda")
+    ms, cls = q_time(lambda: est(im))
+    require(cls.shape == Q_HW and cls.min() >= 0
+            and cls.max() < pdl.NUM_CLASSES, cls.shape)
+    require(np.array_equal(cls, est(im)), "classmap: two runs differ")
+    ph, pw = pdl._pad_hw(h, w)
+    x = torch.from_numpy(q_textured(161, 321, 44)).float()
+    x = ((x - torch.tensor(pdl.MEAN)) / torch.tensor(pdl.STD))[None]
+    with torch.no_grad():
+        card = {k: v.cpu() for k, v in model.cuda()(x.cuda()).items()}
+        ref = model.cpu()(x)
+    torch.testing.assert_close(card["semantic"], ref["semantic"], rtol=1e-4,
+                               atol=1e-4)
+    pdl_err = (card["semantic"] - ref["semantic"]).abs().max().item()
+    print(f"(q) Panoptic-DeepLab R101-os32 classmap_fn at {h}x{w} (padded "
+          f"to {ph}x{pw}): classes in 0..{pdl.NUM_CLASSES - 1}, two runs "
+          f"equal, {ms:.2f} ms per frame; semantic logits at 161x321 against"
+          f" the CPU: max abs {pdl_err:.3g} (rtol/atol 1e-4)")
+    del model, est
+    torch.cuda.empty_cache()
+    # Lucas-Kanade
+    a = q_textured(h, w, 45)
+    b = np.roll(a, (2, -3), axis=(0, 1))
+    ms, flow = q_time(lambda: lk_flow(a, b, device="cuda"))
+    require(flow.shape == (h, w, 2) and np.isfinite(flow).all(), flow.shape)
+    require(np.array_equal(flow, lk_flow(a, b, device="cuda")),
+            "LK: two runs differ")
+    med = np.median(flow[50:-50, 50:-50], axis=(0, 1))
+    sa, sb = a[:96, :128], b[:96, :128]
+    lk_err = float(np.abs(lk_flow(sa, sb, device="cuda")
+                          - lk_flow(sa, sb, device="cpu")).max())
+    require(lk_err <= 1e-4, ("LK card vs CPU", lk_err))
+    print(f"(q) lk_flow at {h}x{w}: finite, two runs equal, {ms:.2f} ms per "
+          f"frame pair, interior median ({med[0]:.3f}, {med[1]:.3f}) px for "
+          f"content moved by (-3, 2); 96x128 against the CPU: {lk_err:.3g} "
+          f"px (atol 1e-4)")
+    # radar raster
+    rng = np.random.default_rng(46)
+    n = Q_RADAR_POINTS
+    f32 = lambda v: torch.from_numpy(np.asarray(v, np.float32))
+    x1, y1 = f32(rng.uniform(0, w - 1, n)), f32(rng.uniform(0, h - 1, n))
+    args = dict(depth1=f32(rng.uniform(2, 100, n)),
+                times1=f32(rng.uniform(0, 0.5, n)),
+                x2=x1 + f32(rng.uniform(-3, 3, n)),
+                y2=y1 + f32(rng.uniform(-3, 3, n)),
+                rcs=f32(rng.uniform(-5, 10, n)),
+                v_comp=f32(rng.uniform(0, 2, n)),
+                valid=torch.from_numpy(rng.random(n) < 0.95))
+    on = {k: v.cuda() for k, v in args.items()}
+    ms, maps = q_time(lambda: raster.rasterize_radar(x1.cuda(), y1.cuda(),
+                                                     **on))
+    again = raster.rasterize_radar(x1.cuda(), y1.cuda(), **on)
+    cpu = raster.rasterize_radar(x1, y1, **args)
+    for k, v in maps.items():
+        require(bool(torch.isfinite(v).all()), k)
+        require(torch.equal(v, again[k]), ("raster: two runs differ", k))
+        require(torch.equal(v.cpu(), cpu[k]), ("raster card vs CPU", k))
+    print(f"(q) rasterize_radar of {n} points at {h}x{w} (maps "
+          f"{tuple(maps['depth'].shape)}, {int((maps['depth'] > 0).sum())} "
+          f"hit): finite, two runs equal, bit for bit with the CPU; "
+          f"{ms:.3f} ms per frame")
+    print(f"chip_smoke: phase (q) passed in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_p_alone():
+    """(p) with what it needs from the earlier phases (``python3
+    chip_smoke.py --phase p``): the kernels' build and (g)'s 32-frame
+    corpus made again."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.data import synthetic
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_a()
+    cfg = preset("base")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        h, w = cfg.model.img_size
+        split = synthetic.generate(tmp / "data", num_frames=P_TRAIN + P_VAL,
+                                   hw=(h, w), seed=0, rain_every=4)
+        phase_p(cfg, split, tmp)
+
+
+def phase_q_alone():
+    """(q) alone after (a) (``python3 chip_smoke.py --phase q``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_a()
+    phase_q()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
@@ -4082,6 +4886,15 @@ def main() -> None:
         return
     if sys.argv[1:2] == ["--rank-o"]:  # a rank of phase (o)
         o_rank(sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--rank-p"]:  # a rank of phase (p6)
+        p_rank(sys.argv[2:])
+        return
+    if sys.argv[1:] == ["--phase", "p"]:
+        phase_p_alone()
+        return
+    if sys.argv[1:] == ["--phase", "q"]:
+        phase_q_alone()
         return
     if sys.argv[1:] == ["--phase", "n"]:
         phase_n_alone()
@@ -4158,14 +4971,21 @@ def main() -> None:
     del engine, ref_model
     torch.cuda.empty_cache()
     phase_o(cfg, split, pth, Path(corpus.name))
-    corpus.cleanup()
     t14 = time.perf_counter()
+    search_launches = phase_p(cfg, split, Path(corpus.name))
+    corpus.cleanup()
+    t15 = time.perf_counter()
+    phase_q()
+    t16 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
           f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}, "
-          f"(m) {t12 - t11:.1f}, (n) {t13 - t12:.1f}, (o) {t14 - t13:.1f}; "
-          f"total {t14 - t0:.1f} s (limit 1200 s)")
+          f"(m) {t12 - t11:.1f}, (n) {t13 - t12:.1f}, (o) {t14 - t13:.1f}, "
+          f"(p) {t15 - t14:.1f}, (q) {t16 - t15:.1f}; total {t16 - t0:.1f} s "
+          f"(limit 1200 s)")
+    # the vmapped search's main path launched every training kernel
+    require(all(n > 0 for n in search_launches), search_launches)
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the
     # fused conv from its own main path in (f), the backward kernels from
     # the training run of (h)

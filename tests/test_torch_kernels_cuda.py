@@ -741,3 +741,118 @@ def test_artifact_on_the_card_launches_the_kernels(cuda, tmp_path,
     assert counts[0] == counts[1] and counts[0][:2] == [4, 5], counts
     assert (counts[0][2] > 0) == (dtype == "bfloat16")
     assert np.array_equal(outs[0], outs[1])
+
+
+def _vmap_counters():
+    from camradepth_tpu_torch.ops import attention, gelu, resize
+
+    return {
+        "scores": attention.maxpool_attention_scores,
+        "scores_bwd": attention.maxpool_attention_scores_backward,
+        "upsample": resize.upsample_bicubic_x2,
+        "upsample_bwd": resize.upsample_bicubic_x2_backward,
+        "gelu": gelu.gelu_bf16,
+        "gelu_bwd": gelu.gelu_bf16_backward,
+    }
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("trials", [1, 4])
+def test_vmap_rules_launch_once_for_every_trial(cuda, dtype, trials):
+    """Each launch point under torch.func.vmap over ``trials``: one launch
+    for the whole trial-batched call, equal to the kernel on each trial
+    alone (and, through the tests above, to the plain version)."""
+    from camradepth_tpu_torch.ops import attention, gelu, resize
+
+    vmap = torch.func.vmap
+    t, b, n, m, c, heads = trials, 2, 1001, 77, 120, 3
+    q = _randn((t, b, n, c), 0, dtype, cuda)
+    k = _randn((t, b, m, c), 1, dtype, cuda)
+    g = _randn((t, b, n), 2, torch.float32, cuda)
+    x = _randn((t, b, 13, 25, 129), 3, dtype, cuda)
+    gy = _randn((t, b, 26, 50, 129), 4, dtype, cuda)
+    scale = (c // heads) ** -0.5
+    count = _vmap_counters()
+
+    def once(name, fn, *args):
+        before = count[name].launches
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert count[name].launches == before + 1, name
+        return out, None
+
+    s, amax = once("scores", vmap(
+        lambda a, b_: attention.maxpool_attention_scores_with_argmax(
+            a, b_, heads, scale)), q, k)[0]
+    dq, dk = once("scores_bwd", vmap(
+        lambda a, b_, i, gg: attention.maxpool_attention_scores_backward(
+            a, b_, i, gg, heads, scale)), q, k, amax, g)[0]
+    s_nograd = once("scores", vmap(
+        lambda a, b_: attention.maxpool_attention_scores(a, b_, heads,
+                                                         scale)), q, k)[0]
+    y = once("upsample", vmap(resize.upsample_bicubic_x2), x)[0]
+    gx = once("upsample_bwd", vmap(resize.upsample_bicubic_x2_backward),
+              gy)[0]
+    for i in range(t):
+        si, ai = attention.maxpool_attention_scores_with_argmax(
+            q[i], k[i], heads, scale)
+        assert torch.equal(s[i], si) and torch.equal(amax[i], ai)
+        assert torch.equal(s_nograd[i], attention.maxpool_attention_scores(
+            q[i], k[i], heads, scale))
+        dqi, dki = attention.maxpool_attention_scores_backward(
+            q[i], k[i], amax[i], g[i], heads, scale)
+        assert torch.equal(dq[i], dqi)
+        # dk's fp32 sums may run in another order at another launch shape
+        if dtype == torch.bfloat16:
+            assert _bf16_ulps(dk[i], dki) <= 1.0
+        else:
+            torch.testing.assert_close(dk[i], dki, rtol=1e-5, atol=1e-5)
+        assert torch.equal(y[i], resize.upsample_bicubic_x2(x[i]))
+        assert torch.equal(gx[i], resize.upsample_bicubic_x2_backward(gy[i]))
+    if dtype == torch.bfloat16:
+        xb = _randn((t, b, 52, 100, 64), 5, dtype, cuda) * 3
+        gb = _randn((t, b, 52, 100, 64), 6, dtype, cuda)
+        out = once("gelu", vmap(gelu.gelu_bf16), xb)[0]
+        vjp = once("gelu_bwd", vmap(gelu.gelu_bf16_backward), xb, gb)[0]
+        assert torch.equal(out, gelu_bf16_reference(xb))
+        assert torch.equal(vjp, gelu_bf16_backward_reference(xb, gb))
+
+
+def test_vmapped_trial_step_launches_once_per_call(cuda):
+    """One bf16 vmapped trial step of a small CamRaDepth for 3 trials: per
+    microbatch the kernels launch as often as for one trial (34 encoder
+    blocks are 4 here: 4 + 4 attention, 5 + 5 bicubic launches), and each
+    trial's loss is that of a one-trial step, within the bf16 step's
+    limit."""
+    from camradepth_tpu_torch.config import tiny_test_config
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.train import search
+
+    cfg = tiny_test_config()
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16", dropout_rate=0.0))
+    model = create_model(cfg.model, device=cuda, seed=0, train=True)
+    v_step, v_val, make_state = search._vmapped_machinery(cfg, model, 3,
+                                                          cuda)
+    rng = np.random.default_rng(0)
+    micro = search._device_tree({
+        "features": rng.standard_normal((1, 2, 64, 128, 7)).astype(
+            np.float32),
+        "gt_depth": rng.random((1, 2, 64, 128)).astype(np.float32)}, cuda)
+    count = _vmap_counters()
+    lrs = torch.tensor([1e-4, 1e-3, 1e-2], device=cuda)
+    wds = torch.zeros(3, device=cuda)
+    before = {k: v.launches for k, v in count.items()}
+    params, opt = make_state(3)
+    _, _, losses = v_step(params, opt, lrs, wds, micro, [None], 0)
+    torch.cuda.synchronize()
+    got = {k: v.launches - before[k] for k, v in count.items()}
+    assert got["scores"] == got["scores_bwd"] == 4, got
+    assert got["upsample"] == got["upsample_bwd"] == 5, got
+    assert got["gelu"] == got["gelu_bwd"] > 0, got
+    p1, o1 = make_state(1)
+    one = v_step(p1, o1, lrs[:1], wds[:1], micro, [None], 0)[2]
+    # bf16: cuDNN takes other algorithms for the grouped convolutions of 3
+    # trials than for 1 (measured 4.0e-5 relative); the bf16 step's loss
+    # limit of PERF.md section 2
+    torch.testing.assert_close(losses, one.expand(3), rtol=2e-3, atol=0)

@@ -66,7 +66,14 @@ def test_sources_import_no_jax():
             "camradepth_tpu_torch.parallel.multihost",
             "camradepth_tpu_torch.parallel.mesh",
             "camradepth_tpu_torch.parallel.gradcheck",
-            "camradepth_tpu_torch.parallel.spatial"} <= set(MODULES)
+            "camradepth_tpu_torch.parallel.spatial",
+            "camradepth_tpu_torch.train.search",
+            "camradepth_tpu_torch.geometry.se3",
+            "camradepth_tpu_torch.geometry.raster",
+            "camradepth_tpu_torch.ops.optical_flow",
+            "camradepth_tpu_torch.models.alt_blocks",
+            "camradepth_tpu_torch.models.raft",
+            "camradepth_tpu_torch.models.panoptic_deeplab"} <= set(MODULES)
 
 
 def test_entry_points_default_to_cuda():
@@ -93,6 +100,17 @@ def test_entry_points_default_to_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg)
+    from camradepth_tpu_torch.models import panoptic_deeplab, raft
+    from camradepth_tpu_torch.ops.optical_flow import lk_flow
+    from camradepth_tpu_torch.train.search import vmapped_trials
+
+    im = np.zeros((16, 16, 3), np.uint8)
+    for call in (lambda: lk_flow(im, im),
+                 lambda: raft.raft_flow_fn({}),
+                 lambda: panoptic_deeplab.classmap_fn(torch.nn.Module()),
+                 lambda: vmapped_trials(cfg, {}, batches=[{}])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 @pytest.mark.parametrize("tpu_decoder", [False, True])
