@@ -1,7 +1,11 @@
-"""Command-line interface of the PyTorch/CUDA port: ``train``,
+"""Command-line interface of the PyTorch/CUDA port: ``prep``, ``train``,
 ``distill``, ``search``, ``test``, ``serve``, ``export`` and
 ``validate-data``.
 
+  python -m camradepth_tpu_torch.cli prep --data-root NUSC --out D \\
+      [--mini] [--stages split,images,...] [--flow lk|jax-raft|raft|none \\
+      --flow-ckpt F] [--seg jax-panoptic|torchscript|none --seg-ckpt S \\
+      --seg-remap cityscapes|...] [--device cuda|cpu]
   python -m camradepth_tpu_torch.cli train --preset base --split S.npy \\
       [--run-dir R] [--save-model] [--set train.num_epochs=1] [--device ..]
   torchrun --nproc-per-node N -m camradepth_tpu_torch.cli train \\
@@ -30,11 +34,16 @@
   python -m camradepth_tpu_torch.cli validate-data --split S.npy | \
       --data-dir D [--image-dimension 416,800] [--limit N] [--no-decode]
 
-The counterparts of ``camradepth_tpu.cli``'s ``cmd_train``
+The counterparts of ``camradepth_tpu.cli``'s ``cmd_prep``
+(``camradepth_tpu/cli.py:258-310``), ``cmd_train``
 (``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
 ``cmd_search`` (``:568-652``), ``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``), ``cmd_export``
 (``:514-565``) and ``cmd_validate_data``
-(``:930-958``), with the same flags where they apply. ``train`` runs
+(``:930-958``), with the same flags where they apply. ``prep`` runs the
+offline data prep (``dataprep/``) over a nuScenes world, which needs the
+nuscenes-devkit (without it: exit code 2); ``--flow jax-raft`` and
+``--seg jax-panoptic`` keep the JAX package's names for this package's
+RAFT-large and Panoptic-DeepLab. ``train`` runs
 :class:`train.trainer.Trainer` and prints the best validation loss; its
 checkpoints are ``.pth`` files that ``test``, ``serve`` and ``export``
 load. Both train on one device, or on several processes, one device
@@ -79,8 +88,11 @@ artifacts, which take dense batches.
 ``--checkpoint`` is a reference-format ``.pth``, loaded strictly (for
 ``train``: a warm start, shape-matching, or a full trainer checkpoint),
 or for ``test`` and ``serve`` a serving artifact. An Orbax checkpoint of
-the JAX package reaches the port as a ``.pth`` (``_ORBAX_ROUTE``). One
-flag is new: ``--device`` (default ``cuda``, which raises without a
+the JAX package reaches the port as a ``.pth`` (``_ORBAX_ROUTE``). The
+model commands take the JAX package's ``--mini-dataset`` (every split
+row a test row) and ``--tpu-tuned`` (its TPU-tuned config, unchanged;
+``search --vmap-trials`` refuses it, as torch.func cannot recompute).
+One flag is new: ``--device`` (default ``cuda``, which raises without a
 card).
 """
 
@@ -144,6 +156,43 @@ def _add_wire_flag(p: argparse.ArgumentParser) -> None:
                         "(sets data.wire_format)")
 
 
+# --tpu-tuned: the JAX package's TPU-tuned training shape
+# (camradepth_tpu/cli.py:143-188), applied as it applies it: one
+# microbatch of 6 padded to 8 (by setdefault, so --batch-size and
+# --desired-batch-size win), both remats on, and wire_format auto unless
+# --wire is given
+_TPU_TUNED_TRAIN = dict(batch_size=6, desired_batch_size=6,
+                        pad_microbatch_to=8)
+_TPU_TUNED_MODEL = dict(remat_encoder=True, remat_decoder=True)
+
+
+def _add_mini_tuned_flags(p: argparse.ArgumentParser) -> None:
+    """``--mini-dataset`` and ``--tpu-tuned``, which the JAX package gives
+    every model command (``_add_common_model_flags``,
+    ``camradepth_tpu/cli.py:31``, ``:44-50``)."""
+    p.add_argument("--mini-dataset", action="store_true",
+                   help="every split row is a test row (sets "
+                        "data.mini_dataset)")
+    p.add_argument("--tpu-tuned", action="store_true",
+                   help="the JAX package's TPU-tuned training shape: one "
+                        "microbatch of 6 padded to 8 dummy-masked samples, "
+                        "encoder and decoder recomputation, wire format "
+                        "auto; the same config here (not tuned for the "
+                        "H100)")
+
+
+def _mini_tuned_data_kw(args) -> dict:
+    """The data fields that --mini-dataset, --wire and --tpu-tuned set."""
+    kw = {}
+    if args.mini_dataset:
+        kw["mini_dataset"] = True
+    if args.wire is not None:
+        kw["wire_format"] = args.wire
+    elif args.tpu_tuned:
+        kw["wire_format"] = "auto"
+    return kw
+
+
 def _add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default="base",
                    choices=["base", "base_rgb", "supervised_seg",
@@ -169,6 +218,7 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                         "the kernels' plain versions)")
     _add_tpu_decoder_flag(p)
     _add_wire_flag(p)
+    _add_mini_tuned_flags(p)
 
 
 def _build_config(args):
@@ -182,10 +232,13 @@ def _build_config(args):
         if args.max_distances:
             data_kw["max_distances"] = tuple(
                 float(v) for v in args.max_distances.split(","))
-        if args.wire is not None:
-            data_kw["wire_format"] = args.wire
+        data_kw.update(_mini_tuned_data_kw(args))
         if data_kw:
             cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
+        if args.tpu_tuned:
+            cfg = cfg.replace(
+                train=dataclasses.replace(cfg.train, **_TPU_TUNED_TRAIN),
+                model=dataclasses.replace(cfg.model, **_TPU_TUNED_MODEL))
         cfg = _with_tpu_decoder(cfg, args)
         if args.set_overrides:
             cfg = C.apply_overrides(cfg, args.set_overrides)
@@ -208,8 +261,7 @@ def _build_train_config(args):
         if args.train_val_split:
             n_tr, n_va = (int(v) for v in args.train_val_split.split(","))
             data_kw["train_val_split"] = (n_tr, n_va)
-        if args.wire is not None:
-            data_kw["wire_format"] = args.wire
+        data_kw.update(_mini_tuned_data_kw(args))
         if data_kw:
             cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
         train_kw = {}
@@ -222,6 +274,9 @@ def _build_train_config(args):
             v = getattr(args, flag)
             if v is not None:
                 train_kw[flag] = v
+        if args.tpu_tuned:
+            for k, v in _TPU_TUNED_TRAIN.items():
+                train_kw.setdefault(k, v)
         if args.pad_microbatch is not None:
             train_kw["pad_microbatch_to"] = args.pad_microbatch
         if args.save_model:
@@ -235,9 +290,12 @@ def _build_train_config(args):
         if train_kw:
             cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                         **train_kw))
+        model_kw = dict(_TPU_TUNED_MODEL) if args.tpu_tuned else {}
         if args.compute_dtype:
-            cfg = cfg.replace(model=dataclasses.replace(
-                cfg.model, compute_dtype=args.compute_dtype))
+            model_kw["compute_dtype"] = args.compute_dtype
+        if model_kw:
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                        **model_kw))
         mesh_kw = {}
         if args.data_parallel is not None:
             mesh_kw["data_parallel"] = args.data_parallel
@@ -292,6 +350,64 @@ def _train_and_report(args, make_trainer) -> int:
     finally:
         if started:
             multihost.shutdown()
+    return 0
+
+
+# the label space that each seg estimator emits, and the remaps that read it
+_SEG_LABEL_SPACES = {
+    "jax-panoptic": ("cityscapes", "vehicle_cityscapes"),
+    "torchscript": ("merged", "vehicle"),
+    "panoptic-deeplab": ("merged", "vehicle"),
+}
+
+
+def cmd_prep(args) -> int:
+    """The offline data prep (``camradepth_tpu/cli.py:258-310``): a nuScenes
+    world through the ten stages of ``dataprep/pipeline.py`` into the
+    ``prepared_data/`` artifacts that train and test read. Checks in the
+    JAX package's order: the --seg-remap label space (before any import,
+    so it answers without the devkit), then the nuscenes-devkit (absent:
+    its message, exit code 2), then the estimators on --device."""
+    # a remap that does not match the estimator's label space would write
+    # wrong but valid-looking *_mseg.npy artifacts with no error
+    allowed = _SEG_LABEL_SPACES.get(args.seg)
+    if allowed is not None and args.seg_remap not in allowed:
+        space = ("cityscapes trainIds" if args.seg == "jax-panoptic"
+                 else "mseg-universal ids")
+        raise UserError(
+            f"--seg {args.seg} produces {space}; --seg-remap must be one of "
+            f"{allowed} (got '{args.seg_remap}')")
+
+    from camradepth_tpu_torch.dataprep.pipeline import (
+        ALL_STAGES,
+        run_pipeline,
+    )
+
+    try:
+        from nuscenes.nuscenes import NuScenes
+    except ImportError:
+        print(
+            "error: the 'prep' command needs the nuscenes-devkit "
+            "(not installed in this environment). Precomputed artifacts in "
+            "the reference format are consumed directly by 'train'/'test'.",
+            file=sys.stderr,
+        )
+        return 2
+    nusc = NuScenes(args.version, dataroot=args.data_root, verbose=False)
+    stages = tuple(args.stages.split(",")) if args.stages else ALL_STAGES
+    from camradepth_tpu_torch.dataprep.adapters import (
+        make_flow_estimator,
+        make_seg_estimator,
+    )
+
+    flow_estimator = make_flow_estimator(args.flow, ckpt=args.flow_ckpt,
+                                         device=args.device)
+    seg_estimator = make_seg_estimator(args.seg, ckpt=args.seg_ckpt,
+                                       device=args.device)
+    run_pipeline(nusc, args.out, stage_names=stages, mini=args.mini,
+                 flow_estimator=flow_estimator,
+                 seg_estimator=seg_estimator,
+                 seg_remap=args.seg_remap, device=args.device)
     return 0
 
 
@@ -423,6 +539,11 @@ def cmd_search(args) -> int:
     if trial_ranks and not args.vmap_trials:
         raise UserError("--data-parallel shards the trial axis of "
                         "--vmap-trials; the sequential search takes none")
+    if args.tpu_tuned and args.vmap_trials:
+        raise UserError(
+            "--tpu-tuned turns on remat_encoder and remat_decoder, which "
+            "--vmap-trials cannot run (torch.func has no recomputation); "
+            "drop --tpu-tuned, or search without --vmap-trials")
     if args.vmap_trials:  # the refusals before any data loads
         try:
             search._check_vmap_spaces(spaces)
@@ -874,6 +995,7 @@ def _add_train_flags(p: argparse.ArgumentParser,
                    choices=["bfloat16", "float32"])
     _add_tpu_decoder_flag(p)
     _add_wire_flag(p)
+    _add_mini_tuned_flags(p)
     p.add_argument("--set", action="append", dest="set_overrides",
                    default=None, metavar="SECTION.FIELD=VALUE",
                    help="override a config field by dotted path (sections "
@@ -918,10 +1040,55 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(
         prog="camradepth_tpu_torch",
-        description="CamRaDepth on PyTorch/CUDA: train, distill, search, "
-                    "test, serve, export and validate-data",
+        description="CamRaDepth on PyTorch/CUDA: prep, train, distill, "
+                    "search, test, serve, export and validate-data",
     )
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("prep", help="offline data preparation (10 stages) "
+                                    "of a nuScenes world")
+    p.add_argument("--data-root", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--version", default="v1.0-trainval")
+    p.add_argument("--mini", action="store_true")
+    p.add_argument("--stages", default=None,
+                   help="comma list; default all")
+    p.add_argument("--flow", default="lk",
+                   choices=["lk", "none", "jax-raft", "raft", "torchscript"],
+                   help="optical-flow estimator: built-in pyramidal LK, a "
+                        "RAFT TorchScript export (--flow-ckpt), this "
+                        "package's RAFT-large fed an official .pth "
+                        "(jax-raft, the JAX package's name for it), or "
+                        "none (expects precomputed *_flow.npy)")
+    p.add_argument("--flow-ckpt", default="",
+                   help="official RAFT .pth for --flow jax-raft, TorchScript "
+                        "file for raft/torchscript (reference "
+                        "scripts/cal_flow.py:18-21)")
+    p.add_argument("--seg", default="none",
+                   choices=["none", "jax-panoptic", "torchscript",
+                            "panoptic-deeplab"],
+                   help="semantic-seg estimator: 'jax-panoptic' (the "
+                        "official panoptic_deeplab_R101_os32_cityscapes"
+                        ".pth in this package's Panoptic-DeepLab; the JAX "
+                        "package's name for it), a TorchScript export "
+                        "(--seg-ckpt) or none (expects precomputed "
+                        "*_mseg.npy; scripts/semantic_seg.py)")
+    p.add_argument("--seg-ckpt", default="",
+                   help="checkpoint for --seg (official .pth for "
+                        "jax-panoptic, TorchScript file otherwise)")
+    p.add_argument("--seg-remap", default="merged",
+                   choices=["merged", "vehicle", "cityscapes",
+                            "vehicle_cityscapes"],
+                   help="estimator label space + artifact: mseg-universal "
+                        "-> 21-class ('merged') / vehicle mask "
+                        "('vehicle'); cityscapes trainIds -> 21-class "
+                        "('cityscapes') / vehicle mask "
+                        "('vehicle_cityscapes', semantic_seg.py:163-166). "
+                        "Use the cityscapes pair with --seg jax-panoptic")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the estimators and the radar "
+                        "raster (default cuda; cpu runs them on the host)")
+    p.set_defaults(fn=cmd_prep)
 
     p = sub.add_parser("train", help="train a model variant on one device or "
                                      "across processes")

@@ -1,13 +1,15 @@
-// Host (CPU) code of the loader: the frame assembler and the wire encoder.
+// Host (CPU) code of the loader and the offline prep: the frame assembler,
+// the wire encoder and the min-depth raster.
 //
-// The package's own copy of the frame-assembly and wire sections of the
-// JAX package's native/rasterize.cc; its raster section is not here. Each
-// function is one pass over a frame, written straight into the caller's
-// preallocated buffer, with numpy's operation order, types and rounding:
-// the outputs are bit for bit those of the numpy paths of
-// data/channels.py and data/wire.py. The loader's worker threads call
-// them through ctypes, which releases the interpreter lock for each call,
-// so the threads run them in parallel.
+// The package's own copy of the raster, frame-assembly and wire sections of
+// the JAX package's native/rasterize.cc, their arithmetic unchanged. Each
+// assembly or wire function is one pass over a frame, written straight
+// into the caller's preallocated buffer, with numpy's operation order,
+// types and rounding: the outputs are bit for bit those of the numpy paths
+// of data/channels.py and data/wire.py. The raster section serves the
+// prep's lidar fusion (dataprep/lidar_fusion.py lidar_maps). The callers
+// reach them through ctypes, which releases the interpreter lock for each
+// call, so the loader's worker threads run them in parallel.
 //
 // Built with g++ (never nvcc) at first use by camradepth_tpu_torch/native.py:
 //   g++ -O3 -shared -fPIC -std=c++17 -ffp-contract=off
@@ -15,9 +17,101 @@
 // on targets where FMA is baseline (aarch64); no -march=native, -ffast-math
 // or -Ofast, any of which would break bit exactness with numpy.
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
 
 extern "C" {
+
+// ---------------------------------------------------------------------------
+// Min-depth raster (dataprep/lidar_fusion.py lidar_maps; the reference's
+// per-point z-buffer loops, fuse_radar.py:182-197, fuse_lidar.py:304-317):
+// one O(N) pass, the least depth wins and of equal depths the first point.
+
+// Min-depth-wins scatter of a flat point list.
+//   pix:      [n] pixel ids (already quantized); id < 0 or >= n_pixels
+//             drops the point
+//   depth:    [n]
+//   payload:  [n, n_channels] row-major (may be null when n_channels == 0)
+//   out_depth:[n_pixels] (zero-initialized by caller)
+//   out_payload: [n_pixels, n_channels]
+void raster_min_depth(const int64_t* pix, const double* depth,
+                      const double* payload, int64_t n, int64_t n_channels,
+                      int64_t n_pixels, double* out_depth,
+                      double* out_payload) {
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t p = pix[i];
+    if (p < 0 || p >= n_pixels) continue;
+    const double d = depth[i];
+    const double cur = out_depth[p];
+    // reference semantics: write if cell empty (0) or strictly smaller
+    if (cur == 0.0 || cur > d) {
+      out_depth[p] = d;
+      if (n_channels > 0) {
+        std::memcpy(out_payload + p * n_channels, payload + i * n_channels,
+                    sizeof(double) * n_channels);
+      }
+    }
+  }
+}
+
+// Quantize continuous full-res coords to pixel ids with the reference's
+// center-aligned downsample mapping (fuse_radar.py:169-183):
+//   q = round(clip((c + 0.5)/s - 0.5, 0, dim-1))
+void quantize_pixels(const double* x, const double* y, const uint8_t* valid,
+                     int64_t n, double scale, int64_t h_out, int64_t w_out,
+                     int64_t* out_pix, double* out_xq, double* out_yq) {
+  for (int64_t i = 0; i < n; ++i) {
+    double xq = (x[i] + 0.5) / scale - 0.5;
+    double yq = (y[i] + 0.5) / scale - 0.5;
+    if (xq < 0) xq = 0;
+    if (xq > w_out - 1) xq = w_out - 1;
+    if (yq < 0) yq = 0;
+    if (yq > h_out - 1) yq = h_out - 1;
+    out_xq[i] = xq;
+    out_yq[i] = yq;
+    if (valid && !valid[i]) {
+      out_pix[i] = -1;
+    } else {
+      const int64_t xi = llround(xq);
+      const int64_t yi = llround(yq);
+      out_pix[i] = yi * w_out + xi;
+    }
+  }
+}
+
+// Batched raster over F independent frames, one thread per frame chunk.
+// offsets: [F+1] prefix ranges into the flat point arrays.
+void raster_min_depth_batch(const int64_t* pix, const double* depth,
+                            const double* payload, const int64_t* offsets,
+                            int64_t n_frames, int64_t n_channels,
+                            int64_t n_pixels, double* out_depth,
+                            double* out_payload, int64_t n_threads) {
+  if (n_threads < 1) n_threads = 1;
+  std::vector<std::thread> pool;
+  const int64_t frames_per = (n_frames + n_threads - 1) / n_threads;
+  for (int64_t t = 0; t < n_threads; ++t) {
+    const int64_t f0 = t * frames_per;
+    const int64_t f1 = std::min(n_frames, f0 + frames_per);
+    if (f0 >= f1) break;
+    pool.emplace_back([=]() {
+      for (int64_t f = f0; f < f1; ++f) {
+        const int64_t a = offsets[f];
+        const int64_t b = offsets[f + 1];
+        raster_min_depth(pix + a, depth + a,
+                         payload ? payload + a * n_channels : nullptr,
+                         b - a, n_channels, n_pixels,
+                         out_depth + f * n_pixels,
+                         out_payload ? out_payload + f * n_pixels * n_channels
+                                     : nullptr);
+      }
+    });
+  }
+  for (auto& th : pool) th.join();
+}
 
 // ---------------------------------------------------------------------------
 // Frame assembly (data/channels.py assemble_frame). Each channel group is

@@ -258,7 +258,9 @@ def classmap_fn(model: PanopticDeepLab, device="cuda") -> Callable:
         h, w = im.shape[:2]
         ph, pw = _pad_hw(h, w)
         canvas = mean.expand(ph, pw, 3).clone()  # mean-pad (ref quirk)
-        canvas[:h, :w] = torch.as_tensor(im, device=dev).float()
+        # np.ascontiguousarray: the prep hands in a BGR -> RGB flipped view
+        canvas[:h, :w] = torch.as_tensor(np.ascontiguousarray(im),
+                                         device=dev).float()
         x = (canvas - mean) / std
         logits = model(x[None])["semantic"]
         logits = resize_bilinear_ac(logits, (ph, pw))

@@ -298,9 +298,14 @@ def raft_flow_fn(state: Mapping, iters: int = 20,
     dev = resolve_device(device)
     model = load_official_state_dict(RAFT(iters=iters), state).to(dev).eval()
 
+    def as_input(im):
+        # a numpy view may run backwards (the prep's BGR -> RGB flip)
+        if isinstance(im, np.ndarray):
+            im = np.ascontiguousarray(im)
+        return torch.as_tensor(im, device=dev)
+
     @torch.no_grad()
     def run(im1, im2) -> torch.Tensor:
-        return model(torch.as_tensor(im1, device=dev),
-                     torch.as_tensor(im2, device=dev))
+        return model(as_input(im1), as_input(im2))
 
     return run

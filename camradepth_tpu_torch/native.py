@@ -1,25 +1,32 @@
-"""The loader's native host code: bindings of ``csrc/host/rasterize.cc``.
+"""The native host code: bindings of ``csrc/host/rasterize.cc``.
 
-The package's own counterpart of the frame-assembly and wire sections of
-``camradepth_tpu/native.py``. The C++ source is compiled with g++ at its
-first use (never at import) into ``build/native/<hash>/`` at the root of
-the checkout, where the hash keys the source, the flags and ``g++
---version``: an edited source or another compiler builds anew, an
-unchanged one is reused. The build holds a lock across threads (a
-loader's workers reach the first use together) and writes under a
-temporary name that it then renames, so processes that build at the same
-time never load a half-written library.
+The package's own counterpart of ``camradepth_tpu/native.py``: the
+loader's frame-assembly and wire sections, and the min-depth raster of the
+offline prep (``dataprep/lidar_fusion.py``). The C++ source is compiled
+with g++ at its first use (never at import) into ``build/native/<hash>/``
+at the root of the checkout, where the hash keys the source, the flags and
+``g++ --version``: an edited source or another compiler builds anew, an
+unchanged one is reused. The build holds a lock across threads (a loader's
+workers reach the first use together) and writes under a temporary name
+that it then renames, so processes that build at the same time never load
+a half-written library.
 
-There is no silent fallback: where ``DataConfig.native_assemble`` asks for
-the native path and g++ is missing or fails, :func:`library` raises
-:class:`NativeCompileError`. The library is loaded with ``ctypes.CDLL``,
-which releases the interpreter lock for each call, so the loader's worker
-threads run these passes in parallel; numpy's ufuncs keep the lock
-between passes.
+There is no silent fallback: where g++ is missing or fails,
+:func:`library` raises :class:`NativeCompileError`. The loader has a numpy
+path that ``DataConfig.native_assemble=false`` selects; the prep's raster
+has none (the JAX package falls back to numpy there, silently). The numpy
+versions of the raster, :func:`raster_min_depth_numpy` and
+:func:`quantize_pixels_numpy`, are the plain versions that the tests hold
+the native ones to; nothing on the prep's path calls them. The library is
+loaded with ``ctypes.CDLL``, which releases the interpreter lock for each
+call, so the loader's worker threads run these passes in parallel; numpy's
+ufuncs keep the lock between passes.
 
 Every function is bit for bit with the numpy path it stands for
-(``data/channels.py``, ``data/wire.py``; ``tests/test_torch_native.py``).
-:data:`counts` tells how many frames each path assembled or encoded.
+(``data/channels.py``, ``data/wire.py``, the numpy raster here;
+``tests/test_torch_native.py``, ``tests/test_torch_dataprep.py``).
+:data:`counts` tells how many frames each loader path assembled or
+encoded.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -72,9 +79,9 @@ class NativeCompileError(RuntimeError):
 
 def _refuse(why: str) -> NativeCompileError:
     return NativeCompileError(
-        f"the loader's native host code ({SRC.name}) could not be built: "
-        f"{why}; install g++, or set data.native_assemble=false to "
-        "assemble frames with numpy")
+        f"the native host code ({SRC.name}) could not be built: {why}; "
+        "install g++ (the loader alone can do without it: set "
+        "data.native_assemble=false to assemble frames with numpy)")
 
 
 def _gxx_version() -> str:
@@ -130,12 +137,18 @@ def library() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> None:
     """The C signature of every entry point (``camradepth_tpu/native.py:
-    79-163``, its assembly and wire entries)."""
+    79-163``)."""
     i64, i32, f32, f64 = (ctypes.c_int64, ctypes.c_int32, ctypes.c_float,
                           ctypes.c_double)
     i64p, f64p, u8p, f32p, i32p = (ctypes.POINTER(t) for t in (
         i64, f64, ctypes.c_uint8, f32, i32))
     sigs = {
+        "raster_min_depth": ([i64p, f64p, f64p, i64, i64, i64, f64p, f64p],
+                             None),
+        "quantize_pixels": (
+            [f64p, f64p, u8p, i64, f64, i64, i64, i64p, f64p, f64p], None),
+        "raster_min_depth_batch": (
+            [i64p, f64p, f64p, i64p, i64, i64, i64, f64p, f64p, i64], None),
         "assemble_normalize_u8": ([u8p, i64, f32p, f32p, f32p, i64], None),
         "assemble_scale_clip_f32": (
             [f32p, i64, i64, i64, i64, ctypes.c_int, f32, f32, f32, f32p,
@@ -186,6 +199,153 @@ def _float(a: np.ndarray):
     if a.dtype not in _FLOAT:  # callers check dtypes first
         raise TypeError(f"unsupported dtype {a.dtype}")
     return _FLOAT[a.dtype]
+
+
+# ---------------------------------------------------------------------------
+# Min-depth raster (dataprep/lidar_fusion.py lidar_maps)
+
+
+def _points(a, dtype, n: int) -> np.ndarray:
+    """``a`` as a C-order array of ``n`` values of ``dtype``: the C code
+    reads n of every per-point array."""
+    a = np.ascontiguousarray(a, dtype)
+    if a.shape != (n,):
+        raise ValueError(f"expected {n} points, got an array of {a.shape}")
+    return a
+
+
+def _payload_columns(payload: Dict[str, np.ndarray], n: int):
+    """(names, widths, the [n, C] float64 C-order matrix) of a payload; a
+    frame with no points keeps its channels' widths."""
+    names = list(payload)
+    arrays = [np.asarray(payload[k], np.float64) for k in names]
+    cols = [a.reshape(n, int(np.prod(a.shape[1:]))) for a in arrays]
+    widths = [c.shape[1] for c in cols]
+    flat = (np.ascontiguousarray(np.concatenate(cols, axis=1))
+            if sum(widths) else np.zeros((n, 0)))
+    return names, widths, flat
+
+
+def _payload_maps(out: np.ndarray, names, widths) -> Dict[str, np.ndarray]:
+    """The [..., C] raster payload cut back into its named maps; a map of
+    width 1 comes back flat."""
+    maps, off = {}, 0
+    for k, w in zip(names, widths):
+        chunk = out[..., off: off + w]
+        maps[k] = chunk[..., 0] if w == 1 else chunk
+        off += w
+    return maps
+
+
+def raster_min_depth_host(
+    pix: np.ndarray,
+    depth: np.ndarray,
+    payload: Dict[str, np.ndarray],
+    num_pixels: int,
+) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """Min-depth-wins scatter on the host: the contract of
+    ``geometry.raster.raster_min_depth``, with invalid points marked by
+    ``pix < 0`` (or ``>= num_pixels``). Of equal depths the first point
+    wins. Depth and payloads are float64; a payload of width 1 comes back
+    flat. Returns (depth map [num_pixels], {name: map})."""
+    n = len(depth)
+    names, widths, flat = _payload_columns(payload, n)
+    pix = _points(pix, np.int64, n)
+    depth = np.ascontiguousarray(depth, np.float64)
+    out_depth = np.zeros(num_pixels, np.float64)
+    out_payload = np.zeros((num_pixels, flat.shape[1]), np.float64)
+    library().raster_min_depth(
+        _ptr(pix, ctypes.c_int64), _ptr(depth, ctypes.c_double),
+        _ptr(flat, ctypes.c_double), n, flat.shape[1], num_pixels,
+        _ptr(out_depth, ctypes.c_double), _ptr(out_payload, ctypes.c_double))
+    return out_depth, _payload_maps(out_payload, names, widths)
+
+
+def raster_min_depth_batch_host(
+    pix: np.ndarray,
+    depth: np.ndarray,
+    payload: Dict[str, np.ndarray],
+    offsets: np.ndarray,
+    num_pixels: int,
+    n_threads: int = 1,
+) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+    """:func:`raster_min_depth_host` of F frames at once: frame f's points
+    are ``[offsets[f], offsets[f + 1])`` of the flat arrays, its maps row f
+    of the outputs; the frames are split over ``n_threads`` threads."""
+    n = len(depth)
+    names, widths, flat = _payload_columns(payload, n)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n_frames = len(offsets) - 1
+    if n_frames < 0 or offsets[0] != 0 or offsets[-1] != n or (
+            np.diff(offsets) < 0).any():
+        raise ValueError(f"offsets must rise from 0 to the {n} points")
+    pix = _points(pix, np.int64, n)
+    depth = np.ascontiguousarray(depth, np.float64)
+    out_depth = np.zeros((n_frames, num_pixels), np.float64)
+    out_payload = np.zeros((n_frames, num_pixels, flat.shape[1]), np.float64)
+    library().raster_min_depth_batch(
+        _ptr(pix, ctypes.c_int64), _ptr(depth, ctypes.c_double),
+        _ptr(flat, ctypes.c_double), _ptr(offsets, ctypes.c_int64),
+        n_frames, flat.shape[1], num_pixels,
+        _ptr(out_depth, ctypes.c_double), _ptr(out_payload, ctypes.c_double),
+        n_threads)
+    return out_depth, _payload_maps(out_payload, names, widths)
+
+
+def quantize_pixels_host(x, y, valid, scale: float, h_out: int, w_out: int):
+    """Center-aligned quantization of full-resolution coordinates to
+    ``h_out x w_out`` pixel ids, on the host: (pix [int64], xq, yq
+    [float64]), pix -1 where ``valid`` is False."""
+    n = len(x)
+    x = np.ascontiguousarray(x, np.float64)
+    y = _points(y, np.float64, n)
+    v = _points(valid, np.uint8, n) if valid is not None else None
+    pix = np.empty(n, np.int64)
+    xq = np.empty(n, np.float64)
+    yq = np.empty(n, np.float64)
+    library().quantize_pixels(
+        _ptr(x, ctypes.c_double), _ptr(y, ctypes.c_double),
+        _ptr(v, ctypes.c_uint8) if v is not None else None, n, scale, h_out,
+        w_out, _ptr(pix, ctypes.c_int64), _ptr(xq, ctypes.c_double),
+        _ptr(yq, ctypes.c_double))
+    return pix, xq, yq
+
+
+def raster_min_depth_numpy(pix, depth, payload, num_pixels):
+    """The plain version of :func:`raster_min_depth_host` (the JAX
+    package's numpy fallback, ``camradepth_tpu/native.py:203-213``): a
+    stable lexicographic sort keeps each pixel's least depth, first
+    point first."""
+    n = len(depth)
+    names, widths, flat = _payload_columns(payload, n)
+    pix = np.ascontiguousarray(pix, np.int64)
+    depth = np.ascontiguousarray(depth, np.float64)
+    out_depth = np.zeros(num_pixels, np.float64)
+    out_payload = np.zeros((num_pixels, flat.shape[1]), np.float64)
+    order = np.lexsort((np.arange(n), depth, pix))
+    pid_s = pix[order]
+    keep = np.concatenate([[True], pid_s[1:] != pid_s[:-1]])
+    keep &= (pid_s >= 0) & (pid_s < num_pixels)
+    tgt = pid_s[keep]
+    out_depth[tgt] = depth[order][keep]
+    if flat.shape[1]:
+        out_payload[tgt] = flat[order][keep]
+    return out_depth, _payload_maps(out_payload, names, widths)
+
+
+def quantize_pixels_numpy(x, y, valid, scale: float, h_out: int,
+                          w_out: int):
+    """The plain version of :func:`quantize_pixels_host` (``camradepth_tpu/
+    native.py:238-245``)."""
+    x = np.asarray(x, np.float64)
+    y = np.asarray(y, np.float64)
+    xq = np.clip((x + 0.5) / scale - 0.5, 0, w_out - 1)
+    yq = np.clip((y + 0.5) / scale - 0.5, 0, h_out - 1)
+    pix = (np.round(yq).astype(np.int64) * w_out
+           + np.round(xq).astype(np.int64))
+    if valid is not None:
+        pix = np.where(valid, pix, -1)
+    return pix, xq, yq
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,8 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
   (g) `cli test` and `cli serve` on the card at `base` 416x800, batch 8, on
       a 32-frame synthetic corpus and the golden's weights as a .pth:
       test in bf16 and in fp32, the fp32 report held against the CPU's
-      over the first 4 frames and the bf16 one against the fp32 one, and
+      over 2 frames (one sunny, one rain) and the bf16 one against the
+      fp32 one, and
       serve writing 32 depth maps, with frames/s;
   (h) training: each backward kernel (attention scores with the forward's
       argmax, bicubic adjoint, bf16 GELU VJP) against its plain version at
@@ -55,7 +56,7 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       labels, 34 attention, 7 bicubic and 59 GELU launches per forward,
       depth and labels against the fp32 forward, busy and idle shares);
       (i3) cli test --preset sup_unsup_seg, fp32 on the card against the
-      CPU over 4 frames (iou included), and bf16; (i4) cli train --preset
+      CPU over 2 frames (iou included), and bf16; (i4) cli train --preset
       sup_unsup_seg as in (h), its best checkpoint serving depth and
       labels, and one profiled step; (i5) the bf16 batch-8 forward of
       base and of base + tpu_decoder in turns (3 bicubic launches per
@@ -155,7 +156,19 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       off: RAFT-large (904x1600, 20 iterations), the Panoptic-DeepLab
       classmap (900x1600, padded to 929x1601), lk_flow and
       rasterize_radar at 900x1600: finite, two runs equal, ms per frame,
-      and each at a small size against the port's CPU run (`--phase q`).
+      and each at a small size against the port's CPU run (`--phase q`);
+  (r) the offline prep on the synthetic nuScenes world of
+      tests/torch_fake_nuscenes.py (one scene of 8 samples, 900x1600
+      camera jpgs, 4 frames in its split): (r1) run_pipeline's ten stages
+      on the card with RAFT-large (jax-raft, 20 iterations) and
+      Panoptic-DeepLab (jax-panoptic, remap cityscapes) on synthesized
+      official-key weights, twice, the files bit for bit, ms per frame of
+      each stage; (r2) the six host stages again on the CPU from (r1)'s
+      jpgs, flow and mseg, every file = (r1)'s; (r3) cli validate-data and
+      cli test --preset base --mini-dataset (bf16, the golden's weights) on
+      the prepared directory, a finite report and 34 / 5 / 53 launches per
+      forward; (r4) cli prep's missing-devkit and label-space answers, rc 2
+      (`--phase r`).
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -907,6 +920,13 @@ def run_cli(argv):
     return rc, buf.getvalue()
 
 
+# the frames of (g)'s and (i)'s corpora that cli test runs on the CPU too:
+# one sunny frame and one rain frame (every 4th), so that the edge and
+# sunny metrics both compare; two frames of 416x800 keep the CPU's forwards
+# to ~10 s on the card's host
+CPU_FRAMES = slice(2, 4)
+
+
 def phase_g(cfg, weights, counters, reset_counters, tmp):
     """cli test (bf16 and fp32) and cli serve on the card at base 416x800,
     batch 8, over a 32-frame synthetic corpus written into ``tmp``, which
@@ -915,12 +935,12 @@ def phase_g(cfg, weights, counters, reset_counters, tmp):
     from camradepth_tpu_torch.data.split import save_split
 
     h, w = cfg.model.img_size
-    n_frames, n_cpu = 32, 4
+    n_frames = 32
     fps = {}
     t0 = time.perf_counter()
     split = synthetic.generate(tmp / "data", num_frames=n_frames,
                                hw=(h, w), seed=0, rain_every=4)
-    head = save_split(np.load(split)[:n_cpu], tmp / "head_split.npy")
+    head = save_split(np.load(split)[CPU_FRAMES], tmp / "head_split.npy")
     pth = tmp / "base_synth.pth"
     torch.save({"state_dict": {k: torch.from_numpy(v)
                                for k, v in weights.items()}}, pth)
@@ -968,17 +988,18 @@ def phase_g(cfg, weights, counters, reset_counters, tmp):
         print(f"(g) {k}: |bf16 - fp32| = {d:.4f} m (tol "
               f"{SERVE_MEAN_ABS_M})")
         require(d <= SERVE_MEAN_ABS_M, (k, bf16[k], fp32[k]))
-    # batch 2, so that the 4 frames make two batches and the report
-    # has its steady-rate keys
-    head_f32 = f32 + ["--test-batch", str(n_cpu // 2)]
+    # batch 1, so that the 2 frames make two batches and the report has
+    # its steady-rate keys
+    head_f32 = f32 + ["--test-batch", "1"]
     card, _ = test("fp32_head", head_f32, split_path=head)
     cpu, _ = test("cpu_fp32_head", head_f32, device="cpu",
                   split_path=head)
     for k in METRIC_KEYS:
         require(abs(card[k] - cpu[k]) <= REPORT_RTOL * abs(cpu[k]),
                 (k, card[k], cpu[k]))
-    print(f"(g) cli test fp32 on the card = on the CPU over the first "
-          f"{n_cpu} frames, every metric within rtol {REPORT_RTOL} "
+    print(f"(g) cli test fp32 on the card = on the CPU over frames "
+          f"{CPU_FRAMES.start} and {CPU_FRAMES.start + 1}, every metric "
+          f"within rtol {REPORT_RTOL} "
           f"(rmse_100 {card['rmse_100']:.6f} vs {cpu['rmse_100']:.6f})")
 
     out_dir = tmp / "served"
@@ -1741,10 +1762,10 @@ def phase_i2(seg_cfg, pth, counters, reset_counters):
 
 def phase_i3(seg_cfg, split, head, pth, counters, reset_counters):
     """cli test --preset sup_unsup_seg: fp32 on the card against the CPU
-    over 4 frames (iou included), and bf16 frames/s."""
+    over (g)'s two frames (iou included), and bf16 frames/s."""
     common = ["--preset", "sup_unsup_seg", "--set", "data.mini_dataset=1",
               "--checkpoint", str(pth)]
-    f32 = ["--set", "model.compute_dtype=float32", "--test-batch", "2"]
+    f32 = ["--set", "model.compute_dtype=float32", "--test-batch", "1"]
     reports = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, extra, device, split_path in (
@@ -1940,7 +1961,7 @@ def phase_i(counters, all_counters, reset_counters):
         split = synthetic.generate(tmp / "data", num_frames=32, hw=(h, w),
                                    seed=0, rain_every=4)
         rows = np.load(split)
-        head = save_split(rows[:4], tmp / "head_split.npy")
+        head = save_split(rows[CPU_FRAMES], tmp / "head_split.npy")
         test16 = save_split(rows[:16], tmp / "test16_split.npy")
         print(f"(i) 32-frame {h}x{w} corpus and the seg .pth written in "
               f"{time.perf_counter() - times[-1]:.1f} s")
@@ -4850,6 +4871,183 @@ def phase_q():
     print(f"chip_smoke: phase (q) passed in {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase (r)
+# the offline prep (dataprep/, cli prep) on the synthetic nuScenes world of
+# tests/torch_fake_nuscenes.py with real 900x1600 camera jpgs: its smallest
+# world whose (mini) split keeps 4 frames is one scene of 8 samples (the
+# split drops two samples at each scene edge)
+R_WORLD = dict(n_scenes=1, samples_per_scene=8)
+R_FRAMES = 4
+R_HOST_STAGES = ("matrices", "uv", "gt", "radar", "filter", "split_file")
+R_TEST_BATCH = 2  # two batches, so that the report has its steady rates
+# RAFT-large on (q)'s synthesized official keys gives ~60 px of flow on the
+# world's frames (whose content moves by under a pixel): the occlusion
+# filter (lidar against image flow, 3 px) would drop every lidar point and
+# (r3) would score no pixel. Its flow head's last conv scaled by this gives
+# ~0.8 px (measured at 128x256 on the CPU)
+R_FLOW_HEAD_SCALE = 1e-2
+
+
+def same_prepared(got_dir, want_dir, names=None):
+    """The artifact files of two prepared directories (all of want_dir's,
+    or ``names``) equal bit for bit, the split tables' paths rebased;
+    returns the names compared."""
+    names = names or sorted(p.name for p in want_dir.iterdir())
+    for name in names:
+        got, want = got_dir / name, want_dir / name
+        if name == "split.npy":
+            same = np.array_equal(
+                np.char.replace(np.load(got), str(got_dir), ""),
+                np.char.replace(np.load(want), str(want_dir), ""))
+        else:
+            same = got.read_bytes() == want.read_bytes()
+        require(same, ("prepared files differ", name))
+    return names
+
+
+def phase_r(weights, counters, reset_counters):
+    """The offline prep on the card. (r1) run_pipeline's ten stages with
+    RAFT-large (``--flow jax-raft``, 20 iterations) and Panoptic-DeepLab
+    (``--seg jax-panoptic``, remap cityscapes) on synthesized official-key
+    weights, twice (one call, then a call per stage, timed): the same
+    files; (r2) the six host stages again from (r1)'s jpgs, flow and mseg
+    on the CPU: the same files; (r3) cli validate-data and cli test --preset
+    base (bf16, the golden's weights) on the prepared directory, 34 / 5 /
+    53 launches per forward; (r4) cli prep's two refusals."""
+    from camradepth_tpu_torch.dataprep import adapters
+    from camradepth_tpu_torch.dataprep.pipeline import (
+        ALL_STAGES,
+        run_pipeline,
+    )
+    from camradepth_tpu_torch.models import panoptic_deeplab as pdl
+    from camradepth_tpu_torch.models import raft
+    from tests.torch_fake_nuscenes import FakeNuscenes
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        world = FakeNuscenes(**R_WORLD, image_root=tmp / "nusc")
+        state = q_synth_state(raft.RAFT(), 40)
+        for k in ("weight", "bias"):
+            state[f"update_block.flow_head.conv2.{k}"] *= R_FLOW_HEAD_SCALE
+        torch.save({f"module.{k}": v for k, v in state.items()},
+                   tmp / "raft-things.pth")
+        torch.save(q_synth_state(pdl.PanopticDeepLab(), 42), tmp / "pdl.pth")
+        kw = dict(
+            flow_estimator=adapters.make_flow_estimator(
+                "jax-raft", ckpt=str(tmp / "raft-things.pth"),
+                device="cuda", iters=Q_RAFT_ITERS),
+            seg_estimator=adapters.make_seg_estimator(
+                "jax-panoptic", ckpt=str(tmp / "pdl.pth"), device="cuda"),
+            seg_remap="cityscapes", mini=True, progress=False,
+            device="cuda")
+        t1 = time.perf_counter()
+        # (r1) all ten stages in one call, then again one call a stage
+        run_pipeline(world, tmp / "r1", **kw)
+        ms = {}
+        for stage in ALL_STAGES:
+            t = time.perf_counter()
+            run_pipeline(world, tmp / "r1_again", stage_names=(stage,), **kw)
+            ms[stage] = (time.perf_counter() - t) * 1e3 / R_FRAMES
+        t2 = time.perf_counter()
+        names = same_prepared(tmp / "r1_again", tmp / "r1")
+        n_frames = len(json.loads((tmp / "r1" / "data_split.json")
+                                  .read_text())["all"])
+        require(n_frames == R_FRAMES, n_frames)
+        for suffix in ("_im.jpg", "_im_next.jpg", "_flow.npy", "_mseg.npy",
+                       "_matrix.npz", "_im_uv.npy", "_gt.npy", "_msk_lh.npy",
+                       "_radar.npy", "_rad_vel.npy", "_radar_filtered.npy"):
+            require(sum(n.endswith(suffix) for n in names) == R_FRAMES,
+                    suffix)
+        for name in names:
+            if name.endswith(".npy") and name != "split.npy":
+                a = np.load(tmp / "r1" / name)
+                require(a.dtype == bool or np.isfinite(a).all(), name)
+        print(f"(r1) run_pipeline, all ten stages on the card, {R_FRAMES} "
+              f"frames of a {R_WORLD['n_scenes']}x"
+              f"{R_WORLD['samples_per_scene']}-sample world with 900x1600 "
+              f"camera jpgs (jax-raft {Q_RAFT_ITERS} iterations, "
+              f"jax-panoptic): {len(names)} files, two runs bit for bit; "
+              f"ms per frame (second run; {smi}): "
+              + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+              + f"; total {sum(ms.values()):.1f}")
+        # (r2) the host stages again on the CPU from (r1)'s jpgs, flow, mseg
+        r2 = tmp / "r2"
+        r2.mkdir()
+        for name in names:
+            if name == "data_split.json" or name.endswith(
+                    ("_im.jpg", "_im_next.jpg", "_flow.npy", "_mseg.npy")):
+                (r2 / name).write_bytes((tmp / "r1" / name).read_bytes())
+        t = time.perf_counter()
+        run_pipeline(world, r2, stage_names=R_HOST_STAGES, progress=False,
+                     device="cpu")
+        cpu_ms = (time.perf_counter() - t) * 1e3 / R_FRAMES
+        same_prepared(r2, tmp / "r1")
+        print(f"(r2) the stages {', '.join(R_HOST_STAGES)} on the CPU from "
+              f"(r1)'s jpgs, flow and mseg: every file = (r1)'s bit for bit "
+              f"({cpu_ms:.1f} ms per frame)")
+        t3 = time.perf_counter()
+        # (r3) the prepared directory on the main path
+        from camradepth_tpu_torch.config import preset
+
+        rc, out = run_cli(["validate-data", "--data-dir", str(tmp / "r1")])
+        require(rc == 0 and f"checked {R_FRAMES} rows: OK" in out, out)
+        pth = tmp / "base_golden.pth"
+        torch.save({"state_dict": {k: torch.from_numpy(v)
+                                   for k, v in weights.items()}}, pth)
+        report_path = tmp / "r3.json"
+        reset_counters()
+        rc, out = run_cli(["test", "--preset", "base", "--split",
+                           str(tmp / "r1" / "split.npy"), "--mini-dataset",
+                           "--checkpoint", str(pth), "--test-batch",
+                           str(R_TEST_BATCH), "--report-json",
+                           str(report_path)])
+        torch.cuda.synchronize()
+        launches = counters()
+        require(rc == 0, (rc, out))
+        report = json.loads(report_path.read_text())
+        require(tuple(sorted(report)) == tuple(sorted(REPORT_KEYS)),
+                sorted(set(report) ^ set(REPORT_KEYS)))
+        # the prep's split holds clear-day scenes only (build_scene_split
+        # sets rain and night aside), so the rain RMSE has no frame
+        require(report["frames"] == R_FRAMES
+                and np.isnan(report["rmse_edge"])
+                and all(np.isfinite(v) for k, v in report.items()
+                        if k != "rmse_edge"), report)
+        cfg = preset("base")
+        n_attn, n_up, n_gelu = variant_counts(cfg.model)
+        n_fwd = -(-R_FRAMES // R_TEST_BATCH)
+        want = (n_fwd * n_attn, n_fwd * n_up, 0, n_fwd * n_gelu)
+        require(launches == want, (launches, want))
+        print(f"(r3) cli validate-data: OK; cli test --preset base (bf16, "
+              f"the golden's weights) on the prepared {R_FRAMES} frames: "
+              f"rmse_100={report['rmse_100']:.4f} mae_100="
+              f"{report['mae_100']:.4f} rmse_50={report['rmse_50']:.4f}, "
+              f"every key finite but rmse_edge (no rain frame); launches "
+              f"{launches} = {n_fwd} forwards x ({n_attn}, {n_up}, 0, "
+              f"{n_gelu})")
+        # (r4) cli prep's answers without the nuscenes-devkit
+        for extra, text in (([], "needs the nuscenes-devkit"),
+                            (["--seg", "jax-panoptic", "--seg-remap",
+                              "merged"], "--seg-remap must be one of")):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc, _ = run_cli(["prep", "--data-root", str(tmp / "nusc"),
+                                 "--out", str(tmp / "r4")] + extra)
+            require(rc == 2 and text in err.getvalue(),
+                    (extra, rc, err.getvalue()))
+            print(f"(r4) cli prep {' '.join(extra) or '(no devkit)'}: rc 2, "
+                  f"{err.getvalue().strip().splitlines()[0][:90]}")
+        require(not (tmp / "r4").exists(), "cli prep wrote output")
+    print(f"chip_smoke: phase (r) passed in {time.perf_counter() - t0:.1f} s"
+          f" (set-up {t1 - t0:.1f}, (r1) {t2 - t1:.1f}, (r2) {t3 - t2:.1f},"
+          f" (r3)+(r4) {time.perf_counter() - t3:.1f})")
+
+
 def phase_p_alone():
     """(p) with what it needs from the earlier phases (``python3
     chip_smoke.py --phase p``): the kernels' build and (g)'s 32-frame
@@ -4877,6 +5075,25 @@ def phase_q_alone():
     phase_q()
 
 
+def reset_forward_counts():
+    from camradepth_tpu_torch.ops.attention import maxpool_attention_scores
+    from camradepth_tpu_torch.ops.conv_fused import conv3x3_fused
+    from camradepth_tpu_torch.ops.gelu import gelu_bf16
+    from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2
+
+    for fn in (maxpool_attention_scores, upsample_bicubic_x2, conv3x3_fused,
+               gelu_bf16):
+        fn.launches = 0
+
+
+def phase_r_alone():
+    """(r) alone after (a) (``python3 chip_smoke.py --phase r``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_a()
+    phase_r(golden_weights()[1], forward_counts, reset_forward_counts)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this runs on the card")
@@ -4895,6 +5112,9 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--phase", "q"]:
         phase_q_alone()
+        return
+    if sys.argv[1:] == ["--phase", "r"]:
+        phase_r_alone()
         return
     if sys.argv[1:] == ["--phase", "n"]:
         phase_n_alone()
@@ -4977,13 +5197,15 @@ def main() -> None:
     t15 = time.perf_counter()
     phase_q()
     t16 = time.perf_counter()
+    phase_r(weights, counters, reset_counters)
+    t17 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
           f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}, "
           f"(m) {t12 - t11:.1f}, (n) {t13 - t12:.1f}, (o) {t14 - t13:.1f}, "
-          f"(p) {t15 - t14:.1f}, (q) {t16 - t15:.1f}; total {t16 - t0:.1f} s "
-          f"(limit 1200 s)")
+          f"(p) {t15 - t14:.1f}, (q) {t16 - t15:.1f}, (r) {t17 - t16:.1f}; "
+          f"total {t17 - t0:.1f} s (limit 1200 s)")
     # the vmapped search's main path launched every training kernel
     require(all(n > 0 for n in search_launches), search_launches)
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the

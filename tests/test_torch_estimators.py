@@ -17,9 +17,11 @@ package's, on the same weights and numpy-seeded inputs, on the CPU.
 - Lucas-Kanade (``ops/optical_flow.py``): the JAX tests' translation,
   identity and RGB cases, atol 1e-4 px.
 
-Every JAX program is traced when the module's ``jax_refs`` fixture is made
-and compiled on a pool of threads (XLA's compiler leaves the interpreter
-lock), so the compiles overlap each other and the port's runs.
+The module's ``jax_refs`` fixture traces every JAX program in turn on a
+thread of its own and compiles and runs each on a pool of threads (XLA's
+compiler leaves the interpreter lock) as soon as it is traced, so the
+compiles overlap the later traces and the port's runs, and each test
+waits only for its own program.
 """
 
 import concurrent.futures
@@ -55,11 +57,15 @@ PDL_IM = np.random.default_rng(3).integers(0, 255, PDL_HW + (3,), np.uint8)
 
 
 def _textured(h, w, seed=0):
-    from scipy.signal import convolve2d
-
+    """The JAX tests' texture: uniform noise, 5x5 box-blurred with zero
+    padding (``scipy.signal.convolve2d(base, ones((5, 5)) / 25,
+    mode="same")``, summed here in numpy to within 1.2e-13 of it, which
+    spares the ~3 s import of scipy.signal)."""
     rng = np.random.default_rng(seed)
     base = rng.uniform(0, 255, (h + 32, w + 32))
-    return convolve2d(base, np.ones((5, 5)) / 25, mode="same")
+    pad, (hh, ww) = np.pad(base, 2), base.shape
+    return sum(pad[a:a + hh, b:b + ww] for a in range(5)
+               for b in range(5)) / 25
 
 
 def _lk_cases():
@@ -113,16 +119,16 @@ def deeplab():
     return model, model.state_dict()
 
 
-def _jax_references(state_dict):
-    """Every JAX result of the module, by name: (outputs, params) as numpy.
-    The programs are traced here and compiled on a pool of threads (XLA's
-    compiler leaves the interpreter lock), the alt blocks as one program
-    and the LK cases as one (one image shape)."""
-    progs, args = {}, {}
+def _jax_programs(state_dict):
+    """The module's JAX programs, traced one after another: yields (group,
+    run), where ``run()`` compiles the traced program, runs it and returns
+    {result name: (outputs, params)} as numpy; the alt blocks are one
+    program and the LK cases one (one image shape)."""
     raft_params = jax_raft.load_torch_raft_state_dict(RAFT_STATE)
-    progs["raft"] = jax_raft.raft_flow_fn(raft_params, iters=2).lower(
+    raft_prog = jax_raft.raft_flow_fn(raft_params, iters=2).lower(
         RAFT_IM1, RAFT_IM2)
-    args["raft"] = (None, (jnp.asarray(RAFT_IM1), jnp.asarray(RAFT_IM2)))
+    yield "raft", lambda: {"raft": (np.asarray(raft_prog.compile()(
+        jnp.asarray(RAFT_IM1), jnp.asarray(RAFT_IM2))), None)}
     # the JAX loader's registration-order map (param_order, _to_flax),
     # without its eval_shape check of the tree, which JAX's own
     # tests/test_panoptic_deeplab.py makes and apply repeats
@@ -138,13 +144,10 @@ def _jax_references(state_dict):
     jmodel = jax_pdl.PanopticDeepLab()
     canvas = jnp.asarray(_pdl_canvas(PDL_IM))
     x = (canvas - jnp.asarray(jax_pdl.MEAN)) / jnp.asarray(jax_pdl.STD)
-    progs["pdl"] = jax.jit(lambda p, v: jmodel.apply({"params": p}, v)).lower(
+    pdl_prog = jax.jit(lambda p, v: jmodel.apply({"params": p}, v)).lower(
         params, x[None])
-    args["pdl"] = (params, (x[None],))
-    gray = {name: tuple(jax_lk._to_gray(jnp.asarray(im, jnp.float32) / 255.0)
-                        for im in pair) for name, pair in _lk_cases().items()}
-    progs["lk"] = jax_lk._lk_pyramid.lower(*gray["translation"], levels=4,
-                                           radius=7, iters=3)
+    yield "pdl", lambda: {"pdl": (jax.tree.map(np.asarray, pdl_prog.compile()(
+        params, x[None])), None)}
     blocks, alt_params, alt_x = [], [], []
     for name, jax_block, _, cin, kw in ALT:
         v = jnp.asarray(_alt_input(name, cin))
@@ -152,31 +155,65 @@ def _jax_references(state_dict):
         blocks.append((jb, kw))
         alt_params.append(_alt_params(jb, v, kw, seed=5))
         alt_x.append(v)
-    progs["alt"] = jax.jit(lambda ps, xs: tuple(
+    alt_prog = jax.jit(lambda ps, xs: tuple(
         jb.apply({"params": p}, v, **kw)
         for (jb, kw), p, v in zip(blocks, ps, xs))).lower(alt_params, alt_x)
-    with concurrent.futures.ThreadPoolExecutor(len(progs)) as pool:
-        compiled = {k: pool.submit(v.compile) for k, v in progs.items()}
-        out = {name: (np.asarray(compiled["lk"].result()(*g)), None)
-               for name, g in gray.items()}
-        for name in ("raft", "pdl"):
-            p, a = args[name]
-            res = compiled[name].result()(*(a if p is None else (p, *a)))
-            out[name] = (jax.tree.map(np.asarray, res), None)
-        res = compiled["alt"].result()(alt_params, alt_x)
-        for (name, *_), r, p in zip(ALT, res, alt_params):
-            out[name] = (np.asarray(r), jax.tree.map(np.asarray, p))
-    return out
+
+    def run_alt():
+        res = alt_prog.compile()(alt_params, alt_x)
+        return {name: (np.asarray(r), jax.tree.map(np.asarray, p))
+                for (name, *_), r, p in zip(ALT, res, alt_params)}
+
+    yield "alt", run_alt
+    gray = {name: tuple(jax_lk._to_gray(jnp.asarray(im, jnp.float32) / 255.0)
+                        for im in pair) for name, pair in _lk_cases().items()}
+    lk_prog = jax_lk._lk_pyramid.lower(*gray["translation"], levels=4,
+                                       radius=7, iters=3)
+
+    def run_lk():
+        compiled = lk_prog.compile()
+        return {name: (np.asarray(compiled(*g)), None)
+                for name, g in gray.items()}
+
+    yield "lk", run_lk
+
+
+def _group(name):
+    """The program of a result name (an LK case, an alt block, or its own)."""
+    if name in ("raft", "pdl"):
+        return name
+    return "lk" if name in ("translation", "identity", "rgb") else "alt"
 
 
 @pytest.fixture(scope="module", autouse=True)
 def jax_refs(deeplab):
-    """name -> (the JAX outputs, the params) of ``_jax_references``,
-    computed on a thread of their own from the module's start, while the
-    port's side of each test runs."""
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        refs = pool.submit(_jax_references, deeplab[1])
-        yield lambda name: refs.result()[name]
+    """name -> (the JAX outputs, the params) of ``_jax_programs``, made on
+    threads of their own from the module's start while the port's side of
+    each test runs: one thread traces the programs in turn and hands each
+    to a pool that compiles and runs it (XLA's compiler leaves the
+    interpreter lock), so a test waits only for its own program."""
+    groups = {g: concurrent.futures.Future()
+              for g in ("raft", "pdl", "alt", "lk")}
+
+    def copy(src, dst):
+        exc = src.exception()
+        dst.set_exception(exc) if exc else dst.set_result(src.result())
+
+    def trace(pool):
+        try:
+            for group, run in _jax_programs(deeplab[1]):
+                pool.submit(run).add_done_callback(
+                    lambda f, g=groups[group]: copy(f, g))
+        except BaseException as e:
+            for g in groups.values():
+                if not g.done():
+                    g.set_exception(e)
+            raise
+
+    with concurrent.futures.ThreadPoolExecutor(len(groups) + 1) as pool:
+        tracer = pool.submit(trace, pool)
+        yield lambda name: groups[_group(name)].result()[name]
+        tracer.result()
 
 
 # -- RAFT ------------------------------------------------------------------
@@ -254,6 +291,19 @@ def test_deeplab_matches_jax_and_classmap(deeplab, jax_refs):
     np.testing.assert_array_equal(cls, tl.argmax(-1))
     assert set(np.unique(cls)) <= set(range(pdl.NUM_CLASSES))
     assert pdl.VEHICLE_CLASSES == jax_pdl.VEHICLE_CLASSES
+
+
+def test_estimators_take_the_preps_flipped_views(deeplab):
+    """The prep's stages hand the estimators ``cv2.imread(...)[..., ::-1]``,
+    a view with a negative stride (``dataprep/stages.py`` compute_flow,
+    semantic_seg_artifact): the same maps as on a contiguous copy."""
+    bgr = PDL_IM[..., ::-1].copy()
+    est = pdl.classmap_fn(deeplab[0], device="cpu")
+    np.testing.assert_array_equal(est(bgr[..., ::-1]), est(PDL_IM))
+    run = raft.raft_flow_fn(RAFT_STATE, iters=1, device="cpu")
+    a, b = RAFT_IM1[..., ::-1].copy(), RAFT_IM2[..., ::-1].copy()
+    torch.testing.assert_close(run(a[..., ::-1], b[..., ::-1]),
+                               run(RAFT_IM1, RAFT_IM2), rtol=0, atol=0)
 
 
 # -- alt_blocks ---------------------------------------------------------------

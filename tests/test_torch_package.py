@@ -32,20 +32,24 @@ def _forbidden(name: str) -> bool:
     return top in FORBIDDEN
 
 
-def test_every_module_imports_without_jax():
+@pytest.fixture(scope="module", autouse=True)
+def fresh_imports():
+    """A fresh interpreter that imports every module of the package and
+    prints ``sys.modules``, started with the module so that its other tests
+    run meanwhile; ``test_every_module_imports_without_jax``, the module's
+    last test, reads it."""
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "print('\\n'.join(sorted(sys.modules)))\n"
     )
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    loaded = res.stdout.split()
-    for m in ("serving", "serving_http", "interop.export"):
-        assert f"camradepth_tpu_torch.{m}" in loaded, m
-    bad = [m for m in loaded if _forbidden(m)]
-    assert not bad, bad
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
 
 
 def test_sources_import_no_jax():
@@ -73,7 +77,12 @@ def test_sources_import_no_jax():
             "camradepth_tpu_torch.ops.optical_flow",
             "camradepth_tpu_torch.models.alt_blocks",
             "camradepth_tpu_torch.models.raft",
-            "camradepth_tpu_torch.models.panoptic_deeplab"} <= set(MODULES)
+            "camradepth_tpu_torch.models.panoptic_deeplab",
+            "camradepth_tpu_torch.dataprep.stages",
+            "camradepth_tpu_torch.dataprep.radar_fusion",
+            "camradepth_tpu_torch.dataprep.lidar_fusion",
+            "camradepth_tpu_torch.dataprep.adapters",
+            "camradepth_tpu_torch.dataprep.pipeline"} <= set(MODULES)
 
 
 def test_entry_points_default_to_cuda():
@@ -186,3 +195,13 @@ def test_kernel_wrappers_reject_mixed_devices():
         maxpool_attention_scores(q, k, 1, 1.0)
     with pytest.raises(ValueError, match="CUDA device or the CPU"):
         upsample_bicubic_x2(torch.zeros(1, 2, 2, 1, device="meta"))
+
+
+def test_every_module_imports_without_jax(fresh_imports):
+    out, err = fresh_imports.communicate(timeout=120)
+    assert fresh_imports.returncode == 0, err
+    loaded = out.split()
+    for m in ("serving", "serving_http", "interop.export"):
+        assert f"camradepth_tpu_torch.{m}" in loaded, m
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
