@@ -1,6 +1,7 @@
 """Command-line interface of the PyTorch/CUDA port: ``prep``, ``train``,
-``distill``, ``search``, ``test``, ``serve``, ``export`` and
-``validate-data``.
+``distill``, ``search``, ``test``, ``serve``, ``export``,
+``validate-data``, ``viz``, ``summary``, ``inspect``, ``doctor`` and
+``bench``.
 
   python -m camradepth_tpu_torch.cli prep --data-root NUSC --out D \\
       [--mini] [--stages split,images,...] [--flow lk|jax-raft|raft|none \\
@@ -33,13 +34,22 @@
       [--artifact-dtype float32|bfloat16] [--device cuda|cpu]
   python -m camradepth_tpu_torch.cli validate-data --split S.npy | \
       --data-dir D [--image-dimension 416,800] [--limit N] [--no-decode]
+  python -m camradepth_tpu_torch.cli viz --split S.npy \
+      --checkpoint W.pth|A.pt2 [--out viz_out] [--num-vis 25] [--device ..]
+  python -m camradepth_tpu_torch.cli summary --preset base \
+      [--summary-batch 8] [--project-scaling weak|strong]
+  python -m camradepth_tpu_torch.cli inspect PATH
+  python -m camradepth_tpu_torch.cli doctor [--timeout 60]
+  python -m camradepth_tpu_torch.cli bench [--train]
 
 The counterparts of ``camradepth_tpu.cli``'s ``cmd_prep``
 (``camradepth_tpu/cli.py:258-310``), ``cmd_train``
 (``camradepth_tpu/cli.py:314-349``), ``cmd_distill`` (``:353-397``),
 ``cmd_search`` (``:568-652``), ``cmd_test`` (``:402-462``), ``cmd_serve`` (``:655-852``), ``cmd_export``
-(``:514-565``) and ``cmd_validate_data``
-(``:930-958``), with the same flags where they apply. ``prep`` runs the
+(``:514-565``), ``cmd_validate_data`` (``:930-958``), ``cmd_viz``
+(``:465-512``), ``cmd_summary`` (``:856-928``), ``cmd_inspect``
+(``:961-1052``), ``cmd_doctor`` (``:1055-1123``) and ``cmd_bench``
+(``:1126-1134``), with the same flags where they apply. ``prep`` runs the
 offline data prep (``dataprep/``) over a nuScenes world, which needs the
 nuscenes-devkit (without it: exit code 2); ``--flow jax-raft`` and
 ``--seg jax-panoptic`` keep the JAX package's names for this package's
@@ -77,7 +87,15 @@ gloo, as NCCL refuses two ranks on one card); rank 0 alone writes the
 maps or runs the HTTP front end.
 ``validate-data`` checks a prepared dataset's artifacts against the
 loader's frame contract (``data/split.validate_split``) and touches no
-device.
+device. ``viz`` writes prediction collages (``viz.py``) from a ``.pth``
+or an artifact. ``summary`` prints the parameter table and the
+analytic FLOPs and floor on the H100 (``utils/roofline.py``; with
+``--project-scaling``, ``utils/scaling.py``) from a model on the ``meta``
+device, and ``inspect`` identifies an artifact, ``.pth``, run directory
+or split as one JSON object: neither touches a card. ``doctor`` reports
+the card, nvcc, the kernel build and the host library, and exits 1 when
+no card answers. ``bench`` (``bench.py``) prints one JSON line of
+frames/s on the card with its roofline share.
 ``--tpu-decoder`` selects the ``tpu_decoder`` variant; its checkpoints
 are the port's own layout, so a reference-format ``.pth`` is refused for
 it, and its deployment format is the artifact. ``--wire auto|on`` (or
@@ -101,6 +119,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -193,7 +212,8 @@ def _mini_tuned_data_kw(args) -> dict:
     return kw
 
 
-def _add_common_flags(p: argparse.ArgumentParser) -> None:
+def _add_common_flags(p: argparse.ArgumentParser,
+                      device: bool = True) -> None:
     p.add_argument("--preset", default="base",
                    choices=["base", "base_rgb", "supervised_seg",
                             "unsupervised_seg", "sup_unsup_seg",
@@ -213,9 +233,10 @@ def _add_common_flags(p: argparse.ArgumentParser) -> None:
                         "split row is a test row) or --set "
                         "model.compute_dtype=float32; repeatable, applied "
                         "last")
-    p.add_argument("--device", default="cuda",
-                   help="torch device to run on (default cuda; cpu runs "
-                        "the kernels' plain versions)")
+    if device:
+        p.add_argument("--device", default="cuda",
+                       help="torch device to run on (default cuda; cpu runs "
+                            "the kernels' plain versions)")
     _add_tpu_decoder_flag(p)
     _add_wire_flag(p)
     _add_mini_tuned_flags(p)
@@ -955,6 +976,309 @@ def cmd_validate_data(args) -> int:
     return 0 if r["ok"] else 1
 
 
+def cmd_viz(args) -> int:
+    """Prediction collages of the test (or val) frames, from a ``.pth``
+    (reference or trainer checkpoint) or a serving artifact."""
+    import torch
+
+    from camradepth_tpu_torch import resolve_device
+    from camradepth_tpu_torch.data.pipeline import make_loaders
+    from camradepth_tpu_torch.interop.export import is_artifact, read_header
+    from camradepth_tpu_torch.viz import run_visualization
+
+    _check_args(args)
+    cfg = _build_config(args)
+    dev = resolve_device(args.device)
+    predict = model = None
+    batch_size = args.test_batch
+    if is_artifact(args.checkpoint):
+        try:
+            header = read_header(args.checkpoint)[0]
+        except (ValueError, OSError) as e:
+            raise UserError(str(e)) from e
+        if tuple(header["img_size"]) != tuple(cfg.model.img_size):
+            raise UserError(
+                f"artifact geometry {header['img_size']} does not match "
+                f"the '{cfg.name}' config's {list(cfg.model.img_size)} — "
+                "pass the preset it was exported from")
+        call, header = _load_artifact(cfg, args.checkpoint, dev)
+        batch_size = header["batch_size"] or args.test_batch
+        max_depth = float(header["max_depth"])
+        decode = bool(header["decode_depth"])
+        n_in = cfg.model.input_channels
+
+        def predict(feats):
+            x = torch.from_numpy(np.ascontiguousarray(feats[..., :n_in]))
+            out = call(x.to(dev))
+            depth = out["depth"].float().cpu().numpy()
+            if decode:  # the collages take the [0, 1] inverse encoding
+                depth = 1.0 - depth / max_depth
+            seg = out["seg"]
+            return depth, None if seg is None else seg.cpu().numpy()
+    else:
+        model = _load_model(cfg, args.checkpoint, dev)
+    loaders = make_loaders(cfg.data, batch_size=batch_size)
+    loader = loaders["test"] or loaders["val"]
+    if loader is None:
+        raise UserError("the split has no test/val frames")
+    n = run_visualization(cfg, model, loader, args.out, args.num_vis,
+                          predict=predict, device=dev)
+    print(f"wrote {n} collages to {args.out}")
+    return 0
+
+
+# the measured single-card train step that anchors --project-scaling: the
+# bf16 step of base at 416x800, batch 2 x 3, on an NVIDIA H100 80GB HBM3
+# at a 700.00 W power limit (PERF.md section 5, chip_smoke.py phase (h))
+H100_STEP_MS = 1782.76
+
+
+def cmd_summary(args) -> int:
+    """Model summary: the per-module parameter table and the analytic
+    per-frame FLOPs with their compute floor on the card
+    (``utils/roofline.py``), from a model on the ``meta`` device: no
+    weights, no CUDA context."""
+    import torch
+
+    from camradepth_tpu_torch.models.camradepth import create_model
+    from camradepth_tpu_torch.utils import roofline as rl
+
+    cfg = _build_config(args)
+    model = create_model(cfg.model, device="meta")
+    h, w = cfg.model.img_size
+    b = args.summary_batch
+
+    def count(mod):
+        return sum(p.numel() for p in mod.parameters())
+
+    total = count(model)
+    print(f"CamRaDepth preset={cfg.name} img={h}x{w} "
+          f"in_ch={cfg.model.input_channels} depths={cfg.model.depths}"
+          + (" [tpu_decoder]" if cfg.model.tpu_decoder else ""))
+    print(f"{'module':<40}{'params':>14}")
+    for name, child in sorted(model.named_children()):
+        if count(child):
+            print(f"{name:<40}{count(child):>14,}")
+    print(f"{'TOTAL':<40}{total:>14,}  "
+          f"({total * 4 / 1e6:.1f} MB fp32)")
+
+    r = rl.forward_roofline(cfg.model, b)
+    gf = sum(op.flops for op in r.matmuls) / b / 1e9
+    floor_ms = r.t_matmul_floor / b * 1e3
+    peak = rl.peak_for(torch.finfo(model.dtype).bits)
+    print(f"matmul GFLOPs/frame: {gf:.1f}  "
+          f"(wgmma-tile-padded attainable floor at batch {b}: "
+          f"{floor_ms:.2f} ms/frame on an H100 at {peak / 1e12:.0f} "
+          f"TFLOP/s {cfg.model.compute_dtype} — compute term only; cli "
+          "bench adds the kernels' and the unfused eager bytes terms)")
+
+    if args.project_scaling:
+        from camradepth_tpu_torch.utils import scaling
+
+        step_ms = args.step_time_ms
+        if step_ms is None:
+            step_ms = H100_STEP_MS
+        pts = scaling.project_dp_scaling(
+            total, step_ms / 1e3, n_chips=[1, 2, 4, 8, 16, 32, 64],
+            mode=args.project_scaling)
+        frames = cfg.train.desired_batch_size or cfg.train.batch_size
+        print()
+        print(scaling.format_projection(
+            pts, args.project_scaling, total, frames_per_step=frames))
+    return 0
+
+
+_CKPT_NAME = re.compile(r"ckpt_(?:preempt_)?epoch_")
+
+
+def _run_dir_checkpoints(path: Path):
+    """The checkpoint entries of a run directory (or of one checkpoint
+    named ``ckpt_...``), as the JAX package's ``cli inspect`` lists them:
+    names, bytes, epoch and eval loss, or epoch and step of a preempt save;
+    a port checkpoint is a ``.pth`` file, an Orbax one a directory (never
+    opened)."""
+    from camradepth_tpu_torch.utils.checkpoint import _PREEMPT, _REGULAR, _stem
+
+    candidates = ([path] if _CKPT_NAME.match(path.name)
+                  else sorted(path.glob("ckpt_epoch_*_loss_*"))
+                  + sorted(path.glob("ckpt_preempt_epoch_*_step_*")))
+    out = []
+    for p in candidates:
+        m = _REGULAR.match(_stem(p))
+        pm = None if m else _PREEMPT.match(_stem(p))
+        if not m and not pm:
+            continue
+        size = (p.stat().st_size if p.is_file() else
+                sum(f.stat().st_size for f in p.rglob("*") if f.is_file()))
+        entry = {"name": p.name, "bytes": size}
+        if m:
+            entry.update(epoch=int(m.group(1)), eval_loss=float(m.group(2)))
+        else:
+            # graceful-shutdown save: epoch = epochs completed, no val loss
+            entry.update(epoch=int(pm.group(1)), step=int(pm.group(2)),
+                         preempt=True)
+        out.append(entry)
+    return candidates, out
+
+
+def cmd_inspect(args) -> int:
+    """Identify and summarize a file this package writes or reads, as one
+    JSON object, touching no device: a serving artifact (its header and
+    blob bytes), a reference or trainer ``.pth``, a run directory of
+    ``.pth`` checkpoints or of Orbax ones (names and sizes; Orbax is not
+    imported), or a split table."""
+    import torch
+
+    from camradepth_tpu_torch.interop.export import is_artifact, read_header
+    from camradepth_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    path = Path(args.path)
+    if not path.exists():
+        print(f"error: {path} does not exist", file=sys.stderr)
+        return 2
+    info: dict = {"path": str(path)}
+    if path.is_file() and is_artifact(str(path)):
+        try:
+            header, blob_bytes = read_header(str(path))
+        except ValueError as e:  # a JAX artifact or a bad magic
+            raise UserError(str(e)) from e
+        info.update(type="torch-export-artifact", header=header,
+                    blob_bytes=blob_bytes)
+    elif path.is_dir() or _CKPT_NAME.match(path.name):
+        candidates, ckpts = _run_dir_checkpoints(path)
+        if not ckpts:
+            print(f"error: {path} holds no ckpt_epoch_* / "
+                  "ckpt_preempt_epoch_* checkpoints", file=sys.stderr)
+            return 2
+        latest = latest_checkpoint(path if candidates != [path]
+                                   else path.parent)
+        files = any(p.is_file() for p in candidates)
+        info.update(type="run-dir" if files else "orbax-run-dir",
+                    checkpoints=ckpts,
+                    latest=str(latest) if latest else None)
+    elif path.suffix == ".pth":
+        state = torch.load(str(path), map_location="cpu", weights_only=True)
+        sd = state.get("state_dict", state) if isinstance(state, dict) \
+            else state
+        try:
+            n_params = int(sum(v.numel() for v in sd.values()))
+        except AttributeError:
+            n_params = None
+        info.update(
+            type="reference-pth", tensors=len(sd), params=n_params,
+            extra_keys=sorted(k for k in state if k != "state_dict")
+            if isinstance(state, dict) and "state_dict" in state else [],
+        )
+    elif path.suffix == ".npy":
+        rows = np.load(str(path), allow_pickle=True)
+        info.update(type="split-table", shape=list(rows.shape))
+        if rows.ndim == 2 and rows.shape[1] == 7 and len(rows):
+            info["first_row"] = [str(v) for v in rows[0]]
+    else:
+        print(f"error: unrecognized artifact {path} (expected a "
+              "StableHLO artifact, .pth, Orbax dir, or split .npy)",
+              file=sys.stderr)
+        return 2
+    print(json.dumps(info, indent=1))
+    return 0
+
+
+# run in a subprocess by cmd_doctor: CUDA's first touch can hang where a
+# driver or card is wedged, so it happens where a timeout can end it
+_DOCTOR_PROBE = (
+    "import torch\n"
+    "print('torch', torch.__version__, '| cuda', torch.version.cuda)\n"
+    "if not torch.cuda.is_available():\n"
+    "    raise SystemExit('torch.cuda.is_available() is False')\n"
+    "for i in range(torch.cuda.device_count()):\n"
+    "    p = torch.cuda.get_device_properties(i)\n"
+    "    print(f'device {i}: {p.name}, {p.total_memory / 2**30:.2f} GiB, '\n"
+    "          f'{p.multi_processor_count} SMs')\n"
+)
+
+
+def _tool_line(cmd, timeout: float) -> str:
+    """The last line ``cmd`` prints, or why it printed none."""
+    import subprocess
+
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=timeout)
+    except OSError as e:
+        return f"MISSING ({e.strerror})"
+    except subprocess.TimeoutExpired:
+        return f"no answer in {timeout:.0f}s"
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        return f"FAILED rc={proc.returncode}: {proc.stderr.strip()[-200:]}"
+    return lines[-1]
+
+
+def cmd_doctor(args) -> int:
+    """Environment health report: the card (probed in a subprocess bounded
+    by --timeout: name, count, memory, power limit), nvcc and the kernel
+    build directory, the native host library, and the optional modules.
+    Exit code 1 when no card answers; it never hangs and leaves this
+    process without a CUDA context."""
+    import shutil
+    import subprocess
+
+    from camradepth_tpu_torch import native
+    from camradepth_tpu_torch.ops import _build
+
+    ok = True
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", _DOCTOR_PROBE], capture_output=True,
+            text=True, timeout=args.timeout)
+        print(proc.stdout, end="")
+        if proc.returncode != 0:
+            ok = False
+            print(f"card: NONE answered (rc={proc.returncode}: "
+                  f"{proc.stderr.strip()[-300:]})")
+    except subprocess.TimeoutExpired:
+        ok = False
+        print(f"card: NONE answered (CUDA init hung > {args.timeout:.0f}s)")
+    print("nvidia-smi: " + _tool_line(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], args.timeout))
+    try:
+        nvcc = _build.nvcc_path()
+        print(f"nvcc: {nvcc} ({_tool_line([nvcc, '--version'], 60)})")
+    except RuntimeError as e:
+        print(f"nvcc: MISSING ({e})")
+    bdir = _build.build_dir()
+    built = sorted(p.stem.removeprefix("lib") for p in bdir.glob("lib*.so"))
+    pending = sorted(p.name for p in bdir.glob("*.tmp"))
+    print(f"kernel build dir: {bdir} ({len(built)} of {len(_build.SIGNATURES)}"
+          " libraries built"
+          + (f"; build in progress or cut: {', '.join(pending)}"
+             if pending else "") + ")")
+    try:
+        native.library()
+        print(f"native host library: ok ({native.build_info['path']}, "
+              f"{native.build_info['gxx']})")
+    except native.NativeCompileError as e:
+        print(f"native host library: MISSING ({e})")
+    for mod, why in (("cv2", "jpg decode (loader, prep)"),
+                     ("torch", "everything"),
+                     ("nuscenes", "offline prep only")):
+        try:
+            __import__(mod)
+            print(f"{mod}: ok ({why})")
+        except ImportError:
+            print(f"{mod}: missing ({why})")
+    free_gb = shutil.disk_usage(_build.BUILD_ROOT.parents[1]).free / 2 ** 30
+    print(f"free disk at the build dir: {free_gb:.1f} GiB")
+    return 0 if ok else 1
+
+
+def cmd_bench(args) -> int:
+    from camradepth_tpu_torch import bench
+
+    return bench.main(["--train"] if args.train else [])
+
+
 def _add_train_flags(p: argparse.ArgumentParser,
                      layout: bool = True) -> None:
     """The flags of ``train``, which ``distill`` shares (``search`` takes
@@ -1041,7 +1365,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="camradepth_tpu_torch",
         description="CamRaDepth on PyTorch/CUDA: prep, train, distill, "
-                    "search, test, serve, export and validate-data",
+                    "search, test, serve, export, validate-data, viz, "
+                    "summary, inspect, doctor and bench",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -1224,6 +1549,56 @@ def main(argv=None) -> int:
     p.add_argument("--no-decode", action="store_true",
                    help="skip the jpg decode (faster)")
     p.set_defaults(fn=cmd_validate_data)
+
+    p = sub.add_parser("viz", help="prediction collages")
+    _add_common_flags(p)
+    p.add_argument("--out", default="viz_out")
+    p.add_argument("--num-vis", type=int, default=25)
+    p.add_argument("--test-batch", type=int, default=8)
+    p.set_defaults(fn=cmd_viz)
+
+    p = sub.add_parser(
+        "summary",
+        help="model summary: per-module params + analytic FLOPs/floor on "
+             "the H100 (shapes only; no CUDA context)")
+    _add_common_flags(p, device=False)
+    p.add_argument("--summary-batch", type=int, default=8,
+                   help="batch size for the FLOPs/floor analysis (cli "
+                        "bench's batch)")
+    p.add_argument("--project-scaling", choices=["weak", "strong"],
+                   default=None,
+                   help="also print the analytic data-parallel scaling "
+                        "projection over NVLink (utils/scaling.py; a "
+                        "projection, not a measurement)")
+    p.add_argument("--step-time-ms", type=float, default=None,
+                   help="measured single-card train-step ms to anchor "
+                        f"--project-scaling (default {H100_STEP_MS}: the "
+                        "bf16 step of base, batch 2 x 3, on an NVIDIA H100 "
+                        "80GB HBM3 at 700 W)")
+    p.set_defaults(fn=cmd_summary)
+
+    p = sub.add_parser(
+        "inspect",
+        help="summarize an artifact, .pth, run dir or split .npy as one "
+             "JSON object, touching no device")
+    p.add_argument("path")
+    p.set_defaults(fn=cmd_inspect)
+
+    p = sub.add_parser(
+        "doctor",
+        help="environment health report (bounded card probe, nvcc and the "
+             "kernel build, native host library, optional modules)")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="seconds to wait for the card to answer before "
+                        "declaring it unreachable")
+    p.set_defaults(fn=cmd_doctor)
+
+    p = sub.add_parser("bench", help="headline throughput benchmark on the "
+                                     "card (one JSON line)")
+    p.add_argument("--train", action="store_true",
+                   help="also time the train step (batch 6 padded to 8, "
+                        "both remats)")
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     try:

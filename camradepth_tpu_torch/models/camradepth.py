@@ -325,8 +325,16 @@ def create_model(
     Weights come from ``state_dict`` (reference layout; numpy arrays or
     tensors, loaded strictly) or, when none is given, fresh from a
     ``torch.Generator`` seeded with ``seed``. Raises when ``device`` is
-    CUDA and no card is there.
+    CUDA and no card is there. On ``device="meta"`` the model holds no
+    weights (shapes and dtypes only; ``utils/roofline.py``).
     """
+    if torch.device(device).type == "meta":
+        if state_dict is not None:
+            raise ValueError("a meta model takes no state_dict")
+        with torch.device("meta"):
+            model = CamRaDepth(cfg)
+        _to_compute_dtype(model, train)
+        return model.train() if train else model.eval()
     dev = resolve_device(device)
     with torch.device("meta"):
         model = CamRaDepth(cfg)

@@ -76,6 +76,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                   "gelu_bf16_bwd": [_P, _P, _P, _L, _P]},
 }
 
+# Device types on which a kernel operator launches nothing: the CPU runs
+# its plain version, ``meta`` its fake (shapes only, as
+# ``utils/roofline.py`` records a forward). A wrapper checks a tensor on
+# any other device as the kernel takes it.
+NO_KERNEL = ("cpu", "meta")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 

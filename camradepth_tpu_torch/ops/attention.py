@@ -101,7 +101,7 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> None:
     if q.device.type != "cuda" or k.device != q.device:
         raise ValueError(
             f"q and k must both be CUDA tensors of one device or both lie on "
-            f"the CPU, got {q.device} and {k.device}"
+            f"the CPU (or meta), got {q.device} and {k.device}"
         )
     if q.dtype != k.dtype or q.dtype not in _SUFFIX:
         raise TypeError(
@@ -293,7 +293,7 @@ _build.register_vmap("maxpool_attention_scores_bwd",
 def maxpool_attention_scores_with_argmax(q, k, num_heads: int, scale: float):
     """(s [B, N] fp32, amax [B, h, N] int32): the kernel's ``_argmax``
     entry point on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type != "cpu" or k.device.type != "cpu":
+    if q.device.type not in _build.NO_KERNEL or k.device != q.device:
         _check_cuda(q, k, num_heads)
     return scores_argmax_op(q, k, num_heads, float(scale))
 
@@ -302,7 +302,7 @@ def maxpool_attention_scores_backward(q, k, amax, g, num_heads: int,
                                       scale: float):
     """(dq, dk) of the scores for the cotangent ``g`` [B, N]: the backward
     kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type != "cpu":
+    if q.device.type not in _build.NO_KERNEL:
         _check_cuda(q, k, num_heads)
     return scores_backward_op(q, k, amax, g, num_heads, float(scale))
 
@@ -371,7 +371,7 @@ def maxpool_attention_scores(
     """
     if _build.needs_grad(q, k):
         return _Scores.apply(q, k, num_heads, scale)[0]
-    if q.device.type != "cpu" or k.device.type != "cpu":
+    if q.device.type not in _build.NO_KERNEL or k.device != q.device:
         _check_cuda(q, k, num_heads)
     return scores_op(q, k, num_heads, float(scale))
 

@@ -125,7 +125,7 @@ _build.register_vmap("gelu_bf16", _gelu_vmap)
 
 
 def _forward(x: torch.Tensor) -> torch.Tensor:
-    if x.device.type != "cpu":
+    if x.device.type not in _build.NO_KERNEL:
         _check_cuda(x)
     return gelu_op(x)
 
@@ -165,7 +165,7 @@ def gelu_bf16_backward(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise TypeError(f"gelu_bf16_backward takes bf16, got {x.dtype} and "
                         f"{g.dtype}")
-    if x.device.type != "cpu":
+    if x.device.type not in _build.NO_KERNEL:
         _check_cuda(x)
     return gelu_bwd_op(x, g)
 

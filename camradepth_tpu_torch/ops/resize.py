@@ -298,7 +298,7 @@ _build.register_vmap("upsample_bicubic_x2", _per_image_vmap(upsample_op))
 
 def _forward(x: torch.Tensor) -> torch.Tensor:
     """The forward on either device, outside autograd."""
-    if x.device.type != "cpu":
+    if x.device.type not in _build.NO_KERNEL:
         _check_cuda(x)
     return upsample_op(x)
 
@@ -340,7 +340,7 @@ def upsample_bicubic_x2_backward(gy: torch.Tensor) -> torch.Tensor:
     """The adjoint of the upsample for the cotangent ``gy`` [B, 2H, 2W, C]:
     the backward kernel on a CUDA tensor, the plain version on a CPU
     tensor."""
-    if gy.device.type != "cpu":
+    if gy.device.type not in _build.NO_KERNEL:
         _check_cuda(gy)
     return upsample_bwd_op(gy)
 

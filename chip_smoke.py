@@ -168,7 +168,20 @@ Builds the port's Hopper kernels from camradepth_tpu_torch/csrc/ and runs:
       cli test --preset base --mini-dataset (bf16, the golden's weights) on
       the prepared directory, a finite report and 34 / 5 / 53 launches per
       forward; (r4) cli prep's missing-devkit and label-space answers, rc 2
-      (`--phase r`).
+      (`--phase r`);
+  (s) the tools: (s1) cli bench and cli bench --train (base 416x800 bf16
+      batch 8, K forwards timed by CUDA events; the train step of 6 padded
+      to 8 with both remats), each one JSON line with the JAX bench's
+      keys, the card's name and power limit, 34 / 5 / 53 launches per
+      timed forward (tpu_decoder 34 / 3 / 53) and an attainable floor
+      (utils/roofline.py) at or under the measured ms per frame; (s2) the
+      roofline's kernel floors at base batch 8 against PERF.md's bound
+      column; (s3) cli summary --preset base in a process that leaves
+      CUDA untouched; (s4) cli viz on the golden's weights and on (k1)'s
+      bf16 artifact over 4 of (g)'s frames, one forward each at 34 / 5 /
+      53 launches, the same collages; (s5) cli inspect on the .pth, the
+      artifact and the split; (s6) cli doctor, rc 0, naming the card
+      (`--phase s`).
 Any failed check raises, so the exit code is not 0. The last two lines are
 the kernels' JSON record and {"ok": true, "device": {...}}. Needs a CUDA
 card and nvcc; without a card it exits 1 and prints no result.
@@ -180,6 +193,8 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2516,12 +2531,13 @@ def phase_k4(cfg, engine, pth, split):
             srv._camradepth_aggregator.close()
 
 
-def phase_k(weights, reset_counters, counters):
+def phase_k(weights, reset_counters, counters, keep):
     """This slice's path: the serving artifact (cli export, load_engine,
     cli test and cli serve on artifacts) and the HTTP front end. The
     exports and loads are Python-bound (torch.export traces and
     deserializes some 9,000 graph nodes), so three parts run in worker
-    processes beside the main one."""
+    processes beside the main one. The bf16 artifact is copied into
+    ``keep`` for (s); returns its path there."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2552,6 +2568,7 @@ def phase_k(weights, reset_counters, counters):
         print(line)
         require(header["batch_size"] == BATCH
                 and header["platforms"] == ["cuda", "cpu"], header)
+        kept = Path(shutil.copy(art, keep / art.name))
         jobs.append(pool.submit(k_job_serve, str(tmp), art, pth, split))
         t0 = time.perf_counter()
         engine = load_engine(cfg, str(art), batch_size=BATCH)
@@ -2595,6 +2612,7 @@ def phase_k(weights, reset_counters, counters):
     print(f"(k) phase seconds: (k1)-(k3) {t_workers - t_start:.1f} (main "
           f"export {export_s:.1f}), turns {t_turns - t_workers:.1f}, (k4) "
           f"{time.perf_counter() - t_turns:.1f}")
+    return kept
 
 
 # ---------------------------------------------------------------- phase (l)
@@ -3547,9 +3565,9 @@ def phase_n_alone(worlds=(SP_RANKS,)):
 O_LOSS_RTOL = 1e-5
 # the ranks of (o): two on the one card, over gloo, as (n)'s
 O_SEED = 17
-# (o2): cli train at sp = 2, bf16, batch 2 x 3, two optimizer steps (12
+# (o2): cli train at sp = 2, bf16, batch 2 x 3, one optimizer step (6
 # train frames) and eval of 4 frames; (o3): cli distill, one step
-O_TRAIN, O_VAL, O_ACCUM = 12, 4, 3
+O_TRAIN, O_VAL, O_ACCUM = 6, 4, 3
 
 
 def training_counts():
@@ -5048,6 +5066,262 @@ def phase_r(weights, counters, reset_counters):
           f" (r3)+(r4) {time.perf_counter() - t3:.1f})")
 
 
+# ---------------------------------------------------------------- phase (s)
+
+# the keys of the JAX package's bench line (bench.py:355-372, :282-288)
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch1_latency_ms",
+              "batch", "device", "gflops_per_frame", "achieved_tflops",
+              "attainable_ms_per_frame", "roofline_pct", "tpu_variant_fps",
+              "tpu_variant_vs_baseline", "tpu_variant_batch1_latency_ms",
+              "tpu_variant_roofline_pct", "tpu_variant_gflops_per_frame")
+# PERF.md section 6's bound column, per bf16 batch-8 forward of base at
+# 416x800: what utils/roofline.py's kernel floors must reproduce
+TABLE_BOUND_MS = {"maxpool_attention_scores": 0.080,
+                  "upsample_bicubic_x2": 0.342, "gelu_bf16": 2.198}
+# frames of (g)'s corpus that cli viz draws, and the share of collage
+# pixels in which the artifact's may differ from the .pth's (the same
+# bf16 program, bit for bit in (k1))
+VIZ_FRAMES = 4
+VIZ_PIXEL_SHARE = 1e-3
+# cli summary --preset base in a process of its own, which must leave
+# CUDA untouched
+SUMMARY_CODE = (
+    "import sys, torch\n"
+    "from camradepth_tpu_torch import cli\n"
+    "rc = cli.main(['summary', '--preset', 'base', '--project-scaling', "
+    "'weak'])\n"
+    "print('cuda initialized:', torch.cuda.is_initialized())\n"
+    "sys.exit(rc)\n"
+)
+
+
+def s_bench(argv, counters, reset_counters):
+    """``cli bench`` (and ``--train``): its one JSON line, held to the JAX
+    bench's keys, the card, the launches per timed forward and the
+    roofline."""
+    reset_counters()
+    t = time.perf_counter()
+    rc, out = run_cli(["bench", *argv])
+    torch.cuda.synchronize()
+    launches = counters()
+    seconds = time.perf_counter() - t
+    lines = out.strip().splitlines()
+    require(rc == 0 and len(lines) == 1, (rc, out[-2000:]))
+    line = json.loads(lines[0])
+    require(all(k in line for k in BENCH_KEYS),
+            sorted(set(BENCH_KEYS) - set(line)))
+    require(line["batch"] == BATCH and line["value"] > 0
+            and torch.cuda.get_device_name(0) in line["device"]
+            and "W" in line["device"], line)
+    for key, variant in (("launches_per_forward", False),
+                         ("tpu_variant_launches_per_forward", True)):
+        want = FORWARD_LAUNCHES[False, variant]
+        got = tuple(line[key][k] for k in ("maxpool_attention_scores",
+                                           "upsample_bicubic_x2",
+                                           "gelu_bf16"))
+        require(got == want, (key, got, want))
+    ms_per_frame = 1e3 / line["value"]
+    require(line["attainable_ms_per_frame"] <= ms_per_frame,
+            (line["attainable_ms_per_frame"], ms_per_frame))
+    require(launches[0] > 0 and launches[1] > 0 and launches[3] > 0,
+            launches)
+    if "--train" in argv:
+        require(line["train_step_ms_batch6"] > 0
+                and line["train_frames_per_sec"] > 0, line)
+    print(f"(s1) cli bench {' '.join(argv)} ({seconds:.1f} s): "
+          f"{json.dumps(line)}")
+    print(f"(s1) launches in that run: attention, bicubic, conv, GELU = "
+          f"{launches}; per timed forward {line['launches_per_forward']} "
+          f"(tpu_decoder {line['tpu_variant_launches_per_forward']}); "
+          f"attainable {line['attainable_ms_per_frame']} ms/frame <= "
+          f"measured {ms_per_frame:.2f} ms/frame")
+    return line
+
+
+# cli viz on an artifact in a process of its own: the program's load is
+# Python-bound (10-28 s at base's depth), so it runs beside the rest of
+# (s); the process prints its forward kernels' launch counts last
+VIZ_ARTIFACT_CODE = (
+    "import json, sys, torch\n"
+    "from camradepth_tpu_torch import cli\n"
+    "from camradepth_tpu_torch.ops.attention import "
+    "maxpool_attention_scores as a\n"
+    "from camradepth_tpu_torch.ops.gelu import gelu_bf16 as g\n"
+    "from camradepth_tpu_torch.ops.resize import upsample_bicubic_x2 as u\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "torch.cuda.synchronize()\n"
+    "print(json.dumps([a.launches, u.launches, g.launches]))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def viz_argv(head, ckpt, out):
+    return ["viz", "--split", str(head), "--mini-dataset", "--checkpoint",
+            str(ckpt), "--out", str(out), "--num-vis", str(VIZ_FRAMES)]
+
+
+def s_viz(head, pth, art_proc, tmp, counters, reset_counters):
+    """``cli viz`` on the golden's weights here and on the bf16 artifact in
+    ``art_proc`` over VIZ_FRAMES frames: one forward each at 34 / 5 / 53
+    launches, the same collages."""
+    import cv2
+
+    want = FORWARD_LAUNCHES[False, False]
+    reset_counters()
+    rc, text = run_cli(viz_argv(head, pth, tmp / "viz_pth"))
+    torch.cuda.synchronize()
+    launches = counters()
+    require(rc == 0 and f"wrote {VIZ_FRAMES} collages" in text, (rc, text))
+    require((launches[0], launches[1], launches[3]) == want,
+            ("pth", launches, want))
+    out, err = art_proc.communicate(timeout=600)
+    lines = out.strip().splitlines()
+    require(art_proc.returncode == 0 and lines
+            and f"wrote {VIZ_FRAMES} collages" in out, (out, err[-2000:]))
+    require(tuple(json.loads(lines[-1])) == want, ("artifact", lines[-1]))
+    pngs = {name: {p.name: cv2.imread(str(p)) for p in
+                   sorted((tmp / f"viz_{name}").glob("*.png"))}
+            for name in ("pth", "artifact")}
+    got, want_png = pngs["artifact"], pngs["pth"]
+    require(len(want_png) == VIZ_FRAMES and sorted(got) == sorted(want_png),
+            (sorted(got), sorted(want_png)))
+    diff = sum(int((got[k] != want_png[k]).any(-1).sum()) for k in got)
+    total = sum(v.shape[0] * v.shape[1] for v in got.values())
+    require(diff <= VIZ_PIXEL_SHARE * total, (diff, total))
+    print(f"(s4) cli viz on the .pth and on the bf16 artifact: "
+          f"{VIZ_FRAMES} collages each ({sorted(got)}), one forward each "
+          f"at {want} launches; {diff} of {total} pixels differ")
+
+
+def s_inspect(pth, art, split):
+    """``cli inspect`` on the .pth, the artifact and the split."""
+    for path, kind in ((pth, "reference-pth"),
+                       (art, "torch-export-artifact"),
+                       (split, "split-table")):
+        rc, out = run_cli(["inspect", str(path)])
+        info = json.loads(out) if rc == 0 else {}
+        require(rc == 0 and info.get("type") == kind, (path, rc, out[:500]))
+        what = {"reference-pth": lambda: f"{info['params']:,} params",
+                "torch-export-artifact": lambda: (
+                    f"{info['header']['artifact_dtype']} batch "
+                    f"{info['header']['batch_size']}, "
+                    f"{info['blob_bytes']:,} program bytes"),
+                "split-table": lambda: f"shape {info['shape']}"}[kind]()
+        print(f"(s5) cli inspect {Path(path).name}: {kind}, {what}")
+
+
+def s_start(split, art):
+    """(s3), (s6) and the artifact's viz in processes of their own, started
+    ahead of (s) (beside (q) and (r) in a whole run): the artifact's load
+    is Python-bound, 10-28 s at base's depth. Returns (temporary dir, the
+    viz split, the processes)."""
+    from camradepth_tpu_torch.data.split import save_split
+
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_dir.name)
+    head = save_split(np.load(split)[:VIZ_FRAMES], tmp / "viz_split.npy")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(argv, cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in (
+                 [sys.executable, "-c", VIZ_ARTIFACT_CODE,
+                  *viz_argv(head, art, tmp / "viz_artifact")],
+                 [sys.executable, "-c", SUMMARY_CODE],
+                 [sys.executable, "-m", "camradepth_tpu_torch.cli",
+                  "doctor", "--timeout", "120"])]
+    return tmp_dir, head, procs
+
+
+def phase_s(pth, art, started, counters, reset_counters):
+    """The tools: (s1) cli bench and cli bench --train, each one JSON line
+    with the JAX bench's keys, 34 / 5 / 53 (tpu_decoder 34 / 3 / 53)
+    launches per timed forward and an attainable floor at or under the
+    measured ms per frame; (s2) the roofline's per-kernel floors at base
+    batch 8 against PERF.md section 6's bound column; (s3) cli summary
+    --preset base in a process that leaves CUDA untouched; (s4) cli viz
+    on the golden's weights and on (k1)'s bf16 artifact over 4 of (g)'s
+    frames; (s5) cli inspect on the .pth, the artifact and the split; (s6)
+    cli doctor, rc 0, naming the card. ``started`` is :func:`s_start`'s."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.utils import roofline as rl
+
+    tmp_dir, head, procs = started
+    tmp = Path(tmp_dir.name)
+    art_viz, summary, doctor = procs
+    t0 = time.perf_counter()
+    try:
+        s_bench([], counters, reset_counters)
+        s_bench(["--train"], counters, reset_counters)
+        t1 = time.perf_counter()
+        # (s2) the kernels' floors, summed over a forward's launches
+        r = rl.forward_roofline(preset("base").model, BATCH)
+        floors = {k: round(v * 1e3, 3) for k, v in r.kernel_floors().items()}
+        require(floors == TABLE_BOUND_MS, (floors, TABLE_BOUND_MS))
+        print(f"(s2) roofline kernel floors per bf16 batch-{BATCH} forward "
+              f"(ms): {floors} = PERF.md's bound column; attainable "
+              f"{r.attainable_s / BATCH * 1e3:.3f} ms/frame (matmul "
+              f"{r.t_matmul_floor * 1e3:.3f}, kernels "
+              f"{r.t_kernel_floor * 1e3:.3f}, unfused eager bytes "
+              f"{r.t_other_floor * 1e3:.3f} ms a batch)")
+        s_viz(head, pth, art_viz, tmp, counters, reset_counters)
+        s_inspect(pth, art, head)
+        t2 = time.perf_counter()
+        out, err = summary.communicate(timeout=300)
+        require(summary.returncode == 0
+                and "TOTAL" in out and "21,966,595" in out
+                and "cuda initialized: False" in out, (out, err[-2000:]))
+        gf = next(line for line in out.splitlines()
+                  if line.startswith("matmul GFLOPs"))
+        print(f"(s3) cli summary --preset base (no CUDA context): TOTAL "
+              f"21,966,595; {gf}")
+        out, err = doctor.communicate(timeout=300)
+        require(doctor.returncode == 0
+                and torch.cuda.get_device_name(0) in out, (out, err[-2000:]))
+        print("(s6) cli doctor: rc 0; " + "; ".join(
+            line for line in out.splitlines()
+            if line.startswith(("device 0", "nvidia-smi", "nvcc"))))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        tmp_dir.cleanup()
+    print(f"chip_smoke: phase (s) passed in {time.perf_counter() - t0:.1f} s"
+          f" (the benches {t1 - t0:.1f}, (s2), (s4), (s5) {t2 - t1:.1f}, then "
+          f"waiting on summary and doctor {time.perf_counter() - t2:.1f})")
+
+
+def phase_s_alone():
+    """(s) alone after (a) (``python3 chip_smoke.py --phase s``): a corpus
+    of VIZ_FRAMES frames, the golden's weights as a .pth and a bf16
+    artifact of them made first."""
+    from camradepth_tpu_torch.config import preset
+    from camradepth_tpu_torch.data import synthetic
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_a()
+    cfg = preset("base")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        split = synthetic.generate(tmp / "data", num_frames=VIZ_FRAMES,
+                                   hw=cfg.model.img_size, seed=0,
+                                   rain_every=4)
+        pth = tmp / "base_golden.pth"
+        torch.save({"state_dict": {k: torch.from_numpy(v)
+                                   for k, v in golden_weights()[1].items()}},
+                   pth)
+        art = tmp / "base_bf16.pt2"
+        rc, out = run_cli(["export", "--checkpoint", str(pth), "--out",
+                           str(art), "--format", "artifact",
+                           "--artifact-dtype", "bfloat16", "--serve-batch",
+                           str(BATCH)])
+        require(rc == 0, (rc, out))
+        phase_s(pth, art, s_start(split, art), forward_counts,
+                reset_forward_counts)
+
+
 def phase_p_alone():
     """(p) with what it needs from the earlier phases (``python3
     chip_smoke.py --phase p``): the kernels' build and (g)'s 32-frame
@@ -5116,6 +5390,9 @@ def main() -> None:
     if sys.argv[1:] == ["--phase", "r"]:
         phase_r_alone()
         return
+    if sys.argv[1:] == ["--phase", "s"]:
+        phase_s_alone()
+        return
     if sys.argv[1:] == ["--phase", "n"]:
         phase_n_alone()
         return
@@ -5178,7 +5455,7 @@ def main() -> None:
     t8 = time.perf_counter()
     phase_j(weights, all_counters, counters, reset_counters)
     t9 = time.perf_counter()
-    phase_k(weights, reset_counters, counters)
+    art = phase_k(weights, reset_counters, counters, Path(corpus.name))
     t10 = time.perf_counter()
     phase_l(cfg, split, pth, Path(corpus.name), counters, reset_counters)
     t11 = time.perf_counter()
@@ -5193,19 +5470,22 @@ def main() -> None:
     phase_o(cfg, split, pth, Path(corpus.name))
     t14 = time.perf_counter()
     search_launches = phase_p(cfg, split, Path(corpus.name))
-    corpus.cleanup()
     t15 = time.perf_counter()
+    started = s_start(split, art)  # (s)'s worker processes, beside (q), (r)
     phase_q()
     t16 = time.perf_counter()
     phase_r(weights, counters, reset_counters)
     t17 = time.perf_counter()
+    phase_s(pth, art, started, counters, reset_counters)
+    corpus.cleanup()
+    t18 = time.perf_counter()
     print(f"phase seconds: (a)+(b) {t1 - t0:.1f}, (c) {t2 - t1:.1f}, "
           f"(d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}, (f) {t5 - t4:.1f}, "
           f"(g) {t6 - t5:.1f}, (h) {t7 - t6:.1f}, (i) {t8 - t7:.1f}, "
           f"(j) {t9 - t8:.1f}, (k) {t10 - t9:.1f}, (l) {t11 - t10:.1f}, "
           f"(m) {t12 - t11:.1f}, (n) {t13 - t12:.1f}, (o) {t14 - t13:.1f}, "
-          f"(p) {t15 - t14:.1f}, (q) {t16 - t15:.1f}, (r) {t17 - t16:.1f}; "
-          f"total {t17 - t0:.1f} s (limit 1200 s)")
+          f"(p) {t15 - t14:.1f}, (q) {t16 - t15:.1f}, (r) {t17 - t16:.1f}, "
+          f"(s) {t18 - t17:.1f}; total {t18 - t0:.1f} s (limit 1200 s)")
     # the vmapped search's main path launched every training kernel
     require(all(n > 0 for n in search_launches), search_launches)
     # launches: kernels 1 and 2 and GELU from the serving run of (d), the

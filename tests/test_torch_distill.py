@@ -21,12 +21,11 @@ the CPU.
   set of JAX's ``partial_restore_params`` (mapped through
   ``interop/flax_convert``), at the tiny widths and at `base`'s published
   widths, where its count is the one chip_smoke.py holds the card's
-  ``cli distill`` to; no restored tensor shares storage with the
-  teacher's; DistillTrainer's argument checks.
-- ``cli distill`` end to end from a port trainer checkpoint (dense, and
-  from its run directory with ``--wire on``), its best checkpoint then
-  served by ``cli serve --tpu-decoder``; the CLI's refusals, each in one
-  line.
+  ``cli distill`` to.
+
+The trainer's storage and argument checks are in
+tests/test_torch_distill_trainer.py, ``cli distill`` end to end and its
+refusals in tests/test_torch_distill_cli.py.
 
 The JAX step and forwards are compiled only by the test that needs them,
 on a pool of threads while the port computes its side.
@@ -35,7 +34,6 @@ on a pool of threads while the port computes its side.
 import concurrent.futures
 import dataclasses
 import functools
-import json
 import sys
 
 import jax
@@ -52,11 +50,8 @@ from camradepth_tpu.train.diffgrad import diffgrad_norm
 from camradepth_tpu.train.schedule import onecycle as jax_onecycle
 from camradepth_tpu.train.step import TrainState
 from camradepth_tpu.utils.checkpoint import partial_restore_params
-from camradepth_tpu_torch import cli
-from camradepth_tpu_torch.config import DataConfig, TrainConfig
 from camradepth_tpu_torch.config import preset as port_preset
 from camradepth_tpu_torch.config import tiny_test_config
-from camradepth_tpu_torch.data import synthetic
 from camradepth_tpu_torch.interop.flax_convert import (
     _flax_path_to_torch_key,
     state_dict_from_flax,
@@ -319,142 +314,3 @@ def test_warm_start_transfers_the_jax_parameter_set(widths, seg):
     assert not any(k.startswith("depth_upsample.3") for k in got)
     if widths == "base":
         assert (len(got), total) == chip_smoke.DISTILL_WARM_START
-
-
-@pytest.fixture(scope="module")
-def corpus(tmp_path_factory):
-    """A 9-frame corpus, and a trainer checkpoint of the tiny base teacher
-    (model, optimizer and step, as ``cli train`` writes it) in a run
-    directory."""
-    d = tmp_path_factory.mktemp("distill")
-    split = synthetic.generate(d / "data", num_frames=9, hw=HW, seed=2)
-    cfg = tiny_test_config()
-    model = create_model(dataclasses.replace(cfg.model, img_size=HW),
-                         device="cpu", seed=7, train=True)
-    run = d / "teacher_run"
-    run.mkdir()
-    path = ckpt_util.save_checkpoint(run, ckpt_util.host_snapshot(
-        model, DiffGradNorm(model.parameters(), lr=1e-3), 3), 0, 0.5)
-    return split, run, path
-
-
-def _trainer_cfgs(split):
-    cfg = tiny_test_config()
-    cfg = cfg.replace(
-        model=dataclasses.replace(cfg.model, img_size=HW, tpu_decoder=True),
-        data=DataConfig(image_dimension=HW, split_path=str(split),
-                        train_val_split=(4, 2), num_workers=2),
-        train=TrainConfig(batch_size=2, desired_batch_size=4,
-                          num_steps=None, num_epochs=1))
-    return cfg, cfg.replace(model=dataclasses.replace(cfg.model,
-                                                      tpu_decoder=False))
-
-
-def test_warm_start_shares_no_storage_with_the_teacher(corpus, tmp_path,
-                                                       capsys):
-    split, _, path = corpus
-    cfg, teacher_cfg = _trainer_cfgs(split)
-    state = ckpt_util.restore_checkpoint(path)["state_dict"]
-    tr = distill.DistillTrainer(cfg, teacher_cfg, state,
-                                run_dir=str(tmp_path / "run"), device="cpu")
-    assert "#### teacher warm start: 155/177 param tensors transferred" in (
-        capsys.readouterr().out)
-    student = {k: v for k, v in tr.model.state_dict().items()}
-    shared = {v.untyped_storage().data_ptr() for v in state.values()} | {
-        p.untyped_storage().data_ptr() for p in tr.teacher.parameters()}
-    moved = [k for k, v in student.items()
-             if k in state and v.shape == state[k].shape]
-    assert len(moved) == 155
-    assert all(torch.equal(student[k], state[k]) for k in moved)
-    assert not any(v.untyped_storage().data_ptr() in shared
-                   for v in student.values())
-    # the teacher is frozen in eval mode and holds its weights once
-    assert not tr.teacher.training
-    assert not any(p.requires_grad for p in tr.teacher.parameters())
-
-
-@pytest.mark.parametrize("change,match", [
-    ({"alpha": 1.5}, "alpha"),
-    ({"alpha": -0.1}, "alpha"),
-    ({"img_size": (64, 128)}, "img_size"),
-    ({"input_channels": 3}, "input_channels"),
-    ({"supervised_seg": True}, "supervised_seg"),
-])
-def test_distill_trainer_checks_its_arguments(change, match):
-    cfg, teacher_cfg = _trainer_cfgs("unused.npy")
-    change = dict(change)
-    alpha = change.pop("alpha", 0.5)
-    teacher_cfg = teacher_cfg.replace(model=dataclasses.replace(
-        teacher_cfg.model, **change))
-    with pytest.raises(ValueError, match=match):
-        distill.DistillTrainer(cfg, teacher_cfg, {}, alpha=alpha,
-                               loaders={}, device="cpu")
-
-
-@pytest.mark.parametrize("wire", ["off", "on"])
-def test_cli_distill_then_serve_on_the_cpu(corpus, tmp_path, capsys, wire):
-    """From the trainer checkpoint's file (dense) or its run directory
-    (wire): one optimizer step of batch 2 x 2, padded to 3, eval and a best
-    checkpoint, which ``cli serve --tpu-decoder`` serves."""
-    split, run, path = corpus
-    teacher = str(path) if wire == "off" else str(run)
-    run_dir = tmp_path / "run"
-    rc = cli.main(["distill", "--teacher-checkpoint", teacher,
-                   "--tpu-decoder", "--split", str(split),
-                   "--train-val-split", "4,2", "--batch-size", "2",
-                   "--desired-batch-size", "4", "--num-epochs", "1",
-                   "--pad-microbatch", "3", "--run-dir", str(run_dir),
-                   "--save-model", "--device", "cpu", "--wire", wire,
-                   "--set", "train.log_every=1"] + TINY_FLAGS)
-    out = capsys.readouterr().out
-    assert rc == 0, out
-    assert "#### teacher warm start: 155/177 param tensors transferred" in out
-    rows = [json.loads(x) for x in
-            (run_dir / "metrics.jsonl").read_text().splitlines()]
-    logged = {r["tag"]: r["value"] for r in rows}
-    for k in DISTILL_TERMS:
-        assert np.isfinite(logged[f"train/{k}"]), k
-    assert np.isfinite(logged["val/loss"])
-    best = ckpt_util.best_checkpoint(run_dir)
-    assert best is not None
-    served = tmp_path / "served"
-    rc = cli.main(["serve", "--tpu-decoder", "--split", str(split),
-                   "--checkpoint", str(best), "--device", "cpu", "--out",
-                   str(served), "--serve-batch", "2", "--wire", wire]
-                  + TINY_FLAGS + ["--set", "data.mini_dataset=1"])
-    assert rc == 0
-    maps = [np.load(p) for p in sorted(served.glob("*_depth.npy"))]
-    assert len(maps) == 9
-    assert all(m.shape == HW and np.isfinite(m).all() for m in maps)
-
-
-def test_cli_distill_refuses_in_one_line(corpus, tmp_path, capsys):
-    split, _, path = corpus
-    orbax = tmp_path / "ckpt_epoch_1"
-    orbax.mkdir()
-    common = ["--split", str(split), "--train-val-split", "4,2",
-              "--device", "cpu"] + TINY_FLAGS
-    for extra, match in (
-            (["--teacher-checkpoint", str(path), "--data-parallel", "2"],
-             "needs 2 ranks, have 1"),
-            (["--teacher-checkpoint", str(path), "--spatial-parallel", "2"],
-             "needs 2 ranks, have 1"),
-            (["--teacher-checkpoint", str(orbax)],
-             "camradepth_tpu.cli export --format pth"),
-            # a parity checkpoint is no tpu_decoder teacher
-            (["--teacher-checkpoint", str(path), "--teacher-tpu-decoder"],
-             "--no-strict-teacher"),
-            (["--teacher-checkpoint", str(path), "--alpha", "2"], "alpha"),
-    ):
-        rc = cli.main(["distill", "--tpu-decoder"] + common + extra)
-        err = capsys.readouterr().err.strip()
-        assert rc == 2 and match in err, err
-        assert err.startswith("error:") and "\n" not in err, err
-    # with --no-strict-teacher the mismatched tensors keep a fresh init
-    rc = cli.main(["distill", "--tpu-decoder", "--teacher-tpu-decoder",
-                   "--no-strict-teacher", "--teacher-checkpoint", str(path),
-                   "--num-epochs", "1", "--batch-size", "2",
-                   "--desired-batch-size", "4", "--run-dir",
-                   str(tmp_path / "run")] + common)
-    assert rc == 0
-

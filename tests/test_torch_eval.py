@@ -1,6 +1,5 @@
-"""The port's data pipeline, metrics, evaluation harness and CLI
-(camradepth_tpu_torch.{data,evaluation,cli}) against the JAX package's, on
-the CPU.
+"""The port's data pipeline and metrics (camradepth_tpu_torch.{data,
+evaluation}) against the JAX package's, on the CPU.
 
 - Metrics: the same random pred/gt through both, NaN in the same places
   (empty bands), rtol 1e-5 (fp32 sums in other orders).
@@ -8,41 +7,28 @@ the CPU.
   64x128 agree bit for bit (both packages assemble with their C++ host
   code by default, each bit for bit with its numpy path,
   tests/test_torch_native.py).
-- The slice as a whole: ``camradepth_tpu.cli test`` and the port's ``cli
-  test --device cpu`` on one 6-frame corpus and one reference .pth at the
-  ``tiny_test_config`` widths in fp32; every non-timing report key agrees
-  to rtol 1e-3, atol 1e-4 (the two forwards agree to ~1e-5 in fp32,
-  tests/test_torch_model.py; metrics are means over a few thousand pixels),
-  and the same for ``--preset sup_unsup_seg``, the ``iou`` key included;
-  its ``cli serve`` labels against the JAX engine's by agreement >= 0.995
-  (argmax maps: near-tie pixels may flip between frameworks,
-  tests/test_flagship_golden.py:131-140). The three JAX runs start
-  together on threads (``jax_runs``), beside the port's.
+
+The slice as a whole, ``cli test`` and ``cli serve`` against the JAX
+package's, is in tests/test_torch_eval_cli.py; the CLI's refusals in
+tests/test_torch_eval_refusals.py.
 """
 
 import dataclasses
-import json
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from camradepth_tpu import cli as jax_cli
 from camradepth_tpu.config import DataConfig as JaxDataConfig
 from camradepth_tpu.data import channels as jax_channels
 from camradepth_tpu.data import pipeline as jax_pipeline
 from camradepth_tpu.evaluation import metrics as JM
-from camradepth_tpu.evaluation.harness import TIMING_KEYS as JAX_TIMING_KEYS
-from camradepth_tpu_torch import cli
 from camradepth_tpu_torch.config import DataConfig, tiny_test_config
 from camradepth_tpu_torch.config import preset as preset_config
 from camradepth_tpu_torch.data import channels, pipeline, synthetic
 from camradepth_tpu_torch.evaluation import metrics as M
-from camradepth_tpu_torch.evaluation.harness import TIMING_KEYS
 from camradepth_tpu_torch.interop.golden import synth_state_values
 from camradepth_tpu_torch.models.camradepth import create_model
 from tests.torch_port import one_torch_thread  # noqa: F401
@@ -198,207 +184,3 @@ def test_loader_refuses_the_wire_format(corpus):
     with pytest.raises(ConfigError, match="wire_format=on"):
         pipeline.make_loaders(cfg, batch_size=2, split_path=split,
                               wire_eval=True)
-
-
-def _jax_engine(pth, split):
-    """The JAX engine's forward (``camradepth_tpu.serving.
-    make_serving_forward``) of the tiny sup_unsup_seg ``pth`` on the
-    corpus's 6 frames."""
-    from camradepth_tpu.config import tiny_test_config as jax_tiny
-    from camradepth_tpu.interop.torch_convert import convert_state_dict
-    from camradepth_tpu.models.camradepth import CamRaDepth as JaxCamRaDepth
-    from camradepth_tpu.serving import make_serving_forward
-
-    jcfg = jax_tiny()
-    jcfg = jcfg.replace(model=dataclasses.replace(
-        jcfg.model, supervised_seg=True, unsupervised_seg=True))
-    params = convert_state_dict({k: v.numpy() for k, v in torch.load(
-        pth, weights_only=True)["state_dict"].items()})
-    frames = next(iter(pipeline.make_loaders(
-        DataConfig(image_dimension=HW, mini_dataset=True), batch_size=6,
-        split_path=split)["test"]))["features"]
-    fwd = make_serving_forward(jcfg, JaxCamRaDepth(jcfg.model))
-    return {k: np.asarray(v) for k, v in jax.jit(fwd)(
-        params, jnp.asarray(frames)).items()}
-
-
-@pytest.fixture(scope="module")
-def jax_runs(corpus):
-    """The JAX package's runs that the CLI tests hold the port to, started
-    together on a pool of threads at the module's first need: ``cli test``
-    (base), ``cli test --preset sup_unsup_seg`` and the seg engine's
-    forward. Each spends most of its time in XLA's compiler, which leaves
-    the interpreter lock, so they overlap each other and the port's runs
-    on the main thread. Yields the seg .pth and the three futures."""
-    tmp, split, pth = corpus
-    seg_pth = _tiny_pth(tmp / "seg_weights.pth", "sup_unsup_seg")
-    base, seg = _test_argv(split, pth), _test_argv(split, seg_pth, True)
-    with ThreadPoolExecutor(3) as pool:
-        yield seg_pth, {
-            "test": pool.submit(jax_cli.main, base + [
-                "--report-json", str(tmp / "jax.json")]),
-            "seg_test": pool.submit(jax_cli.main, seg + [
-                "--report-json", str(tmp / "jseg.json")]),
-            "seg_engine": pool.submit(_jax_engine, seg_pth, split),
-        }
-
-
-def _common(split, pth, seg=False):
-    """The flags of both CLIs' ``test`` and ``serve`` at the tiny widths."""
-    preset = ["--preset", "sup_unsup_seg"] if seg else []
-    return ["--split", str(split), "--checkpoint", str(pth)] + preset + (
-        TINY_FLAGS)
-
-
-def _test_argv(split, pth, seg=False):
-    return ["test", "--test-batch", "4"] + _common(split, pth, seg)
-
-
-@pytest.fixture(scope="module")
-def reports(corpus, jax_runs):
-    tmp, split, pth = corpus
-    assert cli.main(_test_argv(split, pth) + [
-        "--report-json", str(tmp / "port.json"), "--device", "cpu"]) == 0
-    assert jax_runs[1]["test"].result() == 0
-    return (json.loads((tmp / "jax.json").read_text()),
-            json.loads((tmp / "port.json").read_text()))
-
-
-def test_cli_test_report_matches_jax(reports):
-    want, got = reports
-    assert got.keys() == want.keys()
-    assert TIMING_KEYS == JAX_TIMING_KEYS
-    compared = [k for k in want if k not in TIMING_KEYS]
-    assert len(compared) == 18 and got["frames"] == 6.0
-    for k in compared:
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4,
-                                   err_msg=k)
-    # the predictions spread: the metrics are not those of a constant map
-    assert 5.0 < got["mae_100"] < 45.0
-
-
-def test_cli_test_rain_split_matches_jax(reports):
-    want, got = reports
-    # frame 3 of 6 is the one rain frame: its RMSE is the edge split
-    for k in ("rmse_edge", "rmse_sunny"):
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4)
-    assert got["rmse_edge"] != got["rmse_sunny"]
-    assert min(got["rmse_edge"], got["rmse_sunny"]) <= got["rmse_100"] <= (
-        max(got["rmse_edge"], got["rmse_sunny"]))
-
-
-def test_cli_serve_writes_one_depth_map_per_frame(corpus, tmp_path,
-                                                  capsys):
-    _, split, pth = corpus
-    out = tmp_path / "served"
-    assert cli.main(["serve", "--split", str(split),
-                     "--checkpoint", str(pth), "--serve-batch", "4",
-                     "--out", str(out), "--device", "cpu"] + TINY_FLAGS) == 0
-    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert stats["frames"] == 6 and stats["frames_processed"] == 6.0
-    maps = sorted(out.glob("*_depth.npy"))
-    assert [p.name for p in maps] == [f"{i:05d}_depth.npy" for i in range(6)]
-    for p in maps:
-        d = np.load(p)
-        assert d.shape == HW and np.isfinite(d).all()
-        assert 0.0 <= d.min() and d.max() <= 100.0
-
-
-@pytest.fixture(scope="module")
-def seg_runs(corpus, jax_runs):
-    """``cli test`` of the JAX package and of the port on the 6-frame
-    corpus at --preset sup_unsup_seg, tiny widths, fp32; the port's ``cli
-    serve`` of the same, and the JAX engine's forward on those frames."""
-    tmp, split, _ = corpus
-    pth, jobs = jax_runs
-    assert cli.main(_test_argv(split, pth, seg=True) + [
-        "--report-json", str(tmp / "seg.json"), "--device", "cpu"]) == 0
-    assert cli.main(["serve", "--serve-batch", "4", "--out",
-                     str(tmp / "served"), "--device", "cpu"]
-                    + _common(split, pth, seg=True)) == 0
-    assert jobs["seg_test"].result() == 0
-    return (json.loads((tmp / "jseg.json").read_text()),
-            json.loads((tmp / "seg.json").read_text()),
-            jobs["seg_engine"].result(), tmp / "served")
-
-
-def test_cli_test_seg_report_matches_jax(seg_runs, capsys):
-    want, got, _, _ = seg_runs
-    assert got.keys() == want.keys() and "iou" in got
-    compared = [k for k in want if k not in TIMING_KEYS]
-    assert len(compared) == 19 and got["frames"] == 6.0
-    for k in compared:
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4,
-                                   err_msg=k)
-    assert 0.0 < got["iou"] < 1.0
-
-
-def test_cli_serve_writes_seg_labels_of_the_jax_engine(seg_runs):
-    """One uint8 label map per frame beside its depth map, agreeing with
-    the JAX engine's labels; depth within 1e-3 at >= 99 % of the pixels
-    (a flipped near-tie guidance pixel moves the depth near it,
-    tests/test_torch_model.py)."""
-    _, _, engine, port_dir = seg_runs
-    names = sorted(p.name for p in port_dir.glob("*_seg.npy"))
-    assert names == [f"{i:05d}_seg.npy" for i in range(6)]
-    got = np.stack([np.load(port_dir / n) for n in names])
-    assert got.dtype == engine["seg"].dtype == np.uint8
-    assert got.shape == (6,) + HW and got.max() < 21
-    agree = float(np.mean(got == engine["seg"]))
-    assert agree >= 0.995, agree
-    depth = np.stack([np.load(port_dir / f"{i:05d}_depth.npy")
-                      for i in range(6)])
-    err = np.abs(depth - engine["depth"])
-    assert (err <= 1e-3 + 1e-3 * np.abs(engine["depth"])).mean() >= 0.99
-
-
-def test_cli_tpu_decoder_refuses_a_reference_checkpoint(corpus, capsys):
-    _, split, pth = corpus
-    for command in ("test", "serve"):
-        rc = cli.main([command, "--tpu-decoder", "--split", str(split),
-                       "--checkpoint", str(pth), "--device", "cpu"]
-                      + TINY_FLAGS)
-        err = capsys.readouterr().err.strip()
-        assert rc == 2 and "tpu_decoder variant" in err, err
-        assert err.startswith("error:") and "\n" not in err
-
-
-# serving on a mesh needs a rank per share (cli serve on one process has
-# one), and a mesh.* layout is training's: each refused in one line
-@pytest.mark.parametrize("extra,item", [
-    (["--http-port", "0", "--data-parallel", "2"], "needs 2 ranks, have 1"),
-    (["--set", "mesh.spatial_parallel=2"], "--spatial-parallel"),
-    (["--data-parallel", "2"], "needs 2 ranks, have 1"),
-    (["--spatial-parallel", "2"], "needs 2 ranks, have 1"),
-    (["--set", "mesh.data_parallel=2"], "mesh.* layout"),
-])
-def test_cli_refuses_options_of_later_slices(corpus, capsys, extra, item):
-    _, split, pth = corpus
-    rc = cli.main(["serve", "--split", str(split),
-                   "--checkpoint", str(pth), "--device", "cpu"]
-                  + TINY_FLAGS + extra)
-    assert rc == 2
-    assert item in capsys.readouterr().err
-
-
-def test_cli_refuses_artifact_checkpoints(capsys, tmp_path):
-    """A StableHLO artifact of the JAX package is refused in one line (the
-    port serves its own artifacts, tests/test_torch_export.py), and so is
-    a missing one."""
-    jax_artifact = tmp_path / "model.hlo"
-    jax_artifact.write_bytes(b"CRDSHLO1" + bytes(8))
-    for path, match in ((jax_artifact, "JAX StableHLO artifact"),
-                        (tmp_path / "missing.hlo", "No such file")):
-        assert cli.main(["test", "--checkpoint", str(path),
-                         "--device", "cpu"]) == 2
-        err = capsys.readouterr().err.strip()
-        assert match in err and "\n" not in err, err
-
-
-def test_cli_defaults_to_the_card(corpus):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the default device is usable")
-    _, split, pth = corpus
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["test", "--split", str(split),
-                  "--checkpoint", str(pth)] + TINY_FLAGS)

@@ -856,3 +856,23 @@ def test_vmapped_trial_step_launches_once_per_call(cuda):
     # trials than for 1 (measured 4.0e-5 relative); the bf16 step's loss
     # limit of PERF.md section 2
     torch.testing.assert_close(losses, one.expand(3), rtol=2e-3, atol=0)
+
+
+def test_run_bench_on_the_card(cuda):
+    """bench.run_bench at base 416x800, bf16, batch 8 on the card: each
+    timed forward launches 34 / 5 / 53 kernels (base + tpu_decoder: 34 / 3
+    / 53), and the roofline's attainable floor lies at or under the
+    measured ms per frame."""
+    from camradepth_tpu_torch import bench
+    from camradepth_tpu_torch.config import preset
+
+    cfg = preset("base")
+    for tpu_decoder, want in ((False, (34, 5, 53)), (True, (34, 3, 53))):
+        c = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  tpu_decoder=tpu_decoder))
+        r = bench.run_bench(c, device=cuda, batch=8, iters=4)
+        got = tuple(r["launches_per_forward"][k] for k in (
+            "maxpool_attention_scores", "upsample_bicubic_x2", "gelu_bf16"))
+        assert got == want, got
+        assert r["fps"] > 0 and r["batch1_latency_ms"] > 0
+        assert 0 < r["attainable_ms_per_frame"] <= 1e3 / r["fps"], r

@@ -1,5 +1,8 @@
-"""The port's model (camradepth_tpu_torch.models) against the JAX package
-and the committed reference goldens, on the CPU.
+"""The port's whole model (camradepth_tpu_torch.models) against the JAX
+package's, on the CPU, and the helpers of its module and golden tests
+(tests/test_torch_model_{layers,heads,ops,goldens}.py, kept apart from
+this file so that each queues behind the suite's longest file under ``--dist
+loadfile``).
 
 Flax parameter trees (the JAX modules' init structure, numpy-seeded
 values) come across through the port's state_dict_from_flax; inputs are
@@ -29,9 +32,10 @@ Tolerances:
   near-tie pixels flip between frameworks (tests/test_flagship_golden.py:
   131-140): a disagreement at most 1.5 times the JAX model's own
   bf16-vs-fp32 disagreement plus 0.5 %;
-- seg_block, space_to_depth and depth_to_space: bit for bit in both
-  dtypes;
-- the goldens: the tolerances of tests/test_flagship_golden.py:104-154,
+- seg_block, space_to_depth and depth_to_space (test_torch_model_ops.py):
+  bit for bit in both dtypes;
+- the goldens (test_torch_model_goldens.py): the tolerances of
+  tests/test_flagship_golden.py:104-154,
   tests/test_flagship_golden_fullres.py:42-45 and
   tests/test_tpu_decoder_golden.py:76-79.
 """
@@ -47,23 +51,11 @@ import pytest
 import torch
 
 from camradepth_tpu.config import ModelConfig as JaxModelConfig
-from camradepth_tpu.interop import golden as jax_golden
-from camradepth_tpu.interop.torch_convert import flax_params_to_state_dict
-from camradepth_tpu.models import encoder as jenc
-from camradepth_tpu.models import layers as jlay
 from camradepth_tpu.models.camradepth import CamRaDepth as JaxCamRaDepth
-from camradepth_tpu_torch.config import ModelConfig, preset
+from camradepth_tpu_torch.config import ModelConfig
 from camradepth_tpu_torch.interop.flax_convert import state_dict_from_flax
-from camradepth_tpu_torch.interop.golden import (
-    flax_param_shapes,
-    golden_input,
-    shapes_from_json,
-    synth_flax_params,
-    synth_state_values,
-)
-from camradepth_tpu_torch.models import encoder as tenc
-from camradepth_tpu_torch.models import layers as tlay
-from camradepth_tpu_torch.models.camradepth import CamRaDepth, create_model
+from camradepth_tpu_torch.interop.golden import shapes_from_json
+from camradepth_tpu_torch.models.camradepth import create_model
 from tests.torch_port import one_torch_thread  # noqa: F401
 
 GOLDENS = Path(__file__).parent / "goldens"
@@ -145,184 +137,12 @@ def small_jax_model():
     return model, _jax_init(model, x, deterministic=True)
 
 
-def test_state_dict_from_flax_matches_jax_converter(small_jax_model):
-    _, params = small_jax_model
-    want = flax_params_to_state_dict(params)
-    got = state_dict_from_flax(params)
-    assert sorted(got) == sorted(want)
-    for key in want:
-        assert got[key].shape == want[key].shape, key
-        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-
-
-def test_state_dict_loads_strictly_into_port(small_jax_model):
-    _, params = small_jax_model
-    sd = state_dict_from_flax(params)
-    model = create_model(ModelConfig(**SMALL, compute_dtype="float32"),
-                         device="cpu", state_dict=sd)
-    assert sorted(model.state_dict()) == sorted(sd)
-
-
-@pytest.mark.parametrize("dim,heads,ratio,sr,hw", [
-    (16, 1, 2, 8, (16, 32)), (32, 2, 4, 4, (8, 16)), (64, 8, 4, 1, (2, 4)),
-])
-def test_block_matches_flax(dim, heads, ratio, sr, hw):
-    jmod = jenc.Block(dim, heads, mlp_ratio=ratio, sr_ratio=sr,
-                      dtype=jnp.float32)
-    x = _rand((2, hw[0] * hw[1], dim), 10)
-    params = _jax_init(jmod, jnp.asarray(x), hw)
-    want = np.asarray(jax.jit(lambda p, v: jmod.apply({"params": p}, v, hw))(
-        params, jnp.asarray(x)))
-    port = _carry(tenc.Block(dim, heads, ratio, sr), params)
-    with torch.no_grad():
-        got = port(torch.from_numpy(x), hw).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("in_ch,feat,patch,stride", [(7, 16, 7, 4),
-                                                     (16, 32, 3, 2)])
-def test_overlap_patch_embed_matches_flax(in_ch, feat, patch, stride):
-    jmod = jenc.OverlapPatchEmbed(feat, patch, stride, dtype=jnp.float32)
-    x = _rand((2, 20, 36, in_ch), 11)
-    params = _jax_init(jmod, jnp.asarray(x))
-    want = np.asarray(jax.jit(lambda p, v: jmod.apply({"params": p}, v))(
-        params, jnp.asarray(x)))
-    port = _carry(tenc.OverlapPatchEmbed(in_ch, feat, patch, stride), params)
-    with torch.no_grad():
-        got = port(torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("in_ch,skip_ch", [(33, 0), (32, 7)])
-def test_decoder_matches_flax(in_ch, skip_ch):
-    jmod = jlay.Decoder(32, has_skip=bool(skip_ch), dtype=jnp.float32)
-    x = _rand((2, 5, 9, in_ch), 12)
-    args = [jnp.asarray(x)]
-    skip = None
-    if skip_ch:
-        skip = _rand((2, 10, 18, skip_ch), 13)
-        args.append(jnp.asarray(skip))
-    params = _jax_init(jmod, *args)
-    want = np.asarray(jax.jit(lambda p, *a: jmod.apply({"params": p}, *a))(
-        params, *args))
-    port = _carry(tlay.Decoder(in_ch, 32, skip_ch), params)
-    with torch.no_grad():
-        got = port(torch.from_numpy(x),
-                   None if skip is None else torch.from_numpy(skip)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
-def test_depth_activation_matches_flax():
-    jmod = jlay.DepthActivation(1, dtype=jnp.float32)
-    x = _rand((2, 12, 20, 33), 14)
-    params = _jax_init(jmod, jnp.asarray(x))
-    want = np.asarray(jax.jit(lambda p, v: jmod.apply({"params": p}, v))(
-        params, jnp.asarray(x)))
-    port = _carry(tlay.DepthActivation(33), params)
-    with torch.no_grad():
-        got = port(torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-
-
 def _bf16_rule(got, want, ref32, what):
     """bf16 against the JAX bf16 output: at most 1.5 times the JAX
     module's own bf16-vs-fp32 error, in mean and in max."""
     err, own = np.abs(got - want), np.abs(want - ref32)
     assert err.mean() <= 1.5 * own.mean(), (what, err.mean(), own.mean())
     assert err.max() <= 1.5 * own.max(), (what, err.max(), own.max())
-
-
-def _module_vs_flax(make_jax, port, args, dtype, head=None):
-    """A flax module (``make_jax(dtype)``) and the port's counterpart on
-    the same numpy-seeded parameters and inputs ``args``, held in fp32 to
-    1e-4 and in bf16 by :func:`_bf16_rule`. The port's fp32 parameters
-    are cast at use, as in training."""
-    jargs = [jnp.asarray(a) for a in args]
-    params = _jax_init(make_jax(jnp.float32), *jargs)
-
-    def run(dt):
-        jmod = make_jax(dt)
-        out = jax.jit(lambda p, *a: jmod.apply({"params": p}, *a))(
-            params, *[a.astype(dt) for a in jargs])
-        return np.asarray(out.astype(jnp.float32))
-
-    tdt = getattr(torch, dtype)
-    port = _carry(port, params, head)
-    with torch.no_grad():
-        got = port(*[torch.from_numpy(a).to(tdt) for a in args])
-    got = got.float().numpy()
-    want32 = run(jnp.float32)
-    assert got.shape == want32.shape
-    if dtype == "float32":
-        np.testing.assert_allclose(got, want32, rtol=1e-4, atol=1e-4)
-    else:
-        _bf16_rule(got, run(jnp.bfloat16), want32, type(port).__name__)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_seg_conv_matches_flax(dtype):
-    x = _rand((2, 6, 10, 33), 17)
-    _module_vs_flax(lambda dt: jlay.SegConv(21, dtype=dt),
-                    tlay.SegConv(33, 21), [x], dtype, "seg_conv_final")
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("skip_ch,upsample_out", [(0, True), (7, False)])
-def test_tpu_decoder_matches_flax(skip_ch, upsample_out, dtype):
-    args = [_rand((2, 5, 9, 33), 18)]
-    if skip_ch:
-        args.append(_rand((2, 10, 18, skip_ch), 19))
-    _module_vs_flax(
-        lambda dt: jlay.TPUDecoder(32, has_skip=bool(skip_ch),
-                                   upsample_out=upsample_out, dtype=dt),
-        tlay.TPUDecoder(33, 32, skip_ch, upsample_out=upsample_out),
-        args, dtype)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_subpixel_depth_activation_matches_flax(dtype):
-    x = _rand((2, 6, 10, 40), 20)
-    _module_vs_flax(lambda dt: jlay.SubpixelDepthActivation(1, dtype=dt),
-                    tlay.SubpixelDepthActivation(40), [x], dtype)
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_seg_block_matches_jax_bit_for_bit(dtype):
-    """Logits of few distinct values, so that most pixels hold exact ties
-    among their largest classes: the first index wins on both sides."""
-    rng = np.random.default_rng(23)
-    logits = rng.integers(0, 3, (2, 7, 9, 21)).astype(np.float32) * 0.75
-    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
-    for n in (21, 19):
-        v = logits[..., :n]
-        got = tlay.seg_block(torch.from_numpy(v).to(tdt), n)
-        want = jlay.seg_block(jnp.asarray(v, jdt), n)
-        assert got.dtype == tdt and got.shape == (2, 7, 9, 1)
-        np.testing.assert_array_equal(got.float().numpy(),
-                                      np.asarray(want, np.float32))
-        ties = (v == v.max(-1, keepdims=True)).sum(-1) > 1
-        assert ties.mean() > 0.5
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_space_to_depth_matches_jax_bit_for_bit(dtype):
-    x = _rand((2, 6, 10, 5), 24)
-    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
-    t = torch.from_numpy(x).to(tdt)
-    s2d = tlay.space_to_depth(t)
-    np.testing.assert_array_equal(
-        s2d.float().numpy(),
-        np.asarray(jlay.space_to_depth(jnp.asarray(x, jdt)), np.float32))
-    assert s2d.shape == (2, 3, 5, 20)
-    d2s = tlay.depth_to_space(s2d)
-    np.testing.assert_array_equal(
-        d2s.float().numpy(),
-        np.asarray(jlay.depth_to_space(jnp.asarray(s2d.float().numpy(),
-                                                   jdt)), np.float32))
-    assert torch.equal(d2s, t)
-    # not torch's pixel_unshuffle, which orders the blocks (C, row, col)
-    shuffled = torch.pixel_unshuffle(t.permute(0, 3, 1, 2), 2)
-    assert not torch.equal(shuffled.permute(0, 2, 3, 1), s2d)
 
 
 def _outputs(out):
@@ -491,108 +311,6 @@ def _golden(name):
     return out
 
 
-def _golden_forward(golden, hw, name="base", state_dict=None, **kw):
-    cfg = dataclasses.replace(preset(name).model, img_size=hw,
-                              compute_dtype="float32", **kw)
-    if state_dict is None:
-        state_dict = synth_state_values(golden["shapes"])
-    model = create_model(cfg, device="cpu", state_dict=state_dict)
-    with torch.no_grad():
-        return model(torch.from_numpy(golden_input(hw)))
-
-
-def test_port_matches_committed_golden_128x256():
-    """The base preset's full depths (3,10,16,5) and widths at 128x256,
-    reference weights synthesized from the committed shape table."""
-    golden = _golden("flagship_128x256.npz")
-    out = _golden_forward(golden, (128, 256))
-    np.testing.assert_allclose(out["depth"]["final_depth"].numpy(),
-                               golden["final_depth"], rtol=2e-3, atol=5e-4)
-    np.testing.assert_allclose(out["depth"]["intermediate_depths"][2].numpy(),
-                               golden["inter2"], rtol=2e-3, atol=5e-4)
-    np.testing.assert_allclose(out["depth"]["intermediate_depths"][3].numpy(),
-                               golden["inter3"], rtol=2e-3, atol=5e-4)
-
-
-def test_port_matches_committed_golden_416x800():
-    """The shipping geometry (fp16 maps plus an fp32 crop anchor)."""
-    golden = _golden("flagship_416x800.npz")
-    out = _golden_forward(golden, (416, 800))
-    final = out["depth"]["final_depth"].numpy()
-    cy, cx = golden["crop_yx"]
-    np.testing.assert_allclose(final[:, cy:cy + 64, cx:cx + 128],
-                               golden["final_depth_crop"], rtol=2e-3,
-                               atol=5e-4)
-    np.testing.assert_allclose(final,
-                               golden["final_depth_f16"].astype(np.float32),
-                               rtol=2e-3, atol=1.5e-3)
-    np.testing.assert_allclose(out["depth"]["intermediate_depths"][2].numpy(),
-                               golden["inter2"], rtol=2e-3, atol=5e-4)
-    np.testing.assert_allclose(
-        out["depth"]["intermediate_depths"][3].numpy(),
-        golden["inter3_f16"].astype(np.float32), rtol=2e-3, atol=1.5e-3)
-
-
-def test_port_matches_committed_seg_golden_128x256():
-    """sup_unsup_seg at the full depths and widths at 128x256, reference
-    weights synthesized from the committed shape table, with the limits
-    of tests/test_flagship_golden.py:118-154: the depth heads read the
-    argmax guidance maps, so a flipped near-tie pixel moves depth near
-    it."""
-    golden = _golden("flagship_seg_128x256.npz")
-    out = _golden_forward(golden, (128, 256), "sup_unsup_seg")
-    seg = out["seg"]["final_seg"].numpy()
-    cy, cx = golden["crop_yx"]
-    np.testing.assert_allclose(seg[:, cy:cy + 32, cx:cx + 64],
-                               golden["final_seg_crop"], rtol=2e-3,
-                               atol=1e-3)
-    flips = seg.argmax(-1) != golden["final_seg_argmax"]
-    assert flips.mean() < 0.005, flips.mean()
-    unsup = out["seg"]["unsup_map"].numpy() == golden["unsup_map"]
-    assert unsup.mean() > 0.995, unsup.mean()
-    got = out["depth"]["final_depth"].numpy()[0, ..., 0]
-    want = golden["final_depth"][0, ..., 0]
-    err = np.abs(got - want)
-    assert (err <= 5e-4 + 2e-3 * np.abs(want)).mean() > 0.995
-    assert np.median(err) < 2e-4 and err.max() < 0.2
-    np.testing.assert_allclose(out["depth"]["intermediate_depths"][2].numpy(),
-                               golden["inter2"], rtol=2e-3, atol=5e-4)
-
-
-def test_port_matches_committed_tpu_decoder_golden_128x256():
-    """base with tpu_decoder at the full depths and widths at 128x256:
-    flax parameters synthesized by the port's own golden copy from the
-    committed flax shape table, carried by state_dict_from_flax."""
-    golden = _golden("tpu_decoder_128x256.npz")
-    sd = state_dict_from_flax(synth_flax_params(golden["shapes"]))
-    out = _golden_forward(golden, (128, 256), state_dict=sd,
-                          tpu_decoder=True)
-    d = out["depth"]
-    for key, got in (("final_depth", d["final_depth"]),
-                     ("inter_depth_3", d["intermediate_depths"][2]),
-                     ("inter_depth_4", d["intermediate_depths"][3])):
-        np.testing.assert_allclose(got.numpy(), golden[key], rtol=5e-4,
-                                   atol=5e-6, err_msg=key)
-
-
-def test_golden_synthesis_matches_jax_package():
-    """The port's flax_param_shapes and synth_flax_params give the JAX
-    package's shape table and values bit for bit, from the tpu_decoder
-    golden's table."""
-    shapes = _golden("tpu_decoder_128x256.npz")["shapes"]
-    want = jax_golden.synth_flax_params(shapes)
-    got = synth_flax_params(shapes)
-    assert flax_param_shapes(got) == jax_golden.flax_param_shapes(want) == (
-        shapes)
-    flat_want = jax.tree_util.tree_leaves_with_path(want)
-    assert len(flat_want) == len(shapes)
-    for path, w in flat_want:
-        g = got
-        for p in path:
-            g = g[p.key]
-        np.testing.assert_array_equal(g, w)
-
-
 def test_state_dict_from_flax_covers_every_variant_leaf(whole_model_jax):
     """tpu_decoder + sup_unsup: every flax leaf lands on its own port key,
     and the state_dict loads strictly."""
@@ -605,72 +323,3 @@ def test_state_dict_from_flax_covers_every_variant_leaf(whole_model_jax):
     assert sorted(model.state_dict()) == sorted(sd)
     assert "depth_upsample.3.conv_0.model.0.weight" in sd
     assert "seg_upsample.1.conv_2.model.1.bias" in sd
-
-
-def test_reference_seg_layout_and_the_tpu_decoder_refusal():
-    """The port's sup_unsup_seg has the reference layout, key for key and
-    shape for shape (the golden's table; test_port_matches_committed_seg_
-    golden_128x256 loads it strictly); a reference-layout state_dict given
-    to the tpu_decoder variant fails the strict load (the CLI turns that
-    into a one-line error, tests/test_torch_eval.py)."""
-    shapes = _golden("flagship_seg_128x256.npz")["shapes"]
-    cfg = dataclasses.replace(preset("sup_unsup_seg").model,
-                              img_size=(128, 256))
-    with torch.device("meta"):
-        model = CamRaDepth(cfg)
-    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == (
-        shapes)
-    small = ModelConfig(**SMALL, **VARIANTS["sup_unsup"])
-    sd = create_model(small, device="cpu").state_dict()
-    with pytest.raises(RuntimeError, match="Missing key"):
-        create_model(dataclasses.replace(small, tpu_decoder=True),
-                     device="cpu", state_dict=sd)
-
-
-def test_bf16_sigmoid_matches_jax_on_every_input():
-    """The depth heads' bf16 sigmoid and its VJP equal XLA's (1 / (1 +
-    exp(-x)) and g * (y * (1 - y)), each operation rounded) bit for bit on
-    every finite bf16 input, against a seeded bf16 cotangent, except where
-    XLA flushes a subnormal result to zero (both then lie under 1.2e-38).
-    torch's one-rounding sigmoid differs from XLA's on about 1,100 of
-    these inputs."""
-    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
-    x = torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16)
-    x = x[torch.isfinite(x)]
-    g = torch.from_numpy(_rand((x.numel(),), 22)).to(torch.bfloat16)
-
-    def vjp(v, c):
-        y, back = jax.vjp(jax.nn.sigmoid, v)
-        return y, back(c)[0]
-
-    def to_jax(t):
-        return jnp.asarray(t.view(torch.int16).numpy()).view(jnp.bfloat16)
-
-    want = [np.asarray(v.astype(jnp.float32))
-            for v in jax.jit(vjp)(to_jax(x), to_jax(g))]
-    xg = x.clone().requires_grad_(True)
-    y = tlay.sigmoid_for_dtype(xg)
-    y.backward(g)
-    assert y.dtype == xg.grad.dtype == torch.bfloat16
-    for got, w in zip((y.detach(), xg.grad), want):
-        got = got.float().numpy()
-        flushed = (np.abs(got) < 1.2e-38) & (np.abs(w) < 1.2e-38)
-        assert (got != w).sum() < 10
-        np.testing.assert_array_equal(got[~flushed], w[~flushed])
-    one = torch.sigmoid(x).float().numpy()
-    assert (one != want[0]).sum() > 1000
-
-
-def test_bf16_conv_on_cpu_is_a_rounded_fp32_conv():
-    """The encoder's strided 8x8 sr-conv in bf16 on the CPU equals the fp32
-    convolution of the same bf16 values, rounded once to bf16 (as cuDNN and
-    XLA compute it), with the bias then added in bf16 (as flax adds it)."""
-    conv = tlay.Conv2d(16, 16, 8, 8).to(torch.bfloat16)
-    x = torch.from_numpy(_rand((2, 64, 64, 16), 16)).to(torch.bfloat16)
-    with torch.no_grad():
-        got = conv(x)
-        want = torch.nn.functional.conv2d(
-            x.permute(0, 3, 1, 2).float(), conv.weight.float(),
-            stride=8).to(torch.bfloat16).permute(0, 2, 3, 1) + conv.bias
-    assert got.dtype == torch.bfloat16
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
